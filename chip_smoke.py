@@ -5,11 +5,20 @@
 
 Phases, in order; any failure is an uncaught exception and a non-zero exit:
 
-1. build   -- nvcc builds the kernels of ``csrc/`` (sm_90a); prints seconds.
-2. kernels -- each kernel against its plain PyTorch version at the main
-   path's [128,224,224,3] float32: pgd_step and quantize bit-exact, the
-   Philox noise held to its distribution; kernel, plain, bound and (where
-   one exists) library times.
+1. build   -- nvcc builds each source of ``csrc/`` (sm_90a), one process per
+   source, all started together; prints seconds.
+2. kernels -- each elementwise kernel against its plain PyTorch version at
+   the main path's [128,224,224,3] float32: pgd_step and quantize
+   bit-exact, the Philox noise held to its distribution; kernel, plain,
+   bound and (where one exists) library times.
+2b. conv   -- the 3x3 conv kernel against its plain version at the probe's
+   [128,56,56,64] x [3,3,64,64] bfloat16: every element in the bf16
+   rounding interval of a float32 sum (one bf16 ulp but where the products
+   cancel), fewer than 0.1% more than one ulp apart; the float32
+   instantiation at batch 8 and 128 within 1e-5 of the largest output, and
+   its times at batch 128 beside cuDNN's (TF32 off); cuDNN's
+   F.conv2d within the probe's 3e-2; then the probe's entry point, in this
+   process (its launches count) and as a subprocess at its defaults.
 3. classify -- ResNet-50 at full width, 224x224, bfloat16, random weights
    from a seed, on a batch of 128; float32 logits of the card held against
    the CPU on two images within 1e-5 relative, a limit that the same logits
@@ -21,8 +30,14 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
 5. cell    -- one pgd attack -> defend -> detect cell through
    ``evaluate_defenses_batch`` with the threshold from
    ``calibrate_feature_threshold``; quantize launched; its summary line.
+5b. cw    -- CW-L2 (100 Adam steps, c = 10) on the same batch: x_adv in
+   [0,1], some samples successful, and every one of them misclassified at
+   the returned image.
+5c. cells  -- pgd cells with the JPEG arm (DCT codec on the card, PIL codec
+   on the host) and with the TV arm; quantize launched in each.
 6. cli     -- the classify CLI in a subprocess on a PNG, ``--attack pgd
-   --save_adv``; the saved image within eps of the clean one.
+   --save_adv``, and ``--attack cw --cw_steps 100 --save_adv``; the saved
+   pgd image within eps of the clean one.
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -42,12 +57,22 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 PKG = "image_recognition_adversarial_example_attack_tpu_torch"
 JAX_OPS = "image_recognition_adversarial_example_attack_tpu/ops/pallas_ops.py"
+JAX_PROBE = "benchmarks/pallas_conv_probe.py"
 SHAPE = (128, 224, 224, 3)
 EPS, ALPHA, STEPS, LEVELS = 8 / 255, 2 / 255, 10, 16
 # float32 logits, card vs CPU, relative to the largest logit: above a sound
 # float32 reading (~1e-6) and below what TF32 convolutions give (~1e-3)
 F32_REL_TOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor-core rate
+F32_FLOPS = 67e12          # H100 SXM float32 rate outside the tensor cores
+CW_STEPS = 100
+# The random-weight ResNet-50 puts a top-1 margin of about 1.3 logits on
+# every image; at CW's default c = 1 no sample flips in 100 steps, at c = 10
+# a few do.  So the cw phase takes c = 10: the check of the successful
+# samples has samples to check, and the output takes both branches (best
+# successful iterate, final iterate).
+CW_C = 10.0
 # name -> (TPU kernel it replaces, bytes moved per element: reads + writes)
 KERNELS = {
     "pgd_step": (f"{JAX_OPS}:105", 4 * 4),
@@ -85,14 +110,16 @@ def phase_build() -> dict:
     from image_recognition_adversarial_example_attack_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    path, nvcc_log = build.build(build.CSRC_DIR / "elementwise.cu")
-    build.load_library()
+    built = build.build_all()
+    for name in built:
+        build.load_library(name)
     seconds = time.perf_counter() - t0
-    log(f"[build] {path.name} in {seconds:.2f} s")
-    for line in nvcc_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] ptxas: {line.strip()}")
-    return {"seconds": seconds, "library": str(path)}
+    log(f"[build] {', '.join(p.name for p, _ in built.values())} in {seconds:.2f} s")
+    for _, nvcc_log in built.values():
+        for line in nvcc_log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build] ptxas: {line.strip()}")
+    return {"seconds": seconds, "libraries": [str(p) for p, _ in built.values()]}
 
 
 def _sorted_quantiles(t, n_q: int = 101):
@@ -205,6 +232,115 @@ def phase_kernels() -> dict:
         line = {"kernel": name, "shape": list(shape), "kernel_ms": r["ms"],
                 **{k: v for k, v in r.items() if k != "ms"}}
         log(f"[kernels] {json.dumps(line)}")
+    return res
+
+
+def conv_bound_ms(x, w, out) -> tuple[float, str, float, float]:
+    """(bound, what bounds it, bytes ms, flops ms) of one 3x3 conv: each
+    input read once and the output written once, against the card's memory
+    rate; 2*B*H*W*9*Cin*Cout operations against its peak for the dtype."""
+    import torch
+
+    b, h, wd, c = x.shape
+    nbytes = sum(t.numel() * t.element_size() for t in (x, w, out))
+    flops = 2 * b * h * wd * 9 * c * out.shape[-1]
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / (BF16_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS) * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations"), \
+        bytes_ms, flops_ms
+
+
+def phase_conv() -> dict:
+    """The 3x3 conv kernel against its plain version and cuDNN, then the
+    probe's entry point (the conv's main path) with its launches counted."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.benchmarks import conv_probe
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import conv3x3 as cv
+
+    dev = torch.device("cuda")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are allowed: the float32 plain version "
+                             "would not be float32")
+    x, w = conv_probe.make_inputs(128, torch.bfloat16, dev)
+    k = cv.conv3x3(x, w)
+    p = cv.conv3x3_plain(x, w)
+    lo, hi = cv.bf16_rounding_interval(x, w)
+    torch.cuda.synchronize()
+    diff = (k.float() - p.float()).abs()
+    ulp = torch.maximum(cv.bf16_ulp(k), cv.bf16_ulp(p))
+    beyond = diff > ulp
+    inside = bool(((lo <= k) & (k <= hi)).all())
+    frac_beyond = float(beyond.float().mean())
+    worst = float(p.float().abs()[beyond].max()) if bool(beyond.any()) else 0.0
+    if not inside or frac_beyond >= 1e-3:
+        raise AssertionError(f"conv3x3 bf16 kernel vs plain: in the rounding interval "
+                             f"{inside}, {frac_beyond:.2e} of elements beyond one ulp")
+    ref = conv_probe.cudnn_conv3x3(x, w)
+    rel_cudnn = float((k.float() - ref.float()).abs().max()) / float(ref.float().abs().max())
+    if not rel_cudnn < conv_probe.GATE:
+        raise AssertionError(f"conv3x3 vs F.conv2d: rel {rel_cudnn}")
+
+    f32 = {}
+    for batch in (8, 128):
+        x32, w32 = conv_probe.make_inputs(batch, torch.float32, dev)
+        k32, p32 = cv.conv3x3(x32, w32), cv.conv3x3_plain(x32, w32)
+        torch.cuda.synchronize()
+        rel32 = float((k32 - p32).abs().max()) / float(p32.abs().max())
+        if not rel32 <= 1e-5:
+            raise AssertionError(f"conv3x3 float32 kernel vs plain at batch {batch}: "
+                                 f"{rel32} of max |out|")
+        f32[f"rel_err_b{batch}"] = rel32
+    # the float32 instantiation's times at the probe's batch; cuDNN with TF32
+    # off, so that it computes the same float32 function
+    prev_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        f32["ms"] = time_ms(lambda: cv.conv3x3(x32, w32))
+        f32["plain_ms"] = time_ms(lambda: cv.conv3x3_plain(x32, w32), iters=5, warmup=1)
+        f32["library_ms"] = time_ms(lambda: conv_probe.cudnn_conv3x3(x32, w32))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev_tf32
+    f32["bound_ms"], f32["bound_by"], _, _ = conv_bound_ms(x32, w32, k32)
+    del k32, p32
+
+    out = torch.empty_like(x)
+    bound, bound_by, bytes_ms, flops_ms = conv_bound_ms(x, w, out)
+    res = {
+        "max_abs_err": float(diff.max()), "tolerance": (
+            "every element in the bf16 rounding interval of a float32 sum of its "
+            "576 exact products; fewer than 0.1% more than one bf16 ulp apart"),
+        "frac_equal": float((diff == 0).float().mean()), "frac_beyond_one_ulp": frac_beyond,
+        "largest_value_beyond_one_ulp": worst, "rel_err_vs_cudnn": rel_cudnn,
+        "float32": f32,
+        "ms": time_ms(lambda: cv.conv3x3(x, w)),
+        "plain_ms": time_ms(lambda: cv.conv3x3_plain(x, w), iters=5, warmup=1),
+        "library_ms": time_ms(lambda: conv_probe.cudnn_conv3x3(x, w)),
+        "library_call": "F.conv2d, channels_last bf16 (cuDNN)",
+        "bound_ms": bound, "bound_by": bound_by, "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+    }
+    del p, lo, hi, diff, ulp, beyond
+    log(f"[conv] {json.dumps({'kernel': 'conv3x3', 'shape': list(x.shape), **res})}")
+
+    # the probe's entry point: its launches are the conv's main path
+    cv.reset_launches()
+    probe = conv_probe.run()
+    torch.cuda.synchronize()
+    res["launches"] = cv.launch_counts()["conv3x3"]
+    res["probe"] = probe
+    log(f"[conv] probe (in process): {json.dumps(probe)}; launches {res['launches']}")
+    if res["launches"] < 1:
+        raise AssertionError("the conv probe launched no conv3x3 kernel")
+
+    proc = subprocess.run([sys.executable, "-m", f"{PKG}.benchmarks.conv_probe"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"conv probe exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if line["device"] != torch.cuda.get_device_name(0) or not line["rel_err_vs_cudnn"] < 3e-2:
+        raise AssertionError(f"conv probe printed {line}")
+    res["probe_subprocess"] = line
+    log(f"[conv] probe (subprocess): {json.dumps(line)}")
     return res
 
 
@@ -413,6 +549,103 @@ def phase_cell(state: dict) -> dict:
             "summary_line": line, "seconds": seconds}
 
 
+def phase_cw(state: dict) -> dict:
+    """CW-L2 through the function ``run_attack("cw", ...)`` dispatches to,
+    which also returns the per-sample success the check needs."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        AttackParams, cw_l2_attack, make_logits_fn)
+
+    b, x, y = state["bundle"], state["x"], state["y"]
+    lf = make_logits_fn(b.model, b.mean, b.std, input_dtype=torch.bfloat16)
+    p = AttackParams(cw_steps=CW_STEPS, cw_c=CW_C)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = cw_l2_attack(lf, x, y, c=p.cw_c, kappa=p.cw_kappa, steps=p.cw_steps, lr=p.cw_lr)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    x_adv, success = res.x_adv, res.success
+    if not (float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0):
+        raise AssertionError("cw: x_adv leaves [0,1]")
+    with torch.no_grad():
+        pred = lf(x_adv).argmax(-1)
+    fooled = pred != y
+    if not bool(success.any()):
+        raise AssertionError("cw: no sample succeeded; the check below would be empty")
+    if not bool(fooled[success].all()):
+        raise AssertionError(f"cw: {int((success & ~fooled).sum())} samples marked "
+                             f"successful are classified correctly at the returned image")
+    l2 = (x_adv - x).reshape(x.shape[0], -1).norm(dim=-1)
+    n_succ = int(success.sum())
+    mean_l2 = float(l2[success].mean()) if n_succ else float("nan")
+    log(f"[cw] CW-L2 {CW_STEPS} steps c={CW_C} resnet50@224 batch {x.shape[0]} bf16: "
+        f"{seconds * 1e3:.1f} ms per attack, {x.shape[0] / seconds:.2f} ex/s; "
+        f"success {n_succ}/{x.shape[0]}, all misclassified at the returned image; "
+        f"mean L2 of the successful {mean_l2:.4f}")
+    return {"seconds_per_attack": seconds, "ex_per_s": x.shape[0] / seconds,
+            "success": n_succ, "mean_l2_success": mean_l2}
+
+
+def phase_cells(state: dict) -> dict:
+    """pgd cells with the JPEG arm (DCT codec, host codec) and the TV arm."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import DefenseConfig
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.defense_eval import (
+        DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch, summary_line)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    b, x, y = state["bundle"], state["x"], state["y"]
+    lf, ff = make_fns(b)
+    thr = state["threshold"]
+    arms = {"jpeg_dct": DefenseConfig(use_jpeg=True, jpeg_mode="dct"),
+            "jpeg_host": DefenseConfig(use_jpeg=True, jpeg_mode="host"),
+            "tv": DefenseConfig(use_tv=True)}
+    out = {}
+    for name, defense in arms.items():
+        cfg = DefenseEvalConfig(attack_name="pgd", eps=EPS, alpha=ALPHA, steps=STEPS,
+                                defense=defense)
+        ew.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate_defenses_batch(lf, ff, x, y, thr, cfg, generator_from_seed(2))
+        stats = aggregate_stats(res)
+        seconds = time.perf_counter() - t0
+        counts = ew.launch_counts()
+        if counts != {"pgd_step": STEPS, "quantize": 1, "uniform_noise": 1}:
+            raise AssertionError(f"{name} cell launches {counts}")
+        _check_ball(res["x_adv"], x, EPS, name)
+        if stats["count"] != x.shape[0] or any(
+                not 0 <= stats[k] <= stats["count"] for k in stats):
+            raise AssertionError(f"{name}: counters out of range: {stats}")
+        line = summary_line("pgd", EPS, stats)
+        log(f"[cells] {name}: launches {counts}; {seconds:.3f} s")
+        log(f"[cells] {name}: {line}")
+        out[name] = {"launches": counts, "stats": stats, "summary_line": line,
+                     "seconds": seconds}
+    return out
+
+
+def _run_cli(img: Path, adv: Path, *attack_args: str):
+    cmd = [sys.executable, "-m", f"{PKG}.cli.classify", str(img), *attack_args,
+           "--save_adv", str(adv)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"classify CLI exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    title = f"Adversarial ({attack_args[1]}):"
+    for want in ("Clean:", title, "Top 5: "):
+        if want not in proc.stdout:
+            raise AssertionError(f"classify CLI printed no '{want}':\n{proc.stdout}")
+    if not adv.is_file():
+        raise AssertionError(f"classify CLI saved no {adv.name}")
+    return proc, seconds
+
+
 def phase_cli() -> dict:
     import numpy as np
     from PIL import Image
@@ -424,25 +657,23 @@ def phase_cli() -> dict:
         adv = Path(tmp) / "adv.png"
         rng = np.random.RandomState(0)
         Image.fromarray((rng.rand(256, 300, 3) * 255).astype(np.uint8)).save(img)
-        cmd = [sys.executable, "-m", f"{PKG}.cli.classify", str(img),
-               "--attack", "pgd", "--save_adv", str(adv)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                              timeout=600)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"classify CLI exit {proc.returncode}:\n{proc.stderr[-4000:]}")
-        for want in ("Clean:", "Adversarial (pgd):", "Top 5: "):
-            if want not in proc.stdout:
-                raise AssertionError(f"classify CLI printed no '{want}':\n{proc.stdout}")
+        proc, seconds = _run_cli(img, adv, "--attack", "pgd")
         saved = np.asarray(Image.open(adv), np.float32) / 255.0
         linf = float(np.abs(saved - load_image(img)[0]).max())
         if not linf <= EPS + 0.5 / 255 + 1e-6:
             raise AssertionError(f"saved adversarial image is {linf} from the clean one")
-    log(f"[cli] classify --attack pgd --save_adv: exit 0 in {seconds:.1f} s; "
-        f"saved image within {linf:.5f} of the clean one (eps + 0.5/255 allowed)")
-    log("[cli] " + " | ".join(proc.stdout.strip().splitlines()[:4]))
-    return {"seconds": seconds, "linf_png": linf}
+        log(f"[cli] classify --attack pgd --save_adv: exit 0 in {seconds:.1f} s; "
+            f"saved image within {linf:.5f} of the clean one (eps + 0.5/255 allowed)")
+        log("[cli] " + " | ".join(proc.stdout.strip().splitlines()[:4]))
+        adv_cw = Path(tmp) / "adv_cw.png"
+        proc_cw, seconds_cw = _run_cli(img, adv_cw, "--attack", "cw",
+                                       "--cw_steps", str(CW_STEPS))
+        saved = np.asarray(Image.open(adv_cw), np.float32) / 255.0
+        l2_cw = float(np.linalg.norm(saved - load_image(img)[0]))
+        log(f"[cli] classify --attack cw --cw_steps {CW_STEPS} --save_adv: exit 0 in "
+            f"{seconds_cw:.1f} s; saved image at L2 {l2_cw:.4f} from the clean one")
+        log("[cli] " + " | ".join(proc_cw.stdout.strip().splitlines()[7:10]))
+    return {"seconds": seconds, "linf_png": linf, "cw_seconds": seconds_cw, "cw_l2_png": l2_cw}
 
 
 def main(argv=None) -> int:
@@ -471,19 +702,23 @@ def main(argv=None) -> int:
     record = {"card": smi, "torch": torch.__version__}
     record["build"] = phase_build()
     record["kernels"] = phase_kernels()
+    record["conv"] = phase_conv()
     state = phase_classify()
     record["classify"] = {k: v for k, v in state.items() if k not in ("bundle", "x", "y")}
     record["pgd"] = phase_pgd(state)
     record["cell"] = phase_cell(state)
+    state["threshold"] = record["cell"]["threshold"]
+    record["cw"] = phase_cw(state)
+    record["cells"] = phase_cells(state)
     record["cli"] = phase_cli()
 
-    main_path = {k: record["pgd"]["launches"][k] + record["cell"]["launches"][k]
-                 for k in ew.LAUNCHES}
+    # the elementwise kernels' main path: PGD-10 and the four cells; the
+    # conv's: the probe's entry point
+    runs = [record["pgd"], record["cell"], *record["cells"].values()]
+    main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():
         r = record["kernels"][name]
-        if main_path[name] < 1:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"{PKG}/csrc/elementwise.cu", "replaces": replaces,
@@ -491,6 +726,16 @@ def main(argv=None) -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"],
         })
+    c = record["conv"]
+    kernels.append({
+        "name": "conv3x3", "route": "cuda", "source": f"{PKG}/csrc/conv3x3.cu",
+        "replaces": f"{JAX_PROBE}:78", "launches": c["launches"],
+        "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+    })
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"kernel {k['name']} was not launched on the main path")
     record["kernels_line"] = kernels
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

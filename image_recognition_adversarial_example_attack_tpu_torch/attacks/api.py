@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..core.constants import DEFAULT_ALPHA, DEFAULT_EPS, DEFAULT_STEPS
+from ..core.constants import (DEFAULT_ALPHA, DEFAULT_CW_C, DEFAULT_CW_KAPPA, DEFAULT_CW_LR,
+                              DEFAULT_EPS, DEFAULT_STEPS)
 from ..core.normalize import normalize_batch
 from ..core.rng import generator_from_seed
 
@@ -63,11 +64,15 @@ def input_grad(logits_fn: LogitsFn, x: torch.Tensor, y: torch.Tensor) -> torch.T
 
 @dataclass(frozen=True)
 class AttackParams:
-    """The parameters that the ported attacks (fgsm, pgd) read."""
+    """The parameters that the ported attacks (fgsm, pgd, cw) read."""
 
     eps: float = DEFAULT_EPS
     alpha: float = DEFAULT_ALPHA
     steps: int = DEFAULT_STEPS
+    cw_c: float = DEFAULT_CW_C
+    cw_kappa: float = DEFAULT_CW_KAPPA
+    cw_steps: int = 100
+    cw_lr: float = DEFAULT_CW_LR
     random_start: bool = True
 
 
@@ -86,7 +91,17 @@ def _run_pgd(logits_fn, x, y_true, params, generator, y_target):
         random_start=params.random_start, y_target=y_target)
 
 
-_DISPATCH = {"fgsm": _run_fgsm, "pgd": _run_pgd}
+def _run_cw(logits_fn, x, y_true, params, generator, y_target):
+    from .cw import cw_l2_attack
+
+    res = cw_l2_attack(
+        logits_fn, x, y_true, c=params.cw_c, kappa=params.cw_kappa,
+        steps=params.cw_steps, lr=params.cw_lr, targeted=y_target is not None,
+        y_target=y_target)
+    return res.x_adv
+
+
+_DISPATCH = {"fgsm": _run_fgsm, "pgd": _run_pgd, "cw": _run_cw}
 ATTACK_NAMES: tuple[str, ...] = tuple(_DISPATCH)
 
 
@@ -94,7 +109,7 @@ def run_attack(attack_name: str, logits_fn: LogitsFn, x: torch.Tensor,
                y_true: torch.Tensor, params: AttackParams,
                generator: torch.Generator | None = None,
                y_target: torch.Tensor | None = None) -> torch.Tensor:
-    """'fgsm' | 'pgd' -> x_adv in [0,1]. ``y_target`` selects the targeted
+    """'fgsm' | 'pgd' | 'cw' -> x_adv in [0,1]. ``y_target`` selects the targeted
     mode. ``generator`` feeds the random start (default: seed 0)."""
     handler = _DISPATCH.get(attack_name)
     if handler is None:

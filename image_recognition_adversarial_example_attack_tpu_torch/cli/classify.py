@@ -1,5 +1,5 @@
 """Classify-and-attack CLI (port of ``cli/classify.py``, the ``ResNet.py``
-surface) for ``--attack {none,fgsm,pgd}``.
+surface) for ``--attack {none,fgsm,pgd,cw}``.
 
     python -m image_recognition_adversarial_example_attack_tpu_torch.cli.classify \\
         image.jpg --attack pgd --save_adv adv.png [--device cpu]
@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..attacks import AttackParams, run_attack
-from ..core.constants import DEFAULT_ALPHA, DEFAULT_EPS, DEFAULT_STEPS
+from ..core.constants import (DEFAULT_ALPHA, DEFAULT_CW_C, DEFAULT_CW_KAPPA, DEFAULT_CW_LR,
+                              DEFAULT_CW_STEPS, DEFAULT_EPS, DEFAULT_STEPS)
 from ..core.images import list_images, load_image_batch_tolerant, save_image_01
 from ..core.labels import load_imagenet_labels
 from ..core.rng import generator_from_seed
@@ -31,11 +32,15 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("image", nargs="?", default="example.jpg")
     parser.add_argument("--topk", type=int, default=5)
-    parser.add_argument("--attack", choices=["none", "fgsm", "pgd"], default="none")
+    parser.add_argument("--attack", choices=["none", "fgsm", "pgd", "cw"], default="none")
     parser.add_argument("--label", type=int, default=None)
     parser.add_argument("--eps", type=float, default=DEFAULT_EPS)
     parser.add_argument("--alpha", type=float, default=DEFAULT_ALPHA)
     parser.add_argument("--steps", type=int, default=DEFAULT_STEPS)
+    parser.add_argument("--cw_c", type=float, default=DEFAULT_CW_C)
+    parser.add_argument("--cw_kappa", type=float, default=DEFAULT_CW_KAPPA)
+    parser.add_argument("--cw_steps", type=int, default=DEFAULT_CW_STEPS)
+    parser.add_argument("--cw_lr", type=float, default=DEFAULT_CW_LR)
     parser.add_argument("--target", type=int, default=None)
     parser.add_argument("--save_adv", type=str, default=None)
     add_model_args(parser)
@@ -83,7 +88,9 @@ def main(argv=None) -> int:
             y_true = torch.from_numpy(pred_clean.astype(np.int64)).to(x.device)
         y_t = (torch.full((n,), int(args.target), dtype=torch.long, device=x.device)
                if args.target is not None else None)
-        params = AttackParams(eps=args.eps, alpha=args.alpha, steps=args.steps)
+        params = AttackParams(eps=args.eps, alpha=args.alpha, steps=args.steps,
+                              cw_c=args.cw_c, cw_kappa=args.cw_kappa,
+                              cw_steps=args.cw_steps, cw_lr=args.cw_lr)
         x_adv = run_attack(args.attack, logits_fn, x, y_true, params,
                            generator_from_seed(args.seed), y_target=y_t)
         probs_adv = probs_of(x_adv)

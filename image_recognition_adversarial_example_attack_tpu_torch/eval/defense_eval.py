@@ -16,6 +16,7 @@ from typing import Any
 import torch
 
 from ..attacks.api import AttackParams, LogitsFn, run_attack
+from ..core.constants import DEFAULT_CW_KAPPA
 from ..defenses.detector import FeaturesFn, score_from_features
 from ..defenses.preprocess import DefenseConfig, defend_input
 
@@ -37,13 +38,19 @@ class DefenseEvalConfig:
     eps: float
     alpha: float
     steps: int
+    cw_c: float = 1.0
+    cw_kappa: float = DEFAULT_CW_KAPPA
+    cw_steps: int = 100
+    cw_lr: float = 0.01
     detector: str = "feature"
     defense: DefenseConfig = DefenseConfig()
     adaptive: bool = False
     detector_aware: bool = False
 
     def attack_params(self) -> AttackParams:
-        return AttackParams(eps=self.eps, alpha=self.alpha, steps=self.steps)
+        return AttackParams(eps=self.eps, alpha=self.alpha, steps=self.steps,
+                            cw_c=self.cw_c, cw_kappa=self.cw_kappa,
+                            cw_steps=self.cw_steps, cw_lr=self.cw_lr)
 
 
 def make_detector_score_fn(logits_fn: LogitsFn, features_fn: FeaturesFn,

@@ -1,11 +1,13 @@
 """Builds the hand-written CUDA kernels with nvcc and loads them with ctypes.
 
-The sources under ``csrc/`` have a plain C interface, so ``nvcc`` builds a
-shared library in seconds without PyTorch's headers.  The build happens at
-first use, on the machine with the card, into ``build/torch_kernels/`` of the
-checkout, or, for an installed package, into a per-user cache directory; the
-library's file name carries a hash of its source and flags, so a changed
-source is rebuilt and an unchanged one is loaded as it is.
+Each source under ``csrc/`` has a plain C interface and becomes a shared
+library of its own, built by ``nvcc`` in seconds without PyTorch's headers
+and loaded with its own signature table (``SIGNATURES``).  The build happens
+at first use, on the machine with the card, into ``build/torch_kernels/`` of
+the checkout, or, for an installed package, into a per-user cache directory;
+the library's file name carries a hash of its source and flags, so a changed
+source is rebuilt and an unchanged one is loaded as it is.  ``build_all``
+starts one nvcc per source at once and waits for them all.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def default_build_dir(package_dir: Path = PACKAGE_DIR) -> Path:
 
 BUILD_DIR = default_build_dir()
 
-# No --use_fast_math: the quantize kernel needs IEEE division and rintf.
+# No --use_fast_math: the quantize kernel needs IEEE division and rintf, and
+# the conv kernels exact float32 sums.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,9 +55,17 @@ ELEMENTWISE_SIGNATURES = {
                                             ctypes.c_ulonglong,
                                             ctypes.c_float, _P]),
 }
+# the extern "C" launchers of csrc/conv3x3.cu: (x, w, out, batch, h, w, stream)
+CONV3X3_SIGNATURES = {
+    f"conv3x3_{t}_launch": (ctypes.c_int, [_P, _P, _P, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_int, _P])
+    for t in ("bf16", "f32")
+}
+# source stem under csrc/ -> its signature table
+SIGNATURES = {"elementwise": ELEMENTWISE_SIGNATURES, "conv3x3": CONV3X3_SIGNATURES}
 
 _lock = threading.Lock()
-_library: ctypes.CDLL | None = None
+_libraries: dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -83,37 +94,67 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
-def build(source: Path) -> tuple[Path, str]:
-    """Compile ``source`` unless its library exists. Returns (path, nvcc log)."""
+def _start(source: Path) -> tuple[Path, str, subprocess.Popen] | None:
+    """Start nvcc on ``source`` into a temporary file, unless its library exists."""
     out = library_path(source)
     if out.is_file():
-        return out, ""
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
+    proc = subprocess.Popen(nvcc_command(find_nvcc(), source, Path(tmp)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return out, tmp, proc
+
+
+def _finish(source: Path, started) -> tuple[Path, str]:
+    if started is None:
+        return library_path(source), ""
+    out, tmp, proc = started
     try:
-        proc = subprocess.run(nvcc_command(find_nvcc(), source, Path(tmp)),
-                              capture_output=True, text=True)
+        stdout, stderr = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source.name} "
-                               f"(exit {proc.returncode}):\n{proc.stderr}")
+                               f"(exit {proc.returncode}):\n{stderr}")
         os.replace(tmp, out)  # atomic: a concurrent process sees all or nothing
     finally:
         Path(tmp).unlink(missing_ok=True)
-    return out, proc.stdout + proc.stderr
+    return out, stdout + stderr
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (at first use) and load ``csrc/elementwise.cu``; declares every
+def build(source: Path) -> tuple[Path, str]:
+    """Compile ``source`` unless its library exists. Returns (path, nvcc log)."""
+    return _finish(source, _start(source))
+
+
+def build_all() -> dict[str, tuple[Path, str]]:
+    """Build every source at once, one nvcc each; {name: (path, nvcc log)}."""
+    sources = {n: CSRC_DIR / f"{n}.cu" for n in SIGNATURES}
+    started, results, errors = {}, {}, []
+    try:
+        for n, src in sources.items():
+            started[n] = _start(src)
+    finally:  # every nvcc that started is waited for, whatever failed
+        for n, s in started.items():
+            try:
+                results[n] = _finish(sources[n], s)
+            except RuntimeError as e:
+                errors.append(e)
+    if errors:
+        raise errors[0]
+    return results
+
+
+def load_library(name: str = "elementwise") -> ctypes.CDLL:
+    """Build (at first use) and load ``csrc/<name>.cu``; declares every
     launcher's argtypes so ctypes never truncates a pointer."""
-    global _library
     with _lock:
-        if _library is None:
-            path, _ = build(CSRC_DIR / "elementwise.cu")
+        if name not in _libraries:
+            path, _ = build(CSRC_DIR / f"{name}.cu")
             lib = ctypes.CDLL(str(path))
-            for name, (restype, argtypes) in ELEMENTWISE_SIGNATURES.items():
-                fn = getattr(lib, name)
+            for fn_name, (restype, argtypes) in SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
                 fn.restype = restype
                 fn.argtypes = argtypes
-            _library = lib
-        return _library
+            _libraries[name] = lib
+        return _libraries[name]

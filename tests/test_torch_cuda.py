@@ -104,3 +104,71 @@ def test_pgd_attack_on_the_card_launches_the_kernels(cuda):
     assert ew.launch_counts() == {"pgd_step": 3, "quantize": 0, "uniform_noise": 1}
     assert float((x_adv - x).abs().max()) <= EPS + 1e-6
     assert float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0
+
+
+def _conv_inputs(batch, h, w, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    x = torch.tensor(rng.randn(batch, h, w, 64), dtype=dtype, device=device)
+    wt = torch.tensor(rng.randn(3, 3, 64, 64) * 0.05, dtype=dtype, device=device)
+    return x, wt
+
+
+@pytest.mark.parametrize("shape", [(128, 56, 56), (3, 7, 7), (1, 1, 1), (2, 9, 17)])
+def test_conv3x3_kernel_bf16_within_one_ulp(cuda, shape):
+    """Both versions round a float32 sum of exact bf16 products, summed in
+    different orders: each element lies in the bf16 rounding interval of
+    that sum (one or two bf16 values unless the products cancel), and all
+    but a few cancelling ones within one bf16 ulp of the plain version. The
+    odd sizes exercise the border masks and the ragged last 128-pixel tile."""
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import conv3x3 as cv
+
+    x, w = _conv_inputs(*shape, torch.bfloat16, cuda)
+    before = cv.LAUNCHES["conv3x3"]
+    got = cv.conv3x3(x, w)
+    assert cv.LAUNCHES["conv3x3"] == before + 1
+    want = cv.conv3x3_plain(x, w)
+    lo, hi = cv.bf16_rounding_interval(x, w)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(((lo <= got) & (got <= hi)).all())
+    assert bool(((lo <= want) & (want <= hi)).all())
+    beyond = (got.float() - want.float()).abs() > torch.maximum(cv.bf16_ulp(got), cv.bf16_ulp(want))
+    assert float(beyond.float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("shape", [(128, 56, 56), (8, 56, 56), (3, 7, 7), (2, 9, 17)])
+def test_conv3x3_kernel_f32(cuda, shape):
+    """Exact float32 FMA, summed in another order than the plain product:
+    within 1e-5 of the largest output."""
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import conv3x3 as cv
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x, w = _conv_inputs(*shape, torch.float32, cuda)
+    got = cv.conv3x3(x, w)
+    want = cv.conv3x3_plain(x, w)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    # and the CPU's plain version
+    want_cpu = cv.conv3x3(x.cpu(), w.cpu())
+    assert float((got.cpu() - want_cpu).abs().max()) <= 1e-5 * float(want_cpu.abs().max())
+
+
+def test_conv3x3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import conv3x3 as cv
+
+    x, w = _conv_inputs(2, 8, 8, torch.bfloat16, cuda)
+    before = cv.LAUNCHES["conv3x3"]
+    with pytest.raises(TypeError):
+        cv.conv3x3(x.half(), w.half())
+    with pytest.raises(TypeError):
+        cv.conv3x3(x, w.float())
+    with pytest.raises(ValueError):
+        cv.conv3x3(x[..., :32].contiguous(), w[:, :, :32].contiguous())
+    with pytest.raises(ValueError):
+        cv.conv3x3(x.transpose(1, 2), w)  # not contiguous
+    with pytest.raises(ValueError):
+        cv.conv3x3(x, w.cpu())
+    shifted = torch.empty(x.numel() + 8, dtype=x.dtype, device=cuda)[1:1 + x.numel()]
+    with pytest.raises(ValueError, match="16-byte"):
+        cv.conv3x3(shifted.view(x.shape), w)
+    assert cv.LAUNCHES["conv3x3"] == before

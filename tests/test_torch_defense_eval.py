@@ -72,9 +72,11 @@ def test_defend_input_bit_exact_float32():
     want = np.asarray(jax_pre.defend_input(jnp.asarray(x), jax_pre.DefenseConfig()))
     got = defend_input(torch.from_numpy(x), DefenseConfig()).numpy()
     np.testing.assert_array_equal(got, want)
-    for cfg in (DefenseConfig(use_jpeg=True), DefenseConfig(use_tv=True)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            defend_input(torch.from_numpy(x), cfg)
+    # an unknown JPEG codec is refused, as by the JAX package
+    with pytest.raises(ValueError, match="unknown jpeg_mode"):
+        jax_pre.defend_input(jnp.asarray(x), jax_pre.DefenseConfig(use_jpeg=True, jpeg_mode="x"))
+    with pytest.raises(ValueError, match="unknown jpeg_mode"):
+        defend_input(torch.from_numpy(x), DefenseConfig(use_jpeg=True, jpeg_mode="x"))
 
 
 @pytest.mark.parametrize("shape", [(4, 5, 6, 16), (2, 2, 2, 256), (3, 14, 14, 1)])
