@@ -15,9 +15,14 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    [128,56,56,64] x [3,3,64,64] bfloat16: every element in the bf16
    rounding interval of a float32 sum (one bf16 ulp but where the products
    cancel), fewer than 0.1% more than one ulp apart; the float32
-   instantiation at batch 8 and 128 within 1e-5 of the largest output, and
-   its times at batch 128 beside cuDNN's (TF32 off); cuDNN's
-   F.conv2d within the probe's 3e-2; then the probe's entry point, in this
+   instantiation at batch 8 and 128 within 1e-5 of the largest output (and
+   the fraction of its elements bit-equal to the plain version's), and
+   its times at batch 128 beside cuDNN's (TF32 off), each also replayed
+   from a CUDA graph (graph_ms, which leaves out the host's time per call)
+   outside the counted run, and the wrapper's host time per call on a
+   one-pixel image; cuDNN's
+   F.conv2d within the probe's 3e-2; each launch's grid (blocks, threads,
+   dynamic shared memory, band rows R); then the probe's entry point, in this
    process (its launches count) and as a subprocess at its defaults.
 3. classify -- ResNet-50 at full width, 224x224, bfloat16, random weights
    from a seed, on a batch of 128; float32 logits of the card held against
@@ -99,6 +104,30 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``: ``iters`` calls captured
+    in one CUDA graph, timed by CUDA events around a replay, so that host
+    time between launches (Python, ctypes) does not count."""
+    import torch
+
+    fn()  # build, load and allocate outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -264,6 +293,7 @@ def phase_conv() -> dict:
                              "would not be float32")
     x, w = conv_probe.make_inputs(128, torch.bfloat16, dev)
     k = cv.conv3x3(x, w)
+    launch_bf16 = dict(cv.LAST_LAUNCH)
     p = cv.conv3x3_plain(x, w)
     lo, hi = cv.bf16_rounding_interval(x, w)
     torch.cuda.synchronize()
@@ -291,14 +321,18 @@ def phase_conv() -> dict:
             raise AssertionError(f"conv3x3 float32 kernel vs plain at batch {batch}: "
                                  f"{rel32} of max |out|")
         f32[f"rel_err_b{batch}"] = rel32
+        f32[f"frac_bit_equal_b{batch}"] = float((k32 == p32).float().mean())
+    f32["launch"] = dict(cv.LAST_LAUNCH)
     # the float32 instantiation's times at the probe's batch; cuDNN with TF32
     # off, so that it computes the same float32 function
     prev_tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
         f32["ms"] = time_ms(lambda: cv.conv3x3(x32, w32))
+        f32["graph_ms"] = graph_ms(lambda: cv.conv3x3(x32, w32))
         f32["plain_ms"] = time_ms(lambda: cv.conv3x3_plain(x32, w32), iters=5, warmup=1)
         f32["library_ms"] = time_ms(lambda: conv_probe.cudnn_conv3x3(x32, w32))
+        f32["library_graph_ms"] = graph_ms(lambda: conv_probe.cudnn_conv3x3(x32, w32))
     finally:
         torch.backends.cudnn.allow_tf32 = prev_tf32
     f32["bound_ms"], f32["bound_by"], _, _ = conv_bound_ms(x32, w32, k32)
@@ -312,14 +346,29 @@ def phase_conv() -> dict:
             "576 exact products; fewer than 0.1% more than one bf16 ulp apart"),
         "frac_equal": float((diff == 0).float().mean()), "frac_beyond_one_ulp": frac_beyond,
         "largest_value_beyond_one_ulp": worst, "rel_err_vs_cudnn": rel_cudnn,
-        "float32": f32,
+        "float32": f32, "launch": launch_bf16,
+        # ms: calls issued from Python one by one, as every kernel's ms;
+        # graph_ms: the same calls replayed from a CUDA graph, without the
+        # host's time per call (checks, ctypes, tensor-map encoding)
         "ms": time_ms(lambda: cv.conv3x3(x, w)),
+        "graph_ms": graph_ms(lambda: cv.conv3x3(x, w)),
         "plain_ms": time_ms(lambda: cv.conv3x3_plain(x, w), iters=5, warmup=1),
         "library_ms": time_ms(lambda: conv_probe.cudnn_conv3x3(x, w)),
+        "library_graph_ms": graph_ms(lambda: conv_probe.cudnn_conv3x3(x, w)),
         "library_call": "F.conv2d, channels_last bf16 (cuDNN)",
         "bound_ms": bound, "bound_by": bound_by, "bytes_ms": bytes_ms, "flops_ms": flops_ms,
     }
     del p, lo, hi, diff, ulp, beyond
+    # the wrapper's host time per call where the device's is negligible: a
+    # one-pixel image, host clock around 200 calls issued back to back
+    x1 = x[:1, :1, :1].contiguous()
+    cv.conv3x3(x1, w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        cv.conv3x3(x1, w)
+    res["wrapper_host_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+    torch.cuda.synchronize()
     log(f"[conv] {json.dumps({'kernel': 'conv3x3', 'shape': list(x.shape), **res})}")
 
     # the probe's entry point: its launches are the conv's main path

@@ -55,10 +55,11 @@ ELEMENTWISE_SIGNATURES = {
                                             ctypes.c_ulonglong,
                                             ctypes.c_float, _P]),
 }
-# the extern "C" launchers of csrc/conv3x3.cu: (x, w, out, batch, h, w, stream)
+# the extern "C" launchers of csrc/conv3x3.cu: (x, w, out, batch, h, w, then
+# the tile plan's rows and buf_rows, an int[4] for the grid, stream)
 CONV3X3_SIGNATURES = {
-    f"conv3x3_{t}_launch": (ctypes.c_int, [_P, _P, _P, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int, _P])
+    f"conv3x3_{t}_launch": (ctypes.c_int, [_P, _P, _P, *[ctypes.c_int] * 5,
+                                           ctypes.POINTER(ctypes.c_int), _P])
     for t in ("bf16", "f32")
 }
 # source stem under csrc/ -> its signature table

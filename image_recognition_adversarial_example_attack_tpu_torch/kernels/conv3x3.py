@@ -1,22 +1,28 @@
-"""Wrapper of the 3x3 conv CUDA kernel, with its plain version.
+"""Wrapper of the 3x3 conv CUDA kernel, with its plain version and tile plan.
 
 ``conv3x3`` replaces the Pallas TPU kernel
 ``benchmarks/pallas_conv_probe.py::pallas_conv3x3`` (body ``_conv_kernel``):
 a 3x3, stride-1, same-padded convolution of an NHWC batch ``[B,H,W,64]``
 with an HWIO weight ``[3,3,64,64]``, summed in float32 and cast to the
-input's dtype (bfloat16 or float32).  The kernel is ``csrc/conv3x3.cu``: an
-implicit GEMM on the tensor cores (mma.sync, bf16) or on the CUDA cores
-(exact float32 FMA).  A tensor on the CPU takes the plain version; a tensor
-on a CUDA device launches the kernel or raises.  There is no fallback.
+input's dtype (bfloat16 or float32).  The kernel is ``csrc/conv3x3.cu``: one
+TMA-loaded input halo per band of output rows, shared by the nine taps,
+feeding ``wgmma`` on the tensor cores (bf16) or a register-tiled exact
+float32 FMA loop.  ``tile_plan`` sizes the band; the wrapper passes the plan
+to the launcher.  A tensor on the CPU takes the plain version; a tensor on a
+CUDA device launches the kernel or raises.  There is no fallback.
 
 At the probe's ``[128,56,56,64]`` bf16 the least time on an H100 SXM is the
 bytes' 0.0307 ms (102.8 MB at 3.35 TB/s), with the flops' 0.0299 ms (29.60
 GFLOP at 989 TFLOP/s) close behind; in float32, 0.44 ms of FP32 FMA.
 
-``LAUNCHES`` counts the kernel launches (plain-version calls are not counted).
+``LAUNCHES`` counts the kernel launches (plain-version calls are not counted);
+``LAST_LAUNCH`` holds the grid of the last one.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -27,6 +33,7 @@ C = 64  # input and output channels, the probe's constants the kernel is written
 K = 3
 
 LAUNCHES: dict[str, int] = {"conv3x3": 0}
+LAST_LAUNCH: dict[str, int] = {}
 _LAUNCHERS = {torch.bfloat16: "conv3x3_bf16_launch", torch.float32: "conv3x3_f32_launch"}
 
 
@@ -36,6 +43,35 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+BAND = 256  # positions a band computes, M: one wgmma N (bf16), 256 threads x 8 (f32)
+_PLAN_REFUSED = -1  # the launchers' code for a plan whose buffers do not fit
+
+
+class TilePlan(NamedTuple):
+    rows: int             # R, output rows per band (one tile)
+    tiles_per_image: int  # ceil(H / R); the last band may be ragged
+    halo_rows: int        # (R+2)*(W+2): the input rows one TMA box loads
+    buf_rows: int         # rows of a halo buffer: every row any of BAND positions reads
+
+
+def tile_plan(h: int, w: int) -> TilePlan:
+    """The band of output rows one tile of the kernel computes.
+
+    Position q = yy*(W+2) + xx of a band reads halo row q + dy*(W+2) + dx
+    for tap (dy, dx); positions with xx >= W or yy >= R are computed and
+    never stored.  A band holds at most 256 positions, R = min(H, 256 //
+    (W+2)).  Raises ValueError for an image that no band holds (W > 254).
+    The launcher owns the shared-memory layout and refuses a plan whose
+    buffers do not fit (bf16 takes W <= 73, float32 W <= 61).
+    """
+    wp = w + 2
+    rows = min(h, BAND // wp)
+    if h < 1 or w < 1 or rows < 1:
+        raise ValueError(f"conv3x3: the kernel's band does not take an image of {h}x{w}")
+    buf_rows = -(-(BAND + 2 * wp + 2) // 8) * 8
+    return TilePlan(rows, -(-h // rows), (rows + 2) * wp, buf_rows)
 
 
 def _im2col_product(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -102,11 +138,18 @@ def conv3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, h, wd, _ = x.shape
     if x.numel() == 0:
         return out
+    plan = tile_plan(h, wd)
+    config = (ctypes.c_int * 4)()
     with torch.cuda.device(x.device):  # the launcher sizes its grid for this card
         code = getattr(load_library("conv3x3"), _LAUNCHERS[x.dtype])(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd,
+            plan.rows, plan.buf_rows, config,
             torch.cuda.current_stream(x.device).cuda_stream)
+    if code == _PLAN_REFUSED:
+        raise ValueError(f"conv3x3: the kernel's band does not take an image of {h}x{wd} "
+                         f"in {x.dtype}: its buffers exceed a block's shared memory")
     if code != 0:
         raise RuntimeError(f"conv3x3: CUDA launch failed with cudaError {code}")
     LAUNCHES["conv3x3"] += 1
+    LAST_LAUNCH.update(zip(("blocks", "threads", "smem_bytes", "rows"), config))
     return out

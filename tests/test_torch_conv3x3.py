@@ -128,6 +128,63 @@ def test_probe_defaults_to_cuda_and_raises_without_it(monkeypatch):
         conv_probe.main(["--batch", "1", "--iters", "1"])
 
 
+# the card tests' shapes, the widest each type's buffers fit (73 in bf16, 61
+# in float32; the launcher refuses wider), and bands of one or two rows up to
+# the widest a band holds, 254
+PLAN_CASES = [(56, 56), (7, 7), (1, 1), (9, 17), (5, 56), (3, 73), (3, 61), (13, 30),
+              (2, 3), (60, 5), (11, 84), (4, 100), (3, 126), (6, 127), (2, 150),
+              (1, 200), (3, 254), (70, 40), (5, 74)]
+
+
+@pytest.mark.parametrize("h,w", PLAN_CASES)
+def test_tile_plan_gathers_the_plain_im2col(h, w):
+    """What the kernel does with the plan, on numpy arrays: each band's halo
+    is the TMA box of the zero-bordered image, rows y0-1 .. y0+R; position q
+    of the band reads halo row q + dy*(W+2) + dx for tap (dy, dx).  Every
+    real position's nine rows are the plain version's tap-major im2col row,
+    every output pixel is one band's real position exactly once, no real
+    position reads a row outside the box (the rows past it are NaN here), and
+    no position of the band, junk included, reads past the buffer."""
+    plan = cv.tile_plan(h, w)
+    wp, r = w + 2, plan.rows
+    assert r * wp <= cv.BAND and r + 2 <= 256 and wp <= 256  # a TMA box's extents
+    assert plan.halo_rows == (r + 2) * wp <= plan.buf_rows
+    assert cv.BAND - 1 + 2 * wp + 2 < plan.buf_rows and plan.buf_rows % 8 == 0
+    assert plan.tiles_per_image * r >= h > (plan.tiles_per_image - 1) * r
+    rng = np.random.RandomState(h * 1000 + w)
+    b, c = 2, 3
+    x = rng.randn(b, h, w, c)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (0, 0)))  # the plain version's padding
+    im2col = np.concatenate([xp[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                             for dx in range(3)], axis=-1)  # [B,H,W,9C]
+    # the TMA box reads zeros past the last row too (the ragged last band)
+    tall = np.pad(x, ((0, 0), (1, r * plan.tiles_per_image - h + 1), (1, 1), (0, 0)))
+    q = np.arange(cv.BAND)
+    rows_read = q[:, None] + np.array([dy * wp + dx for dy in range(3) for dx in range(3)])
+    assert rows_read.max() < plan.buf_rows
+    covered = np.zeros((b, h, w), np.int64)
+    for bi in range(b):
+        for band in range(plan.tiles_per_image):
+            y0 = band * r
+            buf = np.full((plan.buf_rows, c), np.nan)
+            buf[:plan.halo_rows] = tall[bi, y0:y0 + r + 2].reshape(-1, c)
+            gathered = buf[rows_read].reshape(cv.BAND, 9 * c)
+            yy, xx = q // wp, q % wp
+            real = (xx < w) & (yy < r) & (y0 + yy < h)
+            assert (rows_read[real] < plan.halo_rows).all()
+            np.testing.assert_array_equal(gathered[real],
+                                          im2col[bi, y0 + yy[real], xx[real]])
+            np.add.at(covered[bi], (y0 + yy[real], xx[real]), 1)
+    assert (covered == 1).all()
+
+
+@pytest.mark.parametrize("h,w", [(4, 255), (1, 1000), (0, 8), (4, 0)])
+def test_tile_plan_refuses_what_does_not_fit(h, w):
+    """No band holds a row of more than 256 padded positions, nor an empty image."""
+    with pytest.raises(ValueError, match="does not take"):
+        cv.tile_plan(h, w)
+
+
 def test_every_source_has_its_signature_table():
     from image_recognition_adversarial_example_attack_tpu_torch.kernels import build
 
@@ -138,10 +195,22 @@ def test_every_source_has_its_signature_table():
         for fn in table:
             assert f"int {fn}(" in text, fn  # every declared launcher exists
     conv = (build.CSRC_DIR / "conv3x3.cu").read_text()
-    # the tensor cores for bf16, and no library GEMM or conv inside the kernel
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in conv
+    # Hopper's tensor cores (wgmma) fed by TMA on mbarriers for bf16, and no
+    # library GEMM or conv inside the kernel
+    for part in ("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+                 "cp.async.bulk.tensor.4d", "mbarrier.try_wait.parity",
+                 "cuTensorMapEncodeTiled"):
+        assert part in conv, part
+    assert "mma.sync" not in conv  # the earlier mma.sync kernel is replaced, not kept
     for lib in ("cublas", "cudnn", "cutlass/gemm"):
         assert lib not in conv.lower()
+    # the launchers take the tile plan and an int[4] for the grid they chose
+    for fn in ("conv3x3_bf16_launch", "conv3x3_f32_launch"):
+        assert (f"int {fn}(const void* x, const void* w, void* out, int batch, int h,"
+                in conv)
+        assert len(build.CONV3X3_SIGNATURES[fn][1]) == 10
+    # the code the wrapper turns into ValueError for a plan that does not fit
+    assert f"constexpr int kPlanRefused = {cv._PLAN_REFUSED};" in conv
 
 
 @pytest.mark.parametrize("fail", [None, "conv3x3"])

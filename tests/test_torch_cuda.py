@@ -6,6 +6,8 @@ present.  Run them on a machine with an H100:
     python -m pytest tests/test_torch_cuda.py -m cuda
 """
 
+import faulthandler
+
 import numpy as np
 import pytest
 import torch
@@ -106,6 +108,19 @@ def test_pgd_attack_on_the_card_launches_the_kernels(cuda):
     assert float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0
 
 
+# Seconds a conv test may take before the whole process ends with its
+# traceback: a kernel that waits forever on an mbarrier (a wrong byte count)
+# blocks inside torch.cuda.synchronize(), where no Python exception reaches.
+CONV_TIME_LIMIT = 240
+
+
+@pytest.fixture()
+def time_limit():
+    faulthandler.dump_traceback_later(CONV_TIME_LIMIT, exit=True)
+    yield
+    faulthandler.cancel_dump_traceback_later()
+
+
 def _conv_inputs(batch, h, w, dtype, device, seed=0):
     rng = np.random.RandomState(seed)
     x = torch.tensor(rng.randn(batch, h, w, 64), dtype=dtype, device=device)
@@ -113,13 +128,22 @@ def _conv_inputs(batch, h, w, dtype, device, seed=0):
     return x, wt
 
 
-@pytest.mark.parametrize("shape", [(128, 56, 56), (3, 7, 7), (1, 1, 1), (2, 9, 17)])
-def test_conv3x3_kernel_bf16_within_one_ulp(cuda, shape):
+# 5x56: H not a multiple of the band's R = 2; 256 x 56x56: more bands than
+# resident blocks; 1x1: a halo that is all border; 2x73: the widest bf16 band
+CONV_SHAPES_BF16 = [(128, 56, 56), (3, 7, 7), (1, 1, 1), (2, 9, 17), (2, 5, 56),
+                    (1, 56, 56), (256, 56, 56), (2, 3, 73)]
+CONV_SHAPES_F32 = [(128, 56, 56), (8, 56, 56), (3, 7, 7), (2, 9, 17), (2, 5, 56),
+                   (1, 56, 56), (1, 1, 1), (2, 3, 61)]
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES_BF16)
+def test_conv3x3_kernel_bf16_within_one_ulp(cuda, time_limit, shape):
     """Both versions round a float32 sum of exact bf16 products, summed in
     different orders: each element lies in the bf16 rounding interval of
     that sum (one or two bf16 values unless the products cancel), and all
     but a few cancelling ones within one bf16 ulp of the plain version. The
-    odd sizes exercise the border masks and the ragged last 128-pixel tile."""
+    odd sizes exercise the zero border of the TMA box, ragged last bands and
+    junk positions."""
     from image_recognition_adversarial_example_attack_tpu_torch.kernels import conv3x3 as cv
 
     x, w = _conv_inputs(*shape, torch.bfloat16, cuda)
@@ -136,10 +160,11 @@ def test_conv3x3_kernel_bf16_within_one_ulp(cuda, shape):
     assert float(beyond.float().mean()) < 1e-3
 
 
-@pytest.mark.parametrize("shape", [(128, 56, 56), (8, 56, 56), (3, 7, 7), (2, 9, 17)])
-def test_conv3x3_kernel_f32(cuda, shape):
-    """Exact float32 FMA, summed in another order than the plain product:
-    within 1e-5 of the largest output."""
+@pytest.mark.parametrize("shape", CONV_SHAPES_F32)
+def test_conv3x3_kernel_f32(cuda, time_limit, shape):
+    """Exact float32 FMA, each sum in k order: within 1e-5 of the largest
+    output of the plain product, and at 8x56x56 equal to it bit for bit
+    (cuBLAS's SGEMM sums that product in the same order)."""
     from image_recognition_adversarial_example_attack_tpu_torch.kernels import conv3x3 as cv
 
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -148,9 +173,38 @@ def test_conv3x3_kernel_f32(cuda, shape):
     want = cv.conv3x3_plain(x, w)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    if shape == (8, 56, 56):
+        assert torch.equal(got, want)
     # and the CPU's plain version
     want_cpu = cv.conv3x3(x.cpu(), w.cpu())
     assert float((got.cpu() - want_cpu).abs().max()) <= 1e-5 * float(want_cpu.abs().max())
+
+
+def test_conv3x3_reports_its_launch(cuda, time_limit):
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import conv3x3 as cv
+
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w = _conv_inputs(2, 56, 56, dtype, cuda)
+        cv.conv3x3(x, w)
+        torch.cuda.synchronize()
+        plan = cv.tile_plan(56, 56)
+        assert cv.LAST_LAUNCH["rows"] == plan.rows
+        assert 0 < cv.LAST_LAUNCH["smem_bytes"] <= 232_448  # sm_90's per-block limit
+        assert cv.LAST_LAUNCH["threads"] == 384
+        assert 1 <= cv.LAST_LAUNCH["blocks"] <= 2 * plan.tiles_per_image
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.bfloat16, 74), (torch.float32, 62)])
+def test_conv3x3_refuses_widths_its_band_does_not_take(cuda, dtype, width):
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import conv3x3 as cv
+
+    x, w = _conv_inputs(1, 2, width, dtype, cuda)
+    before = cv.LAUNCHES["conv3x3"]
+    with pytest.raises(ValueError, match="shared memory"):
+        cv.conv3x3(x, w)
+    assert cv.LAUNCHES["conv3x3"] == before
+    # the CPU's plain version takes any width
+    assert cv.conv3x3(x.cpu(), w.cpu()).shape == x.shape
 
 
 def test_conv3x3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
