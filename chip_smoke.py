@@ -43,6 +43,27 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
 6. cli     -- the classify CLI in a subprocess on a PNG, ``--attack pgd
    --save_adv``, and ``--attack cw --cw_steps 100 --save_adv``; the saved
    pgd image within eps of the clean one.
+7. detectors -- four pgd cells on the phase-3 batch through
+   ``evaluate_defenses_batch``, each inside the eps-ball with its counters
+   in range and its launches counted exactly: (a) ``adaptive`` with the
+   feature detector (10 pgd_step, 1 noise, 11 quantize: one per step
+   inside the attack, one for the defended prediction); (b)
+   ``detector_aware`` (lam 1, margin 0.9) against the feature threshold
+   (10, 1, 1), its mean feature score beside the oblivious cell's; (c) the
+   squeezing detector, calibrated by ``calibrate_squeezing_threshold``
+   (10, 1, 3: one for the defense, two for the two scores); (d) the
+   Mahalanobis detector fitted by ``calibrate_mahalanobis`` on the 128
+   clean images (K = 1000, C = 1024; 10, 1, 1), with the fit's and the
+   score's times and finite params.
+8. experiments -- the defense_experiments CLI in a subprocess on 128
+   generated PNGs (256x300): the default grid (fgsm, pgd, cw x eps {4, 8,
+   16}/255, cw_steps 100, auto-calibrated feature detector, 5 samples
+   drawn): nine summary lines in the exact format, cw computed once and
+   reused twice, nine cells in ``results_partial.json``, the three PNGs
+   and ``timings.json``, the wall time and each cell's seconds; the same
+   command with ``--resume`` (nine cells resumed); pgd ``--adaptive
+   --detector mahalanobis``; fgsm and pgd ``--detector_aware --detector
+   squeezing``.
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -678,6 +699,197 @@ def phase_cells(state: dict) -> dict:
     return out
 
 
+def _check_cell(name: str, out: dict, x, stats: dict, counts: dict, want: dict) -> None:
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, want {want}")
+    _check_ball(out["x_adv"], x, EPS, name)
+    if stats["count"] != x.shape[0] or any(
+            not 0 <= stats[k] <= stats["count"] for k in stats):
+        raise AssertionError(f"{name}: counters out of range: {stats}")
+
+
+def phase_detectors(state: dict) -> dict:
+    """pgd cells under --adaptive, --detector_aware, and with the squeezing
+    and Mahalanobis detectors, each with its launches counted."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import (
+        calibrate_mahalanobis, calibrate_squeezing_threshold, feature_score, fit_mahalanobis,
+        mahalanobis_score_from_features, pool_features)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.defense_eval import (
+        DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch, summary_line)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    b, x, y = state["bundle"], state["x"], state["y"]
+    lf, ff = make_fns(b)
+    res: dict = {}
+
+    t0 = time.perf_counter()
+    sq_thr = calibrate_squeezing_threshold(lf, x, n=x.shape[0])
+    res["squeezing_threshold"] = sq_thr
+    res["squeezing_calibration_s"] = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, mh_thr = calibrate_mahalanobis(ff, x, y, 1000, n=x.shape[0])
+    torch.cuda.synchronize()
+    res["mahalanobis_calibration_s"] = time.perf_counter() - t0
+    if tuple(params.mean.shape) != (1000, 1024) or tuple(params.precision.shape) != (1024, 1024):
+        raise AssertionError(f"mahalanobis params {params.mean.shape} {params.precision.shape}")
+    finite = bool(torch.isfinite(params.mean).all() and torch.isfinite(params.precision).all())
+    if not finite or not mh_thr == mh_thr:
+        raise AssertionError("mahalanobis: non-finite params or threshold")
+    with torch.no_grad():
+        z = pool_features(ff(x))
+    fit = res["mahalanobis_fit"] = {
+        "threshold": mh_thr, "params_finite": finite,
+        "fit_ms": time_ms(lambda: fit_mahalanobis(z, y, 1000), iters=3, warmup=1),
+        "score_ms": time_ms(lambda: mahalanobis_score_from_features(z, params),
+                            iters=5, warmup=1),
+    }
+    log(f"[detectors] mahalanobis fit on {x.shape[0]} clean images (K=1000, C=1024): "
+        f"{fit['fit_ms']:.2f} ms, score of {x.shape[0]} images "
+        f"{fit['score_ms']:.2f} ms, params finite {finite}, threshold "
+        f"{mh_thr:.4f}; calibration (features + fit + scores) "
+        f"{res['mahalanobis_calibration_s']:.3f} s")
+    log(f"[detectors] squeezing threshold {sq_thr:.6f} "
+        f"({res['squeezing_calibration_s']:.3f} s, 1 quantize launch)")
+
+    base = {"attack_name": "pgd", "eps": EPS, "alpha": ALPHA, "steps": STEPS}
+    cells = {
+        "adaptive": (DefenseEvalConfig(**base, adaptive=True), state["threshold"],
+                     {"pgd_step": STEPS, "quantize": STEPS + 1, "uniform_noise": 1}),
+        "detector_aware": (DefenseEvalConfig(**base, detector_aware=True, detector_lam=1.0,
+                                             detector_margin=0.9), state["threshold"],
+                           {"pgd_step": STEPS, "quantize": 1, "uniform_noise": 1}),
+        "squeezing": (DefenseEvalConfig(**base, detector="squeezing"), sq_thr,
+                      {"pgd_step": STEPS, "quantize": 3, "uniform_noise": 1}),
+        "mahalanobis": (DefenseEvalConfig(**base, detector="mahalanobis",
+                                          detector_params=params), mh_thr,
+                        {"pgd_step": STEPS, "quantize": 1, "uniform_noise": 1}),
+    }
+    x_adv = {}
+    for name, (cfg, thr, want) in cells.items():
+        ew.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = evaluate_defenses_batch(lf, ff, x, y, thr, cfg, generator_from_seed(1))
+        stats = aggregate_stats(out)
+        seconds = time.perf_counter() - t0
+        counts = ew.launch_counts()
+        _check_cell(name, out, x, stats, counts, want)
+        x_adv[name] = out["x_adv"]
+        line = summary_line("pgd", EPS, stats)
+        log(f"[detectors] {name}: launches {counts}; {seconds:.3f} s")
+        log(f"[detectors] {name}: {line}")
+        res[name] = {"launches": counts, "stats": stats, "summary_line": line,
+                     "seconds": seconds, "threshold": thr}
+    # the oblivious cells (c, d) ran plain PGD from the same generator
+    with torch.no_grad():
+        aware = float(feature_score(ff, x_adv["detector_aware"]).mean())
+        oblivious = float(feature_score(ff, x_adv["squeezing"]).mean())
+    res["detector_aware"]["mean_feature_score"] = aware
+    res["detector_aware"]["oblivious_mean_feature_score"] = oblivious
+    log(f"[detectors] mean feature score of x_adv: detector-aware {aware:.4f}, oblivious "
+        f"{oblivious:.4f} (threshold {state['threshold']:.4f}, margin 0.9)")
+    return res
+
+
+SUMMARY_RE = (r"^attack=(fgsm|pgd|cw), eps=(\d\.\d{5}), attack_success=\d\.\d{3}, "
+              r"preproc_defense_acc=\d\.\d{3}, detector_clean_pass_rate=\d\.\d{3}, "
+              r"detector_adv_flag_rate=\d\.\d{3}, detector_attack_success=\d\.\d{3}$")
+
+
+def _run_experiments(image_dir: Path, out_dir: Path, *args: str) -> tuple[str, float]:
+    import re
+
+    cmd = [sys.executable, "-m", f"{PKG}.cli.defense_experiments", "--image_dir",
+           str(image_dir), "--output_dir", str(out_dir), *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"defense_experiments {' '.join(args)} exit {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    if "Using device: cuda" not in proc.stdout:
+        raise AssertionError("defense_experiments did not run on the card")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("attack=")]
+    if not lines or not all(re.match(SUMMARY_RE, ln) for ln in lines):
+        raise AssertionError(f"defense_experiments summary lines malformed: {lines}")
+    return proc.stdout, seconds
+
+
+def phase_experiments() -> dict:
+    import numpy as np
+    from PIL import Image
+
+    res: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        image_dir = Path(tmp) / "images"
+        image_dir.mkdir()
+        rng = np.random.RandomState(0)
+        for i in range(SHAPE[0]):
+            Image.fromarray((rng.rand(256, 300, 3) * 255).astype(np.uint8)).save(
+                image_dir / f"img_{i:03d}.png")
+        grid_dir = Path(tmp) / "grid"
+        grid = ["--cw_steps", str(CW_STEPS)]
+
+        out, seconds = _run_experiments(image_dir, grid_dir, *grid)
+        lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
+        if len(lines) != 9:
+            raise AssertionError(f"default grid printed {len(lines)} summary lines")
+        reused = out.count("(cw is eps-independent: reusing the computed cell)")
+        if reused != 2:
+            raise AssertionError(f"cw reused {reused} times, want 2")
+        partial = json.loads((grid_dir / "results_partial.json").read_text())
+        if len(partial) != 9 or any(c["count"] != SHAPE[0] for c in partial.values()):
+            raise AssertionError(f"results_partial.json holds {sorted(partial)}")
+        for name in ("defense_results_attack_trend.png", "defense_results_defense_matrix.png",
+                     "attack_samples.png", "timings.json"):
+            if not (grid_dir / name).is_file():
+                raise AssertionError(f"the default grid wrote no {name}")
+        timings = json.loads((grid_dir / "timings.json").read_text())
+        cells = {k: v["seconds"] for k, v in timings.items()}
+        res["grid"] = {"wall_s": seconds, "cell_s": cells, "cells_s_total": sum(cells.values()),
+                       "summary": lines}
+        log(f"[experiments] default grid, {SHAPE[0]} images, cw_steps {CW_STEPS}: exit 0 in "
+            f"{seconds:.1f} s; cells {sum(cells.values()):.2f} s: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in cells.items()))
+        for ln in lines:
+            log(f"[experiments] {ln}")
+
+        out, seconds = _run_experiments(image_dir, grid_dir, *grid, "--resume")
+        resumed = out.count("(resumed from partial results)")
+        if resumed != 9:
+            raise AssertionError(f"--resume resumed {resumed} cells, want 9")
+        res["resume"] = {"wall_s": seconds, "resumed": resumed}
+        log(f"[experiments] --resume: {resumed} cells resumed, exit 0 in {seconds:.1f} s")
+
+        runs = {
+            "adaptive_mahalanobis": ["--attacks", "pgd", "--eps_list", "0.03137", "--adaptive",
+                                     "--detector", "mahalanobis", "--viz_samples", "0"],
+            "aware_squeezing": ["--attacks", "fgsm", "pgd", "--eps_list", "0.03137",
+                                "--detector_aware", "--detector", "squeezing",
+                                "--viz_samples", "0"],
+        }
+        for name, args in runs.items():
+            out_dir = Path(tmp) / name
+            out, seconds = _run_experiments(image_dir, out_dir, *args)
+            lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
+            timings = json.loads((out_dir / "timings.json").read_text())
+            if len(lines) != len(args[args.index("--attacks") + 1:args.index("--eps_list")]):
+                raise AssertionError(f"{name}: {len(lines)} summary lines")
+            res[name] = {"wall_s": seconds, "summary": lines,
+                         "cell_s": {k: v["seconds"] for k, v in timings.items()}}
+            log(f"[experiments] {' '.join(args)}: exit 0 in {seconds:.1f} s; cells "
+                + ", ".join(f"{k} {v['seconds']:.3f} s" for k, v in timings.items()))
+            for ln in lines:
+                log(f"[experiments] {ln}")
+    return res
+
+
 def _run_cli(img: Path, adv: Path, *attack_args: str):
     cmd = [sys.executable, "-m", f"{PKG}.cli.classify", str(img), *attack_args,
            "--save_adv", str(adv)]
@@ -760,10 +972,14 @@ def main(argv=None) -> int:
     record["cw"] = phase_cw(state)
     record["cells"] = phase_cells(state)
     record["cli"] = phase_cli()
+    record["detectors"] = phase_detectors(state)
+    record["experiments"] = phase_experiments()
 
-    # the elementwise kernels' main path: PGD-10 and the four cells; the
+    # the elementwise kernels' main path: PGD-10 and the eight cells; the
     # conv's: the probe's entry point
-    runs = [record["pgd"], record["cell"], *record["cells"].values()]
+    detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
+    runs = [record["pgd"], record["cell"], *record["cells"].values(),
+            *(record["detectors"][c] for c in detector_cells)]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

@@ -23,7 +23,8 @@ from ..core.constants import (DEFAULT_ALPHA, DEFAULT_CW_C, DEFAULT_CW_KAPPA, DEF
 from ..core.images import list_images, load_image_batch_tolerant, save_image_01
 from ..core.labels import load_imagenet_labels
 from ..core.rng import generator_from_seed
-from .common import add_model_args, load_bundle, make_fns, print_topk, topk_host
+from .common import (add_model_args, load_bundle, make_fns, maybe_profile, print_topk,
+                     topk_host)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -76,24 +77,25 @@ def main(argv=None) -> int:
         with torch.no_grad():
             return torch.softmax(logits_fn(xx), dim=-1).cpu().numpy()
 
-    probs_clean = probs_of(x)
-    pred_clean = probs_clean.argmax(axis=-1)
+    with maybe_profile(args.profile_dir):
+        probs_clean = probs_of(x)
+        pred_clean = probs_clean.argmax(axis=-1)
 
-    x_adv = None
-    if args.attack != "none":
-        n = x.shape[0]
-        if args.label is not None:
-            y_true = torch.full((n,), int(args.label), dtype=torch.long, device=x.device)
-        else:
-            y_true = torch.from_numpy(pred_clean.astype(np.int64)).to(x.device)
-        y_t = (torch.full((n,), int(args.target), dtype=torch.long, device=x.device)
-               if args.target is not None else None)
-        params = AttackParams(eps=args.eps, alpha=args.alpha, steps=args.steps,
-                              cw_c=args.cw_c, cw_kappa=args.cw_kappa,
-                              cw_steps=args.cw_steps, cw_lr=args.cw_lr)
-        x_adv = run_attack(args.attack, logits_fn, x, y_true, params,
-                           generator_from_seed(args.seed), y_target=y_t)
-        probs_adv = probs_of(x_adv)
+        x_adv = None
+        if args.attack != "none":
+            n = x.shape[0]
+            if args.label is not None:
+                y_true = torch.full((n,), int(args.label), dtype=torch.long, device=x.device)
+            else:
+                y_true = torch.from_numpy(pred_clean.astype(np.int64)).to(x.device)
+            y_t = (torch.full((n,), int(args.target), dtype=torch.long, device=x.device)
+                   if args.target is not None else None)
+            params = AttackParams(eps=args.eps, alpha=args.alpha, steps=args.steps,
+                                  cw_c=args.cw_c, cw_kappa=args.cw_kappa,
+                                  cw_steps=args.cw_steps, cw_lr=args.cw_lr)
+            x_adv = run_attack(args.attack, logits_fn, x, y_true, params,
+                               generator_from_seed(args.seed), y_target=y_t)
+            probs_adv = probs_of(x_adv)
 
     vals_c, idx_c = topk_host(probs_clean, topk)
     if x_adv is not None:

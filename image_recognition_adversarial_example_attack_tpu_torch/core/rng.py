@@ -8,6 +8,8 @@ numpy inputs instead.
 
 from __future__ import annotations
 
+import hashlib
+
 import torch
 
 
@@ -17,3 +19,25 @@ def generator_from_seed(seed: int | None, device: torch.device | str = "cpu"
     g = torch.Generator(device=device)
     g.manual_seed(0 if seed is None else int(seed))
     return g
+
+
+def cell_hash(cell_id: str) -> int:
+    """The first four bytes of SHA-256(cell_id), big-endian, top bit cleared:
+    the 31-bit value the JAX package's ``cli/common.py::cell_key`` folds in."""
+    digest = hashlib.sha256(cell_id.encode()).digest()
+    return int.from_bytes(digest[:4], "big") & 0x7FFFFFFF
+
+
+def cell_generator(seed: int, cell_id: str) -> torch.Generator:
+    """The generator of one grid cell (on the CPU; the noise kernel draws
+    its own seed from it): seeded with ``seed * 2**31 + cell_hash(cell_id)``,
+    a function of ``(seed, cell id)`` alone.
+
+    It is the counterpart of ``cell_key`` (``jax.random.fold_in`` of the
+    same hash into the seed's key).  The bits differ from JAX's, but the
+    property is the same: a cell's randomness never depends on which other
+    cells of the grid ran before it, so a resumed cell equals a fresh run
+    of a narrower grid.  Distinct ``(seed, cell id)`` pairs give distinct
+    seeds, since the hash is below 2**31.
+    """
+    return generator_from_seed(int(seed) * 2**31 + cell_hash(cell_id))

@@ -1,5 +1,5 @@
-"""Feature-statistics adversarial detector + quantile calibration (port of
-``defenses/detector.py``; the squeezing detector is not ported yet).
+"""Feature-statistics and feature-squeezing adversarial detectors + their
+quantile calibration (port of ``defenses/detector.py``).
 
 On the ResNet stage-3 (``layer3``) feature map:
 
@@ -9,6 +9,14 @@ On the ResNet stage-3 (``layer3``) feature map:
 with the unbiased (ddof=1) variance.  Flag rule: ``score > threshold``.
 Calibration takes the q-quantile of clean scores (linear interpolation),
 halves it if above 50 and floors it at 1.0.
+
+The squeezing detector (Xu, Evans & Qi, NDSS 2018) scores the largest L1
+distance between the softmax on the input and on each squeezed input, the
+squeezers being the preprocessing defenses: 16-level quantization (the
+quantize kernel on a CUDA device, with a straight-through gradient) and the
+3x3 mean filter.  Its threshold is the plain linear q-quantile, no rails.
+
+A threshold is compared as a float32 value, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -46,6 +54,18 @@ def feature_score(features_fn: FeaturesFn, x: torch.Tensor) -> torch.Tensor:
     return score_from_features(features_fn(x))
 
 
+def _f32(threshold, like: torch.Tensor) -> torch.Tensor:
+    """The threshold as a 0-d float32 tensor on ``like``'s device."""
+    return torch.tensor(float(threshold), dtype=torch.float32, device=like.device)
+
+
+def is_adversarial_by_feature(features_fn: FeaturesFn, x: torch.Tensor,
+                              threshold) -> torch.Tensor:
+    """[B] bool, True where flagged as adversarial."""
+    score = feature_score(features_fn, x)
+    return score > _f32(threshold, score)
+
+
 def threshold_from_scores(scores: torch.Tensor, quantile: float = 0.95) -> float:
     """Quantile (linear, as ``jnp.quantile``) + the sanity rails (halve
     above 50, floor at 1.0)."""
@@ -75,3 +95,38 @@ def calibrate_feature_threshold(features_fn: FeaturesFn, x_clean: torch.Tensor,
     if verbose:
         print(f"  {quantile * 100:.0f}% quantile (threshold): {thr:.4f}")
     return thr
+
+
+def squeezing_score(logits_fn, x: torch.Tensor, quant_levels: int = 16) -> torch.Tensor:
+    """[B] max over the two squeezers of ``sum_K |softmax(f(x)) -
+    softmax(f(squeeze(x)))|``: three model forwards, one quantize launch on
+    a CUDA device.  Differentiable (the quantization's gradient is the
+    straight-through identity), so a detector-aware attack can ascend it."""
+    from .preprocess import defense_quantization, defense_smoothing
+
+    p_raw = torch.softmax(logits_fn(x), dim=-1)
+    p_quant = torch.softmax(logits_fn(defense_quantization(x, quant_levels)), dim=-1)
+    p_smooth = torch.softmax(logits_fn(defense_smoothing(x)), dim=-1)
+    d_quant = torch.sum(torch.abs(p_raw - p_quant), dim=-1)
+    d_smooth = torch.sum(torch.abs(p_raw - p_smooth), dim=-1)
+    return torch.maximum(d_quant, d_smooth)
+
+
+def is_adversarial_by_squeezing(logits_fn, x: torch.Tensor, threshold,
+                                quant_levels: int = 16) -> torch.Tensor:
+    """[B] bool, True where flagged as adversarial."""
+    score = squeezing_score(logits_fn, x, quant_levels)
+    return score > _f32(threshold, score)
+
+
+def calibrate_squeezing_threshold(logits_fn, x_clean: torch.Tensor, n: int = 100,
+                                  quantile: float = 0.95,
+                                  quant_levels: int = 16) -> float:
+    """The q-quantile (linear) of the squeezing scores of (up to n of) a
+    clean batch, in one batched pass."""
+    num = min(int(n), x_clean.shape[0])
+    if num <= 0:
+        raise ValueError("no calibration images available")
+    with torch.no_grad():
+        scores = squeezing_score(logits_fn, x_clean[:num], quant_levels)
+    return float(torch.quantile(scores, quantile))

@@ -6,18 +6,30 @@ Per sample: clean prediction -> attack -> adversarial prediction
 prediction (recovery = pred_def == y_true) -> detector on the adversarial and
 the clean batch -> bypass = attack_success AND not flagged.  The whole batch
 goes through each stage at once.
+
+Two options change the attacker, not the counters: ``adaptive`` attacks
+``logits_fn(defend_input(x))``, so the gradient crosses the defense chain
+(the straight-through quantization, the differentiable DCT codec, TV, or
+BPDA around the host codec); ``detector_aware`` (fgsm and pgd) ascends
+``CE - lam * relu(score - margin * threshold)`` against the cell's detector.
+
+The JAX package's ``make_defense_eval_fn_split_jpeg`` keeps a multi-chip
+mesh around the host codec; on one card the cell below runs the codec in
+place, so it has no counterpart.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 import torch
 
 from ..attacks.api import AttackParams, LogitsFn, run_attack
 from ..core.constants import DEFAULT_CW_KAPPA
-from ..defenses.detector import FeaturesFn, score_from_features
+from ..core.rng import generator_from_seed
+from ..defenses.detector import FeaturesFn, score_from_features, squeezing_score
+from ..defenses.mahalanobis import mahalanobis_score
 from ..defenses.preprocess import DefenseConfig, defend_input
 
 STAT_KEYS = (
@@ -32,7 +44,7 @@ STAT_KEYS = (
 
 @dataclass(frozen=True)
 class DefenseEvalConfig:
-    """Configuration of one grid cell: the fields the ported path reads."""
+    """Configuration of one grid cell: the fields the ported attacks read."""
 
     attack_name: str
     eps: float
@@ -42,10 +54,18 @@ class DefenseEvalConfig:
     cw_kappa: float = DEFAULT_CW_KAPPA
     cw_steps: int = 100
     cw_lr: float = 0.01
+    # 'feature' (stage-3 statistics) | 'squeezing' | 'mahalanobis'
     detector: str = "feature"
+    # fitted state of a parametric detector (MahalanobisParams): tensors,
+    # so left out of the comparison
+    detector_params: Any = field(default=None, compare=False)
     defense: DefenseConfig = DefenseConfig()
+    # attack logits_fn(defend_input(x)) instead of the raw model
     adaptive: bool = False
+    # the attacker also knows the detector (fgsm/pgd only)
     detector_aware: bool = False
+    detector_lam: float = 1.0
+    detector_margin: float = 0.9
 
     def attack_params(self) -> AttackParams:
         return AttackParams(eps=self.eps, alpha=self.alpha, steps=self.steps,
@@ -55,10 +75,43 @@ class DefenseEvalConfig:
 
 def make_detector_score_fn(logits_fn: LogitsFn, features_fn: FeaturesFn,
                            config: DefenseEvalConfig):
-    """x -> [B] detector score. Only the 'feature' detector is ported."""
+    """x -> [B] detector score, per ``config.detector``."""
+    if config.detector == "squeezing":
+        return lambda xx: squeezing_score(logits_fn, xx, config.defense.quant_levels)
+    if config.detector == "mahalanobis":
+        if config.detector_params is None:
+            raise ValueError(
+                "detector='mahalanobis' needs fitted detector_params "
+                "(defenses.mahalanobis.calibrate_mahalanobis)")
+        return lambda xx: mahalanobis_score(features_fn, xx, config.detector_params)
     if config.detector != "feature":
-        raise NotImplementedError(f"detector '{config.detector}' is not ported yet")
+        raise ValueError(f"unknown detector '{config.detector}'")
     return lambda xx: score_from_features(features_fn(xx))
+
+
+def _attack(attack_target_fn: LogitsFn, logits_fn: LogitsFn, features_fn: FeaturesFn,
+            x: torch.Tensor, y_true: torch.Tensor, threshold: float,
+            config: DefenseEvalConfig, params: AttackParams,
+            generator: torch.Generator | None) -> torch.Tensor:
+    if not config.detector_aware:
+        return run_attack(config.attack_name, attack_target_fn, x, y_true, params, generator)
+    if config.attack_name not in ("fgsm", "pgd"):
+        raise ValueError(
+            "detector_aware evaluation needs a gradient attack with a CE "
+            f"objective (fgsm|pgd), got '{config.attack_name}'")
+    from ..attacks.detector_aware import detector_aware_fgsm, detector_aware_pgd
+
+    score_fn = make_detector_score_fn(logits_fn, features_fn, config)
+    aware = {"threshold": threshold, "lam": config.detector_lam,
+             "margin": config.detector_margin}
+    if config.attack_name == "fgsm":
+        return detector_aware_fgsm(attack_target_fn, score_fn, x, y_true,
+                                   eps=params.eps, **aware)
+    if generator is None:
+        generator = generator_from_seed(0)
+    return detector_aware_pgd(attack_target_fn, score_fn, x, y_true, eps=params.eps,
+                              alpha=params.alpha, steps=params.steps,
+                              generator=generator, **aware)
 
 
 def _argmax(logits_fn: LogitsFn, x: torch.Tensor) -> torch.Tensor:
@@ -79,13 +132,11 @@ def evaluate_defenses_batch(
     """Per-sample int32 vectors of the six counters, plus ``"x_adv"``.
 
     ``eps_override`` replaces ``config.eps`` at run time: eps is a kernel
-    argument, so an eps sweep reuses the same kernels.
+    argument, so an eps sweep reuses the same kernels.  The threshold is
+    compared as a float32 value, as in the JAX package.
     """
-    if config.adaptive:
-        raise NotImplementedError("adaptive evaluation is not ported yet")
-    if config.detector_aware:
-        raise NotImplementedError("detector-aware evaluation is not ported yet")
-    threshold = float(detector_threshold)
+    thr = float(detector_threshold)
+    threshold = torch.tensor(thr, dtype=torch.float32, device=x.device)
     params = config.attack_params()
     if eps_override is not None:
         params = replace(params, eps=float(eps_override))
@@ -93,7 +144,13 @@ def evaluate_defenses_batch(
     pred_clean = _argmax(logits_fn, x)
     clean_correct = (pred_clean == y_true).int()
 
-    x_adv = run_attack(config.attack_name, logits_fn, x, y_true, params, generator)
+    if config.adaptive:
+        def attack_target_fn(xx):
+            return logits_fn(defend_input(xx, config.defense))
+    else:
+        attack_target_fn = logits_fn
+    x_adv = _attack(attack_target_fn, logits_fn, features_fn, x, y_true, thr,
+                    config, params, generator)
     pred_adv = _argmax(logits_fn, x_adv)
     attack_success = (pred_adv != y_true).int()
 

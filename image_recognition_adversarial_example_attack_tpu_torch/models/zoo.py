@@ -1,5 +1,5 @@
 """Model registry and weight resolution (port of ``models/zoo.py``, the
-``resnet50`` and ``resnet_tiny`` entries).
+``resnet50``, ``resnet50_robust`` and ``resnet_tiny`` entries).
 
 Weight resolution for ``load_model(name)``:
 
@@ -55,6 +55,10 @@ class ModelBundle:
 
 _REGISTRY: dict[str, Callable[[], nn.Module]] = {
     "resnet50": resnet50,
+    # the adversarially trained arm (--model_type robust): resnet50's
+    # architecture with its own weights file; the caller sets the identity
+    # normalization
+    "resnet50_robust": resnet50,
     "resnet_tiny": resnet_tiny,
 }
 

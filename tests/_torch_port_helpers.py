@@ -13,7 +13,13 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from image_recognition_adversarial_example_attack_tpu.core.constants import (
+    IMAGENET_MEAN, IMAGENET_STD)
+from image_recognition_adversarial_example_attack_tpu.core.normalize import (
+    normalize_batch as jax_normalize)
 from image_recognition_adversarial_example_attack_tpu.models import resnet as jax_resnet
+from image_recognition_adversarial_example_attack_tpu_torch.core.normalize import (
+    normalize_batch as port_normalize)
 from image_recognition_adversarial_example_attack_tpu_torch.models import resnet as port_models
 from image_recognition_adversarial_example_attack_tpu_torch.models.convert import (
     from_jax_variables)
@@ -60,6 +66,40 @@ def port_resnet(name: str, variables, dtype=np.float64, num_classes: int | None 
     model.load_state_dict(from_jax_variables(variables), strict=True)
     model.requires_grad_(False)
     return model.eval()
+
+
+def _jax_logits_uncast(m, x):
+    """The JAX ResNet's ``__call__`` without its final cast to float32."""
+    x = m._run_stages(m.stem(x), len(m.stage_sizes))
+    return m.fc(jnp.mean(x, axis=(1, 2)))
+
+
+def _jax_stage3_uncast(m, x):
+    """The JAX ResNet's ``features_stage3`` without its final cast."""
+    return m._run_stages(m.stem(x), 3)
+
+
+def uncast_fns(module, variables, model):
+    """{"jax": (logits_fn, features_fn), "port": (...)} that keep the model's
+    dtype: both packages cast the logits and the features to float32, so a
+    float64 oracle of what comes after the model needs these."""
+    def jax_fn(method):
+        def fn(x01):
+            x = jax_normalize(x01, IMAGENET_MEAN, IMAGENET_STD)
+            return module.apply(variables, x, method=method)
+        return fn
+
+    def port_fn(method, perm):
+        def fn(x01):
+            x = port_normalize(x01, IMAGENET_MEAN, IMAGENET_STD).permute(0, 3, 1, 2)
+            out = method(x)
+            return out if perm is None else out.permute(*perm)
+        return fn
+
+    return {
+        "jax": (jax_fn(_jax_logits_uncast), jax_fn(_jax_stage3_uncast)),
+        "port": (port_fn(model, None), port_fn(model.features_stage3, (0, 2, 3, 1))),
+    }
 
 
 def torchvision_resnet50_keys() -> set[str]:

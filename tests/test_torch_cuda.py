@@ -108,6 +108,90 @@ def test_pgd_attack_on_the_card_launches_the_kernels(cuda):
     assert float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0
 
 
+@pytest.fixture()
+def tiny_pair(cuda):
+    """resnet_tiny on the card and on the CPU, the same seeded weights, with
+    (logits_fn, features_fn) for each."""
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    return {d: make_fns(load_model("resnet_tiny", device=d)) for d in ("cuda", "cpu")}
+
+
+def test_adaptive_cell_launches_quantize_inside_the_attack(cuda, tiny_pair):
+    """--adaptive: the gradient crosses the straight-through quantization,
+    one quantize launch per step, plus one for the defended prediction."""
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.defense_eval import (
+        DefenseEvalConfig, evaluate_defenses_batch)
+
+    lf, ff = tiny_pair["cuda"]
+    x = torch.rand((4, 32, 32, 3), device=cuda)
+    y = lf(x).argmax(-1)
+    cfg = DefenseEvalConfig(attack_name="pgd", eps=EPS, alpha=ALPHA, steps=3, adaptive=True)
+    ew.reset_launches()
+    out = evaluate_defenses_batch(lf, ff, x, y, 1.0, cfg)
+    torch.cuda.synchronize()
+    assert ew.launch_counts() == {"pgd_step": 3, "quantize": 4, "uniform_noise": 1}
+    assert float((out["x_adv"] - x).abs().max()) <= EPS + 1e-6
+
+
+def test_squeezing_score_on_the_card_matches_the_cpu(cuda, tiny_pair):
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import squeezing_score
+
+    x = torch.rand((3, 32, 32, 3), generator=torch.Generator().manual_seed(0)) * 1.2 - 0.1
+    ew.reset_launches()
+    with torch.no_grad():
+        got = squeezing_score(tiny_pair["cuda"][0], x.to(cuda))
+        want = squeezing_score(tiny_pair["cpu"][0], x)
+    assert ew.launch_counts()["quantize"] == 1
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+    # under autograd the straight-through gradient reaches the input
+    xg = x.to(cuda).requires_grad_(True)
+    (g,) = torch.autograd.grad(squeezing_score(tiny_pair["cuda"][0], xg).sum(), xg)
+    assert ew.launch_counts()["quantize"] == 2
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+
+def test_detector_aware_pgd_on_the_card(cuda, tiny_pair):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        detector_aware_pgd, pgd_linf_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import squeezing_score
+
+    lf = tiny_pair["cuda"][0]
+    x = torch.rand((4, 32, 32, 3), device=cuda)
+    y = lf(x).argmax(-1)
+    ew.reset_launches()
+    x_adv = detector_aware_pgd(lf, lambda xx: squeezing_score(lf, xx), x, y, eps=EPS,
+                               alpha=ALPHA, steps=3, generator=generator_from_seed(0),
+                               threshold=0.0, lam=1.0)
+    torch.cuda.synchronize()
+    assert ew.launch_counts() == {"pgd_step": 3, "quantize": 3, "uniform_noise": 1}
+    assert float((x_adv - x).abs().max()) <= EPS + 1e-6
+    assert float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0
+    # lam = 0 is PGD, bit for bit, from the same generator
+    a = detector_aware_pgd(lf, None, x, y, eps=EPS, alpha=ALPHA, steps=3,
+                           generator=generator_from_seed(1), threshold=0.0, lam=0.0)
+    b = pgd_linf_attack(lf, x, y, eps=EPS, alpha=ALPHA, steps=3, generator=generator_from_seed(1))
+    assert torch.equal(a, b)
+
+
+def test_mahalanobis_on_the_card_matches_the_cpu(cuda):
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import (
+        fit_mahalanobis, mahalanobis_score_from_features)
+
+    rng = np.random.RandomState(0)
+    f = torch.tensor(rng.randn(40, 64) + rng.randn(5, 64)[rng.randint(0, 5, 40)],
+                     dtype=torch.float32)
+    labels = torch.tensor(rng.randint(0, 5, 40))
+    z = torch.tensor(rng.randn(6, 7, 7, 64), dtype=torch.float32)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = mahalanobis_score_from_features(z, fit_mahalanobis(f, labels, 5))
+    got = mahalanobis_score_from_features(z.to(cuda), fit_mahalanobis(f.to(cuda),
+                                                                      labels.to(cuda), 5))
+    assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
 # Seconds a conv test may take before the whole process ends with its
 # traceback: a kernel that waits forever on an mbarrier (a wrong byte count)
 # blocks inside torch.cuda.synchronize(), where no Python exception reaches.

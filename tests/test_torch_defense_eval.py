@@ -4,8 +4,9 @@ the JAX package (CPU).
 Smoothing and the quantization STE copy the JAX op order and are bit-exact
 in float32.  The detector score reduces over H, W, C in another order, so it
 is held at 1e-12 in float64 and 1e-5 relative in float32.  The fgsm cell runs
-on bridged float64 resnet_tiny weights: counters, x_adv and the summary
-lines must agree.
+on bridged float64 resnet_tiny weights, plain and under each option
+(adaptive, detector-aware, the squeezing and Mahalanobis detectors):
+counters, x_adv and the summary lines must agree.
 """
 
 import io
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
@@ -181,11 +183,101 @@ def test_summary_line_format():
     assert summary_line("pgd", EPS, stats) == jax_eval.summary_line("pgd", EPS, stats)
 
 
-@pytest.mark.parametrize("change", [{"adaptive": True}, {"detector_aware": True},
-                                    {"detector": "squeezing"}])
-def test_unported_cell_options_raise(cell, change):
+def _mahalanobis_params(cell):
+    """The port's fit on the clean batch, and the same numbers for the JAX
+    cell."""
+    from image_recognition_adversarial_example_attack_tpu.defenses import (
+        mahalanobis as jax_mahal)
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import (
+        calibrate_mahalanobis)
+
+    params, _ = calibrate_mahalanobis(cell["port"][1], torch.from_numpy(cell["x"]),
+                                      torch.from_numpy(cell["y"]), 10)
+    return params, jax_mahal.MahalanobisParams(mean=jnp.asarray(params.mean.numpy()),
+                                               precision=jnp.asarray(params.precision.numpy()))
+
+
+# each new option of the cell, and two together
+CELL_OPTIONS = {
+    "adaptive": {"adaptive": True},
+    "detector_aware": {"detector_aware": True},
+    "squeezing": {"detector": "squeezing"},
+    "mahalanobis": {"detector": "mahalanobis"},
+    "adaptive+detector_aware": {"adaptive": True, "detector_aware": True},
+    "squeezing+detector_aware": {"detector": "squeezing", "detector_aware": True,
+                                 "detector_lam": 3.0},
+    "mahalanobis+detector_aware": {"detector": "mahalanobis", "detector_aware": True,
+                                   "detector_margin": 0.5},
+}
+
+
+@pytest.mark.parametrize("option", sorted(CELL_OPTIONS))
+def test_fgsm_cell_options_match(cell, option):
+    """fgsm cells under each new option: the six counters, x_adv and the
+    summary line equal the JAX package's."""
+    lf_jax, ff_jax = cell["jax"]
     lf, ff = cell["port"]
-    cfg = DefenseEvalConfig(attack_name="fgsm", eps=EPS, alpha=2 / 255, steps=1, **change)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    x, y = cell["x"], cell["y"]
+    change = dict(CELL_OPTIONS[option])
+    change_jax = dict(change)
+    if change.get("detector") == "mahalanobis":
+        change["detector_params"], change_jax["detector_params"] = _mahalanobis_params(cell)
+    base = {"attack_name": "fgsm", "eps": EPS, "alpha": 2 / 255, "steps": 1}
+    cfg_jax = jax_eval.DefenseEvalConfig(**base, **change_jax)
+    cfg = DefenseEvalConfig(**base, **change)
+    scores = np.asarray(jax_eval.make_detector_score_fn(lf_jax, ff_jax, cfg_jax)(jnp.asarray(x)))
+    s = np.sort(scores)
+    thr = float((s[3] + s[4]) / 2)  # between two clean scores: mixed flags
+    want = jax_eval.evaluate_defenses_batch(lf_jax, ff_jax, jnp.asarray(x), jnp.asarray(y),
+                                            thr, cfg_jax, jax.random.PRNGKey(0))
+    got = evaluate_defenses_batch(lf, ff, torch.from_numpy(x), torch.from_numpy(y), thr, cfg)
+    for k in STAT_KEYS:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    np.testing.assert_allclose(got["x_adv"].numpy(), np.asarray(want["x_adv"]),
+                               rtol=0, atol=1e-9)
+    stats, want_stats = aggregate_stats(got), jax_eval.aggregate_stats(want)
+    assert stats == want_stats
+    assert 0 < stats["detector_flags_clean"] < 8
+    assert summary_line("fgsm", EPS, stats) == jax_eval.summary_line("fgsm", EPS, want_stats)
+
+
+def test_options_change_the_attack(cell):
+    """adaptive and detector_aware change x_adv (the options reach the
+    attack), the detector alone does not."""
+    lf, ff = cell["port"]
+    x, y = torch.from_numpy(cell["x"]), torch.from_numpy(cell["y"])
+    base = {"attack_name": "fgsm", "eps": EPS, "alpha": 2 / 255, "steps": 1}
+    plain = evaluate_defenses_batch(lf, ff, x, y, 1.0, DefenseEvalConfig(**base))["x_adv"]
+    for change, differs in (({"adaptive": True}, True),
+                            ({"detector_aware": True, "detector_margin": 0.0}, True),
+                            ({"detector": "squeezing"}, False)):
+        got = evaluate_defenses_batch(lf, ff, x, y, 1.0,
+                                      DefenseEvalConfig(**base, **change))["x_adv"]
+        assert (not torch.equal(got, plain)) == differs, change
+
+
+@pytest.mark.parametrize("attack", ["cw"])
+def test_detector_aware_refuses_a_non_gradient_attack(cell, attack):
+    lf, ff = cell["port"]
+    cfg = DefenseEvalConfig(attack_name=attack, eps=EPS, alpha=2 / 255, steps=1, cw_steps=2,
+                            detector_aware=True)
+    with pytest.raises(ValueError, match="detector_aware"):
         evaluate_defenses_batch(lf, ff, torch.from_numpy(cell["x"]),
                                 torch.from_numpy(cell["y"]), 1.0, cfg)
+
+
+@pytest.mark.parametrize("detector,match", [("mahalanobis", "detector_params"),
+                                            ("bogus", "unknown detector")])
+def test_detector_refusals(cell, detector, match):
+    lf, ff = cell["port"]
+    cfg = DefenseEvalConfig(attack_name="fgsm", eps=EPS, alpha=2 / 255, steps=1,
+                            detector=detector)
+    with pytest.raises(ValueError, match=match):
+        evaluate_defenses_batch(lf, ff, torch.from_numpy(cell["x"]),
+                                torch.from_numpy(cell["y"]), 1.0, cfg)
+
+
+def test_detector_params_are_left_out_of_the_comparison():
+    a = DefenseEvalConfig(attack_name="pgd", eps=EPS, alpha=2 / 255, steps=1,
+                          detector_params=object())
+    assert a == DefenseEvalConfig(attack_name="pgd", eps=EPS, alpha=2 / 255, steps=1)
