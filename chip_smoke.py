@@ -64,6 +64,30 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    command with ``--resume`` (nine cells resumed); pgd ``--adaptive
    --detector mahalanobis``; fgsm and pgd ``--detector_aware --detector
    squeezing``.
+9. stream -- 600 generated PNGs (256x300): (a) the defense_experiments CLI
+   in a subprocess with ``--max_batch 128 --attacks fgsm pgd`` (5 chunks, the
+   last with 88 valid): the "Streaming evaluation" line, six summary lines,
+   ``count == 600`` in every cell, each cell's seconds and img/s beside
+   phase 8's resident img/s; (b) on the first 300, fgsm in float32 at
+   ``--max_batch 128`` and at ``--max_batch 0``: the six counters of the
+   streamed and the resident cell, every difference printed (at most 3, an
+   image whose top-1 tie flips between the batch shapes); (c) the uint8
+   placer on one chunk, bit-equal to the host's ``round(x*255) /
+   float32(255)``; in process, a pgd cell through ``stream_defense_cell`` on
+   300 images in chunks of 128 with exactly 30 pgd_step, 3 noise and 3
+   quantize launches, and an fgsm cell run twice with equal counters.
+10. visualize -- the visualize CLI in a subprocess on one PNG at its
+   defaults (PGD-20, CW-100): the three PNGs and ``attack_report.json``
+   with the JAX CLI's keys, L-inf within eps for fgsm and pgd, SSIM in
+   [0, 1], PSNR finite; in process, PGD-20 and its trajectory at batch 1
+   (40 pgd_step, 2 noise launches, 21 trajectory rows), both kernels held
+   against their plain versions at [1,224,224,3], and ``attack_metrics`` on
+   the card against float64 on the CPU (SSIM within 1e-5, norms within 1e-5
+   relative).
+11. weights -- the random float32 ResNet-50 written as a Flax msgpack file
+   (``to_jax_variables``, ``save_variables``) and loaded back through
+   ``load_model(weights=...)`` with ``source == "cache"``: bf16 and float32
+   logits on the phase-3 batch bit-equal to the random-init models'.
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -99,6 +123,15 @@ CW_STEPS = 100
 # samples has samples to check, and the output takes both branches (best
 # successful iterate, final iterate).
 CW_C = 10.0
+N_STREAM, STREAM_CHUNK, N_F32 = 600, 128, 300
+# the key layout of the JAX visualize CLI's attack_report.json (without
+# --gradcam); the metric keys are the reference's, in its order
+REPORT_KEYS = {"image", "model", "clean_prediction", "params", "attacks"}
+CLEAN_KEYS = {"class_id", "class_name", "confidence"}
+PARAM_KEYS = {"eps", "alpha", "steps", "cw_c", "cw_steps"}
+ATTACK_KEYS = {"predicted_class", "predicted_name", "confidence", "success", "metrics"}
+METRIC_KEYS = ["L∞ (pixel)", "L2", "L1", "SSIM", "PSNR", "Perturbed Pixels %",
+               "High Freq Ratio %"]
 # name -> (TPU kernel it replaces, bytes moved per element: reads + writes)
 KERNELS = {
     "pgd_step": (f"{JAX_OPS}:105", 4 * 4),
@@ -821,18 +854,24 @@ def _run_experiments(image_dir: Path, out_dir: Path, *args: str) -> tuple[str, f
     return proc.stdout, seconds
 
 
-def phase_experiments() -> dict:
+def _write_pngs(image_dir: Path, n: int, seed: int = 0) -> list[Path]:
+    """``n`` random 256x300 PNGs (a 224 crop after the resize)."""
     import numpy as np
     from PIL import Image
 
+    image_dir.mkdir(parents=True)
+    rng = np.random.RandomState(seed)
+    paths = [image_dir / f"img_{i:03d}.png" for i in range(n)]
+    for p in paths:
+        Image.fromarray((rng.rand(256, 300, 3) * 255).astype(np.uint8)).save(p)
+    return paths
+
+
+def phase_experiments() -> dict:
     res: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         image_dir = Path(tmp) / "images"
-        image_dir.mkdir()
-        rng = np.random.RandomState(0)
-        for i in range(SHAPE[0]):
-            Image.fromarray((rng.rand(256, 300, 3) * 255).astype(np.uint8)).save(
-                image_dir / f"img_{i:03d}.png")
+        _write_pngs(image_dir, SHAPE[0])
         grid_dir = Path(tmp) / "grid"
         grid = ["--cw_steps", str(CW_STEPS)]
 
@@ -937,6 +976,325 @@ def phase_cli() -> dict:
     return {"seconds": seconds, "linf_png": linf, "cw_seconds": seconds_cw, "cw_l2_png": l2_cw}
 
 
+def _cells_s(out_dir: Path) -> dict[str, float]:
+    timings = json.loads((out_dir / "timings.json").read_text())
+    return {k: v["seconds"] for k, v in timings.items()}
+
+
+def phase_stream(state: dict, resident_cell_s: dict) -> dict:
+    """The grid streamed past --max_batch: the CLI, float32 streamed against
+    resident, the uint8 placer, and streamed cells in this process."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.images import (
+        load_image_batch_tolerant)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.defense_eval import (
+        STAT_KEYS, DefenseEvalConfig)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.streaming import (
+        make_placer, stream_defense_cell)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    torch.cuda.empty_cache()  # room for the subprocesses' batches
+    res: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = _write_pngs(Path(tmp) / "images", N_STREAM)
+        res["png_write_s"] = time.perf_counter() - t0
+
+        # (a) the CLI streams 600 images in chunks of 128
+        out_dir = Path(tmp) / "a"
+        out, seconds = _run_experiments(paths[0].parent, out_dir, "--attacks", "fgsm", "pgd",
+                                        "--max_batch", str(STREAM_CHUNK))
+        want_line = (f"Streaming evaluation: {N_STREAM} images in fixed chunks of "
+                     f"{STREAM_CHUNK} (constant memory; decode overlaps the device step)")
+        lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
+        partial = json.loads((out_dir / "results_partial.json").read_text())
+        if want_line not in out or len(lines) != 6 or len(partial) != 6 or any(
+                c["count"] != N_STREAM for c in partial.values()):
+            raise AssertionError(f"streamed grid: {len(lines)} summary lines, cells "
+                                 f"{ {k: c['count'] for k, c in partial.items()} }\n{out[-3000:]}")
+        cells = {}
+        for cell_id, sec in _cells_s(out_dir).items():
+            resident = resident_cell_s.get(cell_id)
+            cells[cell_id] = {"seconds": sec, "img_s": N_STREAM / sec,
+                              "resident_img_s": SHAPE[0] / resident if resident else None}
+        res["cli"] = {"wall_s": seconds, "cells": cells, "summary": lines}
+        log(f"[stream] CLI, {N_STREAM} PNGs in chunks of {STREAM_CHUNK}, fgsm + pgd x 3 eps: "
+            f"exit 0 in {seconds:.1f} s")
+        for cell_id, c in cells.items():
+            resident = c["resident_img_s"]
+            log(f"[stream]   {cell_id}: {c['seconds']:.3f} s, {c['img_s']:.1f} img/s streamed; "
+                f"resident (phase 8, {SHAPE[0]} images) "
+                + (f"{resident:.1f} img/s" if resident else "no such cell"))
+        for ln in lines:
+            log(f"[stream] {ln}")
+
+        # (b) float32 fgsm on 300 images: streamed in 3 chunks against one
+        # resident batch
+        sub = Path(tmp) / "f32"
+        sub.mkdir()
+        for p in paths[:N_F32]:
+            (sub / p.name).symlink_to(p)
+        counters, f32 = {}, {}
+        for max_batch in (str(STREAM_CHUNK), "0"):
+            o_dir = Path(tmp) / f"f32_{max_batch}"
+            _, seconds = _run_experiments(sub, o_dir, "--model-dtype", "float32", "--attacks",
+                                          "fgsm", "--eps_list", "0.0313725490",
+                                          "--viz_samples", "0", "--max_batch", max_batch)
+            (cell,) = json.loads((o_dir / "results_partial.json").read_text()).values()
+            counters[max_batch] = {k: cell[k] for k in (*STAT_KEYS, "count")}
+            f32[max_batch] = {"wall_s": seconds, "cell_s": _cells_s(o_dir),
+                              "counters": counters[max_batch]}
+        diff = {k: counters[str(STREAM_CHUNK)][k] - counters["0"][k] for k in counters["0"]}
+        res["float32"] = {"runs": f32, "difference": diff}
+        log(f"[stream] float32 fgsm on {N_F32} PNGs: streamed {f32[str(STREAM_CHUNK)]['cell_s']} "
+            f"s, resident {f32['0']['cell_s']} s; counters streamed "
+            f"{counters[str(STREAM_CHUNK)]}, resident {counters['0']}")
+        if any(diff.values()):
+            log(f"[stream] float32 streamed - resident counters: {diff} (a top-1 tie that "
+                "flips between the batch shapes' convolution algorithms)")
+        if diff["count"] != 0 or any(abs(v) > 3 for v in diff.values()):
+            raise AssertionError(f"float32 streamed and resident counters differ: {diff}")
+
+        # (c) the uint8 placer on one chunk, decoded on one host thread as
+        # the pipeline decodes it
+        t0 = time.perf_counter()
+        x_np, _ = load_image_batch_tolerant(paths[:STREAM_CHUNK])
+        res["decode_chunk_s"] = time.perf_counter() - t0
+        log(f"[stream] host decode of one chunk of {STREAM_CHUNK} PNGs: "
+            f"{res['decode_chunk_s']:.3f} s ({STREAM_CHUNK / res['decode_chunk_s']:.1f} img/s)")
+        got = make_placer("cuda", transfer_uint8=True)(x_np).cpu().numpy()
+        host = np.round(x_np * 255).astype(np.uint8).astype(np.float32) / np.float32(255)
+        if not (np.array_equal(got, host) and np.array_equal(got, x_np)):
+            raise AssertionError("the uint8 placer differs from the host's quotient")
+        res["uint8_placer"] = {"bit_equal_to_host": True, "equal_to_decoded_chunk": True}
+        log(f"[stream] uint8 placer on [{STREAM_CHUNK},224,224,3]: bit-equal to the host's "
+            "round(x*255)/float32(255), and to the decoded chunk")
+
+        # in process: streamed cells on 300 images in chunks of 128
+        b = state["bundle"]
+        lf, ff = make_fns(b)
+
+        def pseudo(xx):
+            return torch.argmax(lf(xx), dim=-1)
+
+        place = make_placer("cuda")
+
+        def cell(attack: str) -> dict:
+            cfg = DefenseEvalConfig(attack_name=attack, eps=EPS, alpha=ALPHA, steps=STEPS)
+            return stream_defense_cell(lf, ff, cfg, paths[:N_F32], state["threshold"], seed=0,
+                                       cell_id=f"{attack}:{EPS:.6f}", eps=EPS,
+                                       chunk_size=STREAM_CHUNK, place=place,
+                                       pseudo_label_fn=pseudo)
+
+        chunks = -(-N_F32 // STREAM_CHUNK)
+        ew.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = cell("pgd")
+        seconds = time.perf_counter() - t0
+        counts = ew.launch_counts()
+        want = {"pgd_step": chunks * STEPS, "quantize": chunks, "uniform_noise": chunks}
+        if counts != want:
+            raise AssertionError(f"streamed pgd cell launches {counts}, want {want}")
+        if stats["count"] != N_F32 or any(not 0 <= v <= N_F32 for v in stats.values()):
+            raise AssertionError(f"streamed pgd cell counters out of range: {stats}")
+        res["pgd_cell"] = {"launches": counts, "stats": stats, "seconds": seconds}
+        log(f"[stream] in process, pgd on {N_F32} images in {chunks} chunks: launches {counts}; "
+            f"{seconds:.3f} s ({N_F32 / seconds:.1f} img/s); {stats}")
+        runs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            runs.append(cell("fgsm"))
+            runs[-1]["seconds"] = time.perf_counter() - t0
+        if {k: v for k, v in runs[0].items() if k != "seconds"} != {
+                k: v for k, v in runs[1].items() if k != "seconds"}:
+            raise AssertionError(f"the same fgsm cell streamed twice gave {runs}")
+        res["fgsm_twice"] = runs
+        log(f"[stream] in process, fgsm streamed twice: equal counters, "
+            f"{runs[0]['seconds']:.3f} / {runs[1]['seconds']:.3f} s")
+    return res
+
+
+def phase_visualize(state: dict) -> dict:
+    """The visualize CLI in a subprocess, then PGD-20 and its trajectory at
+    batch 1 in this process, and the metrics on the card against float64."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        AttackParams, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.images import load_image
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.metrics import (
+        attack_metrics, metrics_to_python)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.trajectory import (
+        pgd_trajectory)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    res: dict = {}
+    viz_steps = 20
+    with tempfile.TemporaryDirectory() as tmp:
+        (img,) = _write_pngs(Path(tmp) / "img", 1, seed=3)
+        out_dir = Path(tmp) / "viz"
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"{PKG}.cli.visualize", "--image", str(img),
+                               "--output_dir", str(out_dir)], cwd=REPO, capture_output=True,
+                              text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or "Using device: cuda" not in proc.stdout:
+            raise AssertionError(f"visualize CLI exit {proc.returncode}:\n{proc.stdout[-3000:]}"
+                                 f"\n{proc.stderr[-4000:]}")
+        for name in ("attack_comparison.png", "attack_trajectory.png",
+                     "perturbation_analysis.png", "attack_report.json"):
+            if not (out_dir / name).is_file():
+                raise AssertionError(f"the visualize CLI wrote no {name}")
+        report = json.loads((out_dir / "attack_report.json").read_text())
+        attacks = report["attacks"]
+        layout_ok = (set(report) == REPORT_KEYS and set(report["clean_prediction"]) == CLEAN_KEYS
+                     and set(report["params"]) == PARAM_KEYS
+                     and list(attacks) == ["fgsm", "pgd", "cw"]
+                     and all(set(a) == ATTACK_KEYS and list(a["metrics"]) == METRIC_KEYS
+                             for a in attacks.values()))
+        if not layout_ok:
+            raise AssertionError(f"attack_report.json has another layout: {report}")
+        eps = report["params"]["eps"]
+        for name, a in attacks.items():
+            m = a["metrics"]
+            if name in ("fgsm", "pgd") and not m["L∞ (pixel)"] <= eps + 1e-6:
+                raise AssertionError(f"visualize {name}: L-inf {m['L∞ (pixel)']} > eps {eps}")
+            if not (0.0 <= m["SSIM"] <= 1.0 and np.isfinite(m["PSNR"])):
+                raise AssertionError(f"visualize {name}: SSIM {m['SSIM']}, PSNR {m['PSNR']}")
+        res["cli"] = {"wall_s": seconds, "report": report}
+        log(f"[visualize] CLI at its defaults (PGD-{report['params']['steps']}, "
+            f"CW-{report['params']['cw_steps']}): exit 0 in {seconds:.1f} s; "
+            + "; ".join(f"{n} class {a['predicted_class']} "
+                        f"({'success' if a['success'] else 'failed'}), "
+                        f"L-inf {a['metrics']['L∞ (pixel)']:.5f}, SSIM {a['metrics']['SSIM']:.4f},"
+                        f" PSNR {a['metrics']['PSNR']:.2f}" for n, a in attacks.items()))
+
+        # in process: PGD-20 and its trajectory at batch 1
+        lf, _ = make_fns(state["bundle"])
+        x = torch.from_numpy(load_image(img)).to("cuda")
+    with torch.no_grad():
+        y = lf(x).argmax(-1)
+    g = generator_from_seed(0)
+    ew.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_adv = run_attack("pgd", lf, x, y, AttackParams(eps=EPS, alpha=ALPHA, steps=viz_steps), g)
+    traj = pgd_trajectory(lf, x, y, eps=EPS, alpha=ALPHA, steps=viz_steps, generator=g)
+    probs, l2 = traj.probs.cpu(), traj.l2.cpu()
+    seconds = time.perf_counter() - t0
+    counts = ew.launch_counts()
+    want = {"pgd_step": 2 * viz_steps, "quantize": 0, "uniform_noise": 2}
+    if counts != want:
+        raise AssertionError(f"PGD-{viz_steps} + trajectory launches {counts}, want {want}")
+    if tuple(probs.shape) != (viz_steps + 1, 2) or tuple(l2.shape) != (viz_steps + 1,) or not (
+            bool(torch.isfinite(probs).all()) and bool(torch.isfinite(l2).all())):
+        raise AssertionError(f"trajectory {tuple(probs.shape)} {tuple(l2.shape)}")
+    linf = _check_ball(x_adv, x, EPS, "visualize pgd")
+    _check_ball(traj.x_adv, x, EPS, "trajectory")
+    res["in_process"] = {"launches": counts, "seconds": seconds, "linf": linf,
+                         "trajectory_rows": int(probs.shape[0]),
+                         "l2_first_last": [float(l2[0]), float(l2[-1])]}
+    log(f"[visualize] in process, PGD-{viz_steps} + trajectory at batch 1: launches {counts}; "
+        f"{seconds:.3f} s; {probs.shape[0]} trajectory rows, L2 {float(l2[0]):.3f} -> "
+        f"{float(l2[-1]):.3f}")
+
+    # both kernels against their plain versions at the batch-1 shape
+    shape = tuple(x.shape)
+    gen = generator_from_seed(7, "cuda")
+    xs, x0 = torch.rand(shape, generator=gen, device="cuda"), torch.rand(shape, generator=gen,
+                                                                         device="cuda")
+    grad = torch.randn(shape, generator=gen, device="cuda")
+    grad.view(-1)[::7] = 0.0
+    k, p = ew.pgd_step(xs, grad, x0, EPS, ALPHA), ew.pgd_step_plain(xs, grad, x0, EPS, ALPHA)
+    noise = ew.uniform_noise(shape, EPS, generator_from_seed(8), "cuda").double()
+    eps32 = float(np.float32(EPS))
+    noise_ok = (float(noise.min()) >= -eps32 and float(noise.max()) <= eps32
+                and abs(float(noise.mean())) < 1e-2 * EPS
+                and abs(float(noise.var()) / (EPS ** 2 / 3) - 1) < 2e-2)
+    if not torch.equal(k, p) or not noise_ok:
+        raise AssertionError(f"batch-1 kernels: pgd_step equal {torch.equal(k, p)}, noise "
+                             f"mean {float(noise.mean())} var {float(noise.var())}")
+    numel = xs.numel()
+    noise_gen = generator_from_seed(9)  # on the host, as the attacks' generators are
+    res["batch1_kernels"] = {
+        "pgd_step_max_abs_err": float((k - p).abs().max()),
+        "noise_mean": float(noise.mean()), "noise_var": float(noise.var()),
+        # calls issued one by one, as phase 2 times them (outside the counted run)
+        "pgd_step_ms": time_ms(lambda: ew.pgd_step(xs, grad, x0, EPS, ALPHA)),
+        "pgd_step_bound_ms": bound_ms("pgd_step", numel),
+        "uniform_noise_ms": time_ms(lambda: ew.uniform_noise(shape, EPS, noise_gen, "cuda")),
+        "uniform_noise_bound_ms": bound_ms("uniform_noise", numel)}
+    b1 = res["batch1_kernels"]
+    log(f"[visualize] kernels at {list(shape)}: pgd_step bit-exact, {b1['pgd_step_ms']:.4f} ms "
+        f"(bound {b1['pgd_step_bound_ms']:.5f}); noise in range, mean {float(noise.mean()):.2e}, "
+        f"var/(eps^2/3) {float(noise.var()) / (EPS ** 2 / 3):.4f}, {b1['uniform_noise_ms']:.4f} "
+        f"ms (bound {b1['uniform_noise_bound_ms']:.5f})")
+
+    # the metrics on the card against float64 on the CPU, the same pair
+    card = metrics_to_python(attack_metrics(x, x_adv))
+    cpu = metrics_to_python(attack_metrics(x.cpu().double(), x_adv.cpu().double()))
+    ssim_err = abs(card["SSIM"] - cpu["SSIM"])
+    norm_err = max(abs(card[k] - cpu[k]) / abs(cpu[k]) for k in METRIC_KEYS[:3])
+    if not (ssim_err <= 1e-5 and norm_err <= 1e-5):
+        raise AssertionError(f"metrics on the card vs float64: SSIM {ssim_err}, norms {norm_err}")
+    res["metrics"] = {"card": card, "cpu_float64": cpu, "ssim_abs_err": ssim_err,
+                      "norm_rel_err": norm_err}
+    log(f"[visualize] attack_metrics on the card vs float64 CPU: SSIM {card['SSIM']:.6f} "
+        f"(|diff| {ssim_err:.2e}), norms max rel diff {norm_err:.2e}, PSNR {card['PSNR']:.3f} "
+        f"vs {cpu['PSNR']:.3f}")
+    return res
+
+
+def phase_weights(state: dict) -> dict:
+    """The random ResNet-50 through a Flax msgpack file and back."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import make_logits_fn
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.models.convert import (
+        to_jax_variables)
+    from image_recognition_adversarial_example_attack_tpu_torch.models.flax_msgpack import (
+        save_variables)
+
+    x, res = state["x"], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "resnet50.msgpack"
+        ref32 = load_model("resnet50", dtype=torch.float32, device="cuda")
+        t0 = time.perf_counter()
+        save_variables(to_jax_variables(ref32.model), path)
+        res["write_s"], res["bytes"] = time.perf_counter() - t0, path.stat().st_size
+        for name, dtype, ref in (("bfloat16", torch.bfloat16, state["bundle"]),
+                                 ("float32", torch.float32, ref32)):
+            t0 = time.perf_counter()
+            loaded = load_model("resnet50", dtype=dtype, weights=path, device="cuda")
+            load_s = time.perf_counter() - t0
+            if loaded.source != "cache":
+                raise AssertionError(f"{path.name} loaded with source {loaded.source}")
+            in_dtype = dtype if dtype != torch.float32 else None
+            with torch.no_grad():
+                want = make_logits_fn(ref.model, ref.mean, ref.std, input_dtype=in_dtype)(x)
+                got = make_logits_fn(loaded.model, loaded.mean, loaded.std,
+                                     input_dtype=in_dtype)(x)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} logits through the msgpack file differ: "
+                                     f"{float((got - want).abs().max())}")
+            res[name] = {"load_s": load_s, "bit_equal": True}
+            del loaded
+        del ref32
+    log(f"[weights] resnet50 written as msgpack ({res['bytes'] / 1e6:.1f} MB) in "
+        f"{res['write_s']:.2f} s; loaded back with source 'cache' in "
+        f"{res['bfloat16']['load_s']:.2f} s (bf16) and {res['float32']['load_s']:.2f} s "
+        f"(float32); logits on the batch of {x.shape[0]} bit-equal in both dtypes")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=str, default=None,
@@ -974,12 +1332,17 @@ def main(argv=None) -> int:
     record["cli"] = phase_cli()
     record["detectors"] = phase_detectors(state)
     record["experiments"] = phase_experiments()
+    record["stream"] = phase_stream(state, record["experiments"]["grid"]["cell_s"])
+    record["visualize"] = phase_visualize(state)
+    record["weights"] = phase_weights(state)
 
-    # the elementwise kernels' main path: PGD-10 and the eight cells; the
+    # the elementwise kernels' main path: PGD-10, the eight cells, the
+    # streamed pgd cell and the visualize path's PGD-20 and trajectory; the
     # conv's: the probe's entry point
     detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
     runs = [record["pgd"], record["cell"], *record["cells"].values(),
-            *(record["detectors"][c] for c in detector_cells)]
+            *(record["detectors"][c] for c in detector_cells),
+            record["stream"]["pgd_cell"], record["visualize"]["in_process"]]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

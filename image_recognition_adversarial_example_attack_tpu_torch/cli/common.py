@@ -28,7 +28,7 @@ def add_model_args(parser: argparse.ArgumentParser, default_model: str = "resnet
     parser.add_argument("--model", type=str, default=default_model,
                         help="model name from the zoo (default: %(default)s)")
     parser.add_argument("--weights", type=str, default=None,
-                        help="weights file (torchvision .pth)")
+                        help="weights file (.msgpack cache or torchvision .pth)")
     parser.add_argument("--model-dtype", type=str, default=None,
                         choices=["float32", "bfloat16"],
                         help="compute dtype (default: bfloat16 on CUDA, float32 on CPU)")

@@ -4,19 +4,23 @@
     python -m image_recognition_adversarial_example_attack_tpu_torch.cli.defense_experiments \\
         --image_dir imgs/ [--attacks fgsm pgd cw] [--eps_list ...] [--device cpu]
 
-The image set is one resident batch on the device; each (attack, eps) grid
-cell is one call of ``evaluate_defenses_batch``, run eagerly, with its own
-generator (``core.rng.cell_generator``): a cell's randomness depends only on
-the seed and the cell id, never on its place in the grid.  Finished cells
-are written to ``<output_dir>/results_partial.json`` after each cell, and
-``--resume`` reuses those computed under the same configuration.  Before the
-grid the detector is calibrated (or given); after it come the summary lines,
-the sample figure (PGD at ``eps_list[1]``, alpha eps/4, 10 steps), the
-heatmaps and ``timings.json``.
+Up to ``--max_batch`` images are one resident batch on the device, and
+each (attack, eps) grid cell is one call of ``evaluate_defenses_batch``, run
+eagerly, with its own generator (``core.rng.cell_generator``): a cell's
+randomness depends only on the seed and the cell id, never on its place in
+the grid.  Larger image sets stream in fixed chunks of ``--max_batch``
+(``eval/streaming.py``): one cell call per chunk, the decode of the next
+chunk overlapping the card's work, each chunk's randomness from
+``core.rng.chunk_generator``, per-chunk pseudo-labels computed once for the
+whole grid.  Finished cells are written to
+``<output_dir>/results_partial.json`` after each cell, and ``--resume``
+reuses those computed under the same configuration.  Before the grid the
+detector is calibrated (or given) on at most the first 100 images; after it
+come the summary lines, the sample figure (PGD at ``eps_list[1]``, alpha
+eps/4, 10 steps), the heatmaps and ``timings.json``.
 
-Image sets larger than ``--max_batch`` are refused for now (streaming is not
-ported), as are the JAX CLI's certified, CIFAR-10, int8 and extended-attack
-options.
+The JAX CLI's certified, CIFAR-10, int8 and extended-attack options are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -38,10 +42,11 @@ from ..defenses.detector import calibrate_feature_threshold, calibrate_squeezing
 from ..defenses.preprocess import DefenseConfig, defend_input
 from ..eval.defense_eval import (DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch,
                                  summary_line)
+from ..eval.streaming import make_placer, round_up, stream_defense_cell
 from .common import (EPS_INDEPENDENT_ATTACKS, add_imagenet_val_arg, add_model_args,
                      apply_imagenet_val, cell_rng_id, check_label_range, config_fingerprint,
                      labels_digest, load_bundle, make_fns, maybe_profile, n_classes_of,
-                     resolve_image_inputs, resolve_labels)
+                     resolve_image_inputs, resolve_labels, resolve_labels_sentinel)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -111,8 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
                         help="attack targets score < margin*threshold "
                              "(with --detector_aware)")
     parser.add_argument("--max_batch", type=int, default=256,
-                        help="device batch cap: larger image sets are refused "
-                             "until streaming is ported (0 = always one "
+                        help="device batch cap: image sets larger than this "
+                             "stream through the same cell in fixed-shape chunks "
+                             "at constant host+device memory (0 = always one "
                              "resident batch)")
     parser.add_argument("--output_dir", type=str, default="./defense_results")
     parser.add_argument("--viz_samples", type=int, default=5,
@@ -184,13 +190,6 @@ def main(argv=None) -> int:
             print(f"Loaded image directory: {args.image_dir} ({len(image_paths)} images)")
         else:
             print(f"Loaded single image: {image_paths[0]}")
-    max_batch = int(args.max_batch)
-    if max_batch > 0 and len(image_paths) > max_batch:
-        raise SystemExit(
-            f"{len(image_paths)} images exceed --max_batch {max_batch}: streaming "
-            "larger image sets in chunks is not ported yet; --max_batch 0 keeps "
-            "them as one resident batch")
-
     device = resolve_device(args.device)
     print(f"Using device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
@@ -210,9 +209,18 @@ def main(argv=None) -> int:
         with torch.no_grad():
             return torch.argmax(logits_fn(xx), dim=-1)
 
-    x_np, image_paths = load_image_batch_tolerant(image_paths, size=bundle.input_size)
-    x = torch.from_numpy(x_np).to(device)
-    n = int(x.shape[0])
+    max_batch = int(args.max_batch)
+    streaming = max_batch > 0 and len(image_paths) > max_batch
+    if streaming:
+        chunk = round_up(max_batch, 1)  # one card: no mesh axis to round to
+        place = make_placer(device)
+        n = len(image_paths)
+        print(f"Streaming evaluation: {n} images in fixed chunks of {chunk} "
+              "(constant memory; decode overlaps the device step)")
+    else:
+        x_np, image_paths = load_image_batch_tolerant(image_paths, size=bundle.input_size)
+        x = torch.from_numpy(x_np).to(device)
+        n = int(x.shape[0])
 
     # --- detector threshold ---
     if args.detector_threshold is not None and args.detector != "mahalanobis":
@@ -238,8 +246,16 @@ def main(argv=None) -> int:
         else:
             print(f"Using calibrated threshold: {detector_threshold:.4f}")
     else:
+        if streaming:
+            # the leading <= 100 images: the only slice the streamed path
+            # holds resident
+            head_np, _ = load_image_batch_tolerant(image_paths[:min(100, n)],
+                                                   size=bundle.input_size)
+            x_cal, n_cal = torch.from_numpy(head_np).to(device), head_np.shape[0]
+        else:
+            x_cal, n_cal = x, min(100, n)
         detector_threshold, detector_params = _calibrate(
-            args, logits_fn, features_fn, x, min(100, n), pseudo_fn, n_classes)
+            args, logits_fn, features_fn, x_cal, n_cal, pseudo_fn, n_classes)
         if args.detector_threshold is not None:
             detector_threshold = float(args.detector_threshold)
             print(f"Using specified threshold: {detector_threshold:.4f}")
@@ -259,16 +275,22 @@ def main(argv=None) -> int:
                   for a in args.attacks}
     # the clean predictions are the labels (the reference's convention)
     # unless --labels_json gives ground truth; the figure always shows the
-    # clean predictions
-    y_pseudo = pseudo_fn(x)
-    if args.labels_json:
+    # clean predictions.  Streamed, both are resolved per chunk: images the
+    # labels file leaves out carry the UNLABELED sentinel until then.
+    labels_np = y_true = y_pseudo = None
+    if streaming:
+        labels_np = resolve_labels_sentinel(args.labels_json, image_paths)
+        if labels_np is not None:
+            check_label_range(labels_np, n_classes)
+    elif args.labels_json:
+        y_pseudo = pseudo_fn(x)
         pseudo = y_pseudo.cpu().numpy()
         labels = resolve_labels(args.labels_json, list(image_paths), pseudo)
         check_label_range(labels, n_classes)
         print(f"clean accuracy vs ground truth: {float(np.mean(labels == pseudo)):.3f}")
         y_true = torch.from_numpy(labels.astype(np.int64)).to(device)
     else:
-        y_true = y_pseudo
+        y_true = y_pseudo = pseudo_fn(x)
 
     output_dir = Path(args.output_dir)
     partial = _load_partial(output_dir) if args.resume else {}
@@ -284,6 +306,9 @@ def main(argv=None) -> int:
     # eps-independent attacks (cw) give the same cell at every eps: computed
     # once and reused
     eps_independent_cache: dict[str, dict] = {}
+    # per-chunk pseudo-labels last the whole attack x eps grid: the clean
+    # forward for the labels runs once per chunk in all
+    stream_clean_cache: dict = {}
     with maybe_profile(args.profile_dir):
         for attack_name in args.attacks:
             cfg = DefenseEvalConfig(
@@ -320,14 +345,26 @@ def main(argv=None) -> int:
                     _save_partial(output_dir, partial)
                     continue
 
-                generator = cell_generator(args.seed, cell_rng_id(attack_name, float(eps)))
-                with timer.phase(cell_id, examples=n):
-                    out = evaluate_defenses_batch(
-                        logits_fn, features_fn, x, y_true, detector_threshold, cfg,
-                        generator, eps_override=float(eps))
-                    stats = aggregate_stats(out)  # waits for the device
-                dt = timer.records[-1].seconds
-                print(f"  {n} images in {dt:.2f}s ({n / dt:.1f} img/s, one resident batch)")
+                rng_id = cell_rng_id(attack_name, float(eps))
+                with timer.phase(cell_id):
+                    if streaming:
+                        stats = stream_defense_cell(
+                            logits_fn, features_fn, cfg, image_paths, detector_threshold,
+                            seed=args.seed, cell_id=rng_id, eps=float(eps), chunk_size=chunk,
+                            place=place, size=bundle.input_size, pseudo_label_fn=pseudo_fn,
+                            labels=labels_np, clean_cache=stream_clean_cache)
+                    else:
+                        out = evaluate_defenses_batch(
+                            logits_fn, features_fn, x, y_true, detector_threshold, cfg,
+                            cell_generator(args.seed, rng_id), eps_override=float(eps))
+                        stats = aggregate_stats(out)  # waits for the device
+                record = timer.records[-1]
+                record.examples = stats["count"]
+                dt = record.seconds
+                how = (f"streamed chunks of {chunk}, one cell call each" if streaming
+                       else "one resident batch")
+                print(f"  {stats['count']} images in {dt:.2f}s "
+                      f"({stats['count'] / dt:.1f} img/s, {how})")
                 results[(attack_name, float(eps))] = stats
                 if attack_name in EPS_INDEPENDENT_ATTACKS:
                     eps_independent_cache[attack_name] = stats
@@ -351,7 +388,14 @@ def main(argv=None) -> int:
         print("=" * 60)
         viz_eps = float(args.eps_list[1]) if len(args.eps_list) > 1 else 8 / 255
         n_viz = min(int(args.viz_samples), n)
-        _visualize_samples(logits_fn, x[:n_viz], y_pseudo[:n_viz], viz_eps, defense_cfg,
+        if streaming:
+            # a resident slice of just the drawn samples
+            viz_np, _ = load_image_batch_tolerant(image_paths[:n_viz], size=bundle.input_size)
+            x_viz = torch.from_numpy(viz_np).to(device)
+            y_viz = pseudo_fn(x_viz)
+        else:
+            x_viz, y_viz = x[:n_viz], y_pseudo[:n_viz]
+        _visualize_samples(logits_fn, x_viz, y_viz, viz_eps, defense_cfg,
                            output_dir, generator_from_seed(args.seed + 1))
 
     print("\n" + "=" * 60)

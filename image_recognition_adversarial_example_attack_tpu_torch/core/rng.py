@@ -41,3 +41,16 @@ def cell_generator(seed: int, cell_id: str) -> torch.Generator:
     seeds, since the hash is below 2**31.
     """
     return generator_from_seed(int(seed) * 2**31 + cell_hash(cell_id))
+
+
+def chunk_generator(seed: int, cell_id: str, step: int) -> torch.Generator:
+    """The generator of chunk ``step`` of a streamed grid cell: seeded with
+    the first 63 bits of SHA-256 of ``"<seed>|<cell id>|<step>"``.
+
+    It is the counterpart of the JAX package's ``fold_in(cell_key, step)``
+    (``eval/streaming.py``).  Its bits differ from JAX's, but, being a
+    function of the seed, the cell id and the step alone, a resumed or
+    narrowed grid replays each chunk's draw.
+    """
+    digest = hashlib.sha256(f"{int(seed)}|{cell_id}|{int(step)}".encode()).digest()
+    return generator_from_seed(int.from_bytes(digest[:8], "big") >> 1)

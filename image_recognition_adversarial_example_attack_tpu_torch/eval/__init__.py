@@ -1,1 +1,2 @@
-"""The attack -> defend -> detect evaluation cell."""
+"""Evaluation: the attack -> defend -> detect cell, its streamed form, the
+perturbation metrics and the attack trajectories."""

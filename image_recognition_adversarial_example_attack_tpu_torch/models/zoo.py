@@ -1,14 +1,21 @@
 """Model registry and weight resolution (port of ``models/zoo.py``, the
 ``resnet50``, ``resnet50_robust`` and ``resnet_tiny`` entries).
 
-Weight resolution for ``load_model(name)``:
+Weight resolution for ``load_model(name)``, the JAX zoo's order:
 
-1. an explicit ``weights=`` ``.pth`` (leading ``module.``/``model.`` stripped),
-2. ``$ADV_TPU_WEIGHTS_DIR/<name>.pth`` (default directory ``weights``),
-3. a deterministic random init from a ``torch.Generator`` seeded with the
+1. an explicit ``weights=`` file: a Flax ``.msgpack`` (``source="cache"``) or
+   a torchvision ``.pth``/``.pt`` (leading ``module.``/``model.`` stripped,
+   ``source="converted"``),
+2. ``$ADV_TPU_WEIGHTS_DIR/<name>.msgpack`` (default directory ``weights``),
+3. ``$ADV_TPU_WEIGHTS_DIR/<name>.pth``,
+4. a deterministic random init from a ``torch.Generator`` seeded with the
    constant ``INIT_SEED`` (0, as the JAX zoo's ``PRNGKey(0)``), with a loud
    warning and ``source="random"``.  The CLI's ``--seed`` drives only the
    attack's randomness, never the weights.
+
+Both file kinds load with ``strict=True``: a file with missing or extra
+entries raises instead of loading part of a model.  Unlike the JAX zoo, a
+``.pth`` load writes no ``.msgpack`` cache beside it.
 
 The random init draws Flax's default distributions (LeCun-normal kernels,
 unit BatchNorm scale and variance, zero biases and means), but not Flax's
@@ -35,7 +42,8 @@ from torch import nn
 
 from ..core.constants import IMAGE_SIZE, IMAGENET_MEAN, IMAGENET_STD
 from ..core.device import resolve_device
-from .convert import load_torch_checkpoint
+from .convert import from_jax_variables, load_torch_checkpoint
+from .flax_msgpack import read_variables
 from .resnet import FrozenBatchNorm2d, resnet50, resnet_tiny
 
 
@@ -45,7 +53,7 @@ class ModelBundle:
 
     name: str
     model: nn.Module
-    source: str  # "converted" | "random"
+    source: str  # "cache" | "converted" | "random"
     dtype: torch.dtype
     device: torch.device
     mean: np.ndarray = field(default_factory=lambda: IMAGENET_MEAN.copy())
@@ -126,13 +134,20 @@ def load_model(name: str, dtype: torch.dtype = torch.float32,
     candidates: list[Path] = []
     if weights is not None:
         candidates.append(Path(weights))
+    candidates.append(weights_dir() / f"{name}.msgpack")
     candidates.append(weights_dir() / f"{name}.pth")
     source = "random"
     for path in candidates:
-        if path.is_file() and path.suffix in (".pth", ".pt"):
-            model.load_state_dict(load_torch_checkpoint(path), strict=True)
-            source = "converted"
-            break
+        if not path.is_file():
+            continue
+        if path.suffix == ".msgpack":
+            state, source = from_jax_variables(read_variables(path)), "cache"
+        elif path.suffix in (".pth", ".pt"):
+            state, source = load_torch_checkpoint(path), "converted"
+        else:
+            continue
+        model.load_state_dict(state, strict=True)
+        break
     else:
         warnings.warn(
             f"no weights found for '{name}' (searched {[str(c) for c in candidates]}); "

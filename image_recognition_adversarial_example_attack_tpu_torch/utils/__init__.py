@@ -1,1 +1,1 @@
-"""Host-side utilities: phase timing."""
+"""Host-side utilities: phase timing and the streaming input pipeline."""

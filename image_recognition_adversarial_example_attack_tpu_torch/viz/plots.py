@@ -1,5 +1,7 @@
-"""The defense grid's figures (port of ``plot_defense_heatmaps`` and
-``plot_attack_samples`` of ``viz/plots.py``), drawn with PIL alone.
+"""The figures of the defense grid and of the visualize CLI (port of
+``plot_defense_heatmaps``, ``plot_attack_samples``, ``plot_attack_grid``,
+``plot_attack_trajectory`` and ``plot_perturbation_analysis`` of
+``viz/plots.py``), drawn with PIL alone.
 
 The contract with the JAX package is the file names and the plotted values,
 not the styling:
@@ -11,7 +13,14 @@ not the styling:
   rate (blue) and the bypass rate (orange), each cell annotated with its
   rate to 3 decimals;
 - ``attack_samples.png``: one row per sample, clean / adversarial /
-  defended image and the perturbation's magnitude (magma ramp).
+  defended image and the perturbation's magnitude (magma ramp);
+- the visualize CLI's ``attack_comparison.png`` (per attack: original and
+  adversarial side by side, the perturbation amplified x10 and x50),
+  ``attack_trajectory.png`` (the two tracked probabilities with the 0.5
+  line, and the L2 growth) and ``perturbation_analysis.png`` (per attack:
+  the 50-bin histogram of the perturbation on [-0.1, 0.1] and the log1p of
+  the shifted spectrum of its channel mean, ``perturbation_histogram`` and
+  ``perturbation_spectrum``).
 
 PIL, because the CUDA machines the port runs on need not have matplotlib;
 Pillow is there already for the image pipeline.  Nothing here touches the
@@ -100,6 +109,9 @@ def _marker(draw: ImageDraw.ImageDraw, x: float, y: float, kind: str, color, r: 
         draw.polygon([(x, y - r - 2), (x - r - 1, y + r), (x + r + 1, y + r)], fill=color)
     elif kind == "o":
         draw.ellipse((x - r, y - r, x + r, y + r), fill=color)
+    elif kind == "x":
+        draw.line((x - r, y - r, x + r, y + r), fill=color, width=3)
+        draw.line((x - r, y + r, x + r, y - r), fill=color, width=3)
     else:  # "d": a diamond
         draw.polygon([(x, y - r - 2), (x + r + 2, y), (x, y + r + 2), (x - r - 2, y)],
                      fill=color)
@@ -281,3 +293,188 @@ def plot_attack_samples(samples: Sequence[Mapping], output_dir, eps: float) -> P
     out = output_dir / "attack_samples.png"
     img.save(out)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The visualize CLI's figures
+# ---------------------------------------------------------------------------
+
+AMPLIFICATIONS = (10, 50)
+
+
+def amplified(x_clean: np.ndarray, x_adv: np.ndarray, amp: float) -> np.ndarray:
+    """The clean image plus ``amp`` times the perturbation, clipped to [0, 1]."""
+    return np.clip(x_clean + amp * (np.asarray(x_adv) - x_clean), 0.0, 1.0)
+
+
+def perturbation_histogram(diff: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(counts, edges): 50 bins of the perturbation's values on [-0.1, 0.1]."""
+    return np.histogram(np.asarray(diff).reshape(-1), bins=50, range=(-0.1, 0.1))
+
+
+def perturbation_spectrum(diff: np.ndarray) -> np.ndarray:
+    """log1p of |FFT| of the perturbation's channel mean, zero frequency at
+    the center."""
+    return np.log1p(np.abs(np.fft.fftshift(np.fft.fft2(np.asarray(diff).mean(axis=2)))))
+
+
+def _tile(x: np.ndarray, size: int) -> Image.Image:
+    return Image.fromarray(_to_uint8(np.asarray(x))).resize((size, size),
+                                                           Image.Resampling.NEAREST)
+
+
+def plot_attack_grid(x_clean: np.ndarray, results: Mapping[str, Mapping], save_path) -> None:
+    """One row per attack: the original and the adversarial image side by
+    side, then the perturbation amplified x10 and x50, under a banner with
+    the attack's name and SUCCESS or FAILED.
+
+    ``results``: {attack: {"x_adv": HWC, "pred_clean": (id, ...),
+    "pred_adv": (id, ...)}}."""
+    save_path = Path(save_path)
+    save_path.parent.mkdir(parents=True, exist_ok=True)
+    tile, gap, banner, head = 300, 30, 60, 40
+    w = 4 * tile + 4 * gap
+    row_h = banner + head + tile + gap
+    img = Image.new("RGB", (w, row_h * max(1, len(results))), _WHITE)
+    draw = ImageDraw.Draw(img)
+    f_banner, f_head = _font(28), _font(20)
+    for idx, (attack_name, r) in enumerate(results.items()):
+        x_adv = np.asarray(r["x_adv"])
+        success = "SUCCESS" if r["pred_clean"][0] != r["pred_adv"][0] else "FAILED"
+        y = idx * row_h
+        _text(draw, (w / 2, y + banner / 2), f"{attack_name.upper()} attack — {success}",
+              f_banner)
+        y_img = y + banner + head
+        img.paste(_tile(x_clean, tile), (gap, y_img))
+        img.paste(_tile(x_adv, tile), (gap + tile, y_img))
+        draw.line((gap + tile, y_img, gap + tile, y_img + tile), fill=_WHITE, width=4)
+        _text(draw, (gap + tile, y + banner + head / 2), "Original vs adversarial", f_head)
+        for k, amp in enumerate(AMPLIFICATIONS):
+            x0 = gap + (2 + k) * (tile + gap // 2) + gap // 2
+            img.paste(_tile(amplified(x_clean, x_adv, amp), tile), (x0, y_img))
+            _text(draw, (x0 + tile / 2, y + banner + head / 2), f"Perturbation ×{amp}", f_head)
+    img.save(save_path)
+
+
+def _axes(draw: ImageDraw.ImageDraw, box, x_max: int, ylim: tuple[float, float], font):
+    """Frame, grid and ticks of a line panel; returns the data -> pixel map."""
+    x0, y0, x1, y1 = box
+    lo, hi = ylim
+
+    def px(i: float) -> float:
+        return x0 + i / max(1, x_max) * (x1 - x0)
+
+    def py(v: float) -> float:
+        return y1 - (v - lo) / (hi - lo) * (y1 - y0)
+
+    for k in range(6):
+        v = lo + (hi - lo) * k / 5
+        draw.line((x0, py(v), x1, py(v)), fill=_GRID, width=1)
+        _text(draw, (x0 - 10, py(v)), f"{v:.3g}", font, align="right")
+    step = max(1, -(-x_max // 10))
+    for i in range(0, x_max + 1, step):
+        draw.line((px(i), y0, px(i), y1), fill=_GRID, width=1)
+        _text(draw, (px(i), y1 + 20), str(i), font)
+    draw.rectangle(box, outline=_INK, width=2)
+    return px, py
+
+
+def _curve(draw, px, py, values, color, marker: str, width: int = 4) -> None:
+    pts = [(px(i), py(float(v))) for i, v in enumerate(values)]
+    if len(pts) > 1:
+        draw.line(pts, fill=color, width=width, joint="curve")
+    for x, y in pts:
+        _marker(draw, x, y, marker, color, r=6)
+
+
+def plot_attack_trajectory(traj_probs: np.ndarray, traj_l2: np.ndarray, attack_name: str,
+                           eps: float, save_path) -> None:
+    """Left: the probabilities of the two tracked classes (original, target)
+    at each step, with the 0.5 decision line; right: the perturbation's L2
+    norm at each step.  Two panels, never a dual-axis chart."""
+    save_path = Path(save_path)
+    save_path.parent.mkdir(parents=True, exist_ok=True)
+    probs, l2 = np.asarray(traj_probs, np.float64), np.asarray(traj_l2, np.float64)
+    w, h = 1800, 700
+    img = Image.new("RGB", (w, h), _WHITE)
+    draw = ImageDraw.Draw(img)
+    f_title, f_label, f_tick = _font(26), _font(20), _font(16)
+    steps = len(l2) - 1
+    left, right = (110, 90, 860, 580), (1030, 90, 1760, 580)
+
+    px, py = _axes(draw, left, steps, (-0.05, 1.05), f_tick)
+    for i in range(0, 40):  # dashed decision boundary at 0.5
+        xa = left[0] + (left[2] - left[0]) * i / 40
+        if i % 2 == 0:
+            draw.line((xa, py(0.5), xa + (left[2] - left[0]) / 40, py(0.5)), fill=(128, 128, 128),
+                      width=2)
+    legend = [("original class", probs[:, 0], _hex("#2a78d6"), "o"),
+              ("target class", probs[:, 1], _hex("#eb6834"), "x")]
+    for k, (label, values, color, marker) in enumerate(legend):
+        _curve(draw, px, py, values, color, marker)
+        ly = left[1] + 25 + 30 * k
+        draw.line((left[2] - 260, ly, left[2] - 210, ly), fill=color, width=4)
+        _text(draw, (left[2] - 200, ly), label, f_label, align="left")
+    _text(draw, (left[2] - 200, left[1] + 85), "- - decision boundary", f_label, align="left")
+    _text(draw, ((left[0] + left[2]) / 2, 45),
+          f"{attack_name.upper()} attack trajectory (eps={eps:.5f})", f_title)
+    _text(draw, ((left[0] + left[2]) / 2, h - 50), "Attack step", f_label)
+    _vertical_text(img, (35, (left[1] + left[3]) / 2), "Prediction probability", f_label)
+
+    top = float(l2.max()) * 1.05 if l2.size and float(l2.max()) > 0 else 1.0
+    px, py = _axes(draw, right, steps, (0.0, top), f_tick)
+    _curve(draw, px, py, l2, _hex("#1baf7a"), "s")
+    _text(draw, ((right[0] + right[2]) / 2, 45), "Perturbation growth", f_title)
+    _text(draw, ((right[0] + right[2]) / 2, h - 50), "Attack step", f_label)
+    _vertical_text(img, (945, (right[1] + right[3]) / 2), "L2 perturbation", f_label)
+    img.save(save_path)
+
+
+def plot_perturbation_analysis(x_clean: np.ndarray, results: Mapping[str, Mapping],
+                               save_path) -> None:
+    """Per attack, a column: the histogram of the perturbation's values
+    (``perturbation_histogram``) above its spectrum
+    (``perturbation_spectrum``, magma ramp over its own range)."""
+    save_path = Path(save_path)
+    save_path.parent.mkdir(parents=True, exist_ok=True)
+    n = max(1, len(results))
+    col, top = 560, 80
+    w, h = col * n, top + 2 * 520
+    img = Image.new("RGB", (w, h), _WHITE)
+    draw = ImageDraw.Draw(img)
+    f_title, f_head, f_tick = _font(30), _font(22), _font(16)
+    _text(draw, (w / 2, top / 2), "Perturbation spatial & frequency analysis", f_title)
+    for idx, (attack_name, r) in enumerate(results.items()):
+        diff = np.asarray(r["x_adv"]) - x_clean
+        hex_color, _ = _ATTACK_STYLE.get(attack_name.upper(), _OTHER_STYLE)
+        color = _hex(hex_color)
+        cx = idx * col
+        # the histogram: 50 bars over [-0.1, 0.1]
+        counts, edges = perturbation_histogram(diff)
+        bx0, by0, bx1, by1 = cx + 90, top + 60, cx + col - 30, top + 440
+        peak = max(1, int(counts.max()))
+        for c, (lo, hi) in zip(counts, zip(edges[:-1], edges[1:])):
+            xa = bx0 + (lo + 0.1) / 0.2 * (bx1 - bx0)
+            xb = bx0 + (hi + 0.1) / 0.2 * (bx1 - bx0)
+            draw.rectangle((xa, by1 - c / peak * (by1 - by0), xb, by1), fill=color)
+        draw.rectangle((bx0, by0, bx1, by1), outline=_INK, width=2)
+        for v in (-0.1, -0.05, 0.0, 0.05, 0.1):
+            _text(draw, (bx0 + (v + 0.1) / 0.2 * (bx1 - bx0), by1 + 18), f"{v:g}", f_tick)
+        _text(draw, (bx0 - 8, by0), str(peak), f_tick, align="right")
+        _text(draw, (bx0 - 8, by1), "0", f_tick, align="right")
+        _text(draw, ((bx0 + bx1) / 2, top + 25), f"{attack_name.upper()} distribution", f_head)
+        _text(draw, ((bx0 + bx1) / 2, by1 + 50), "Perturbation value", f_head)
+        # the spectrum
+        spec = perturbation_spectrum(diff)
+        span = float(spec.max() - spec.min())
+        heat = ramp((spec - spec.min()) / span if span > 0 else spec * 0, "magma")
+        side = 400
+        sy = top + 560
+        img.paste(Image.fromarray(heat).resize((side, side), Image.Resampling.NEAREST),
+                  (cx + 50, sy))
+        bar = ramp(np.linspace(1.0, 0.0, side), "magma")[:, None, :]
+        img.paste(Image.fromarray(np.repeat(bar, 20, axis=1)), (cx + 470, sy))
+        _text(draw, (cx + 495, sy), f"{float(spec.max()):.2f}", f_tick, align="left")
+        _text(draw, (cx + 495, sy + side), f"{float(spec.min()):.2f}", f_tick, align="left")
+        _text(draw, (cx + 50 + side / 2, sy - 25), f"{attack_name.upper()} frequency", f_head)
+    img.save(save_path)

@@ -192,6 +192,68 @@ def test_mahalanobis_on_the_card_matches_the_cpu(cuda):
     assert float((got.cpu() - want).abs().max()) <= 1e-4 * float(want.abs().max())
 
 
+@pytest.mark.parametrize("uint8", [False, True])
+def test_placer_on_the_card(cuda, uint8):
+    """The streamed chunks' placer: float32 on the card, bit-equal to the
+    host's chunk, or under uint8 to the host's round(x*255) / float32(255)."""
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.streaming import make_placer
+
+    x = np.random.RandomState(0).uniform(-0.01, 1.01, (3, 16, 16, 3)).astype(np.float32)
+    got = make_placer(cuda, transfer_uint8=uint8)(x)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    u8 = np.clip(np.round(x * 255), 0, 255).astype(np.uint8)
+    want = u8.astype(np.float32) / np.float32(255) if uint8 else x
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+def test_placer_chunks_in_flight_keep_their_bits(cuda):
+    """Twenty chunks placed back to back, each host array dropped at once
+    and nothing synchronised in between: every device tensor holds its own
+    chunk, so no pinned buffer was reused while its copy was in flight."""
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.streaming import make_placer
+
+    place = make_placer(cuda)
+    outs = [place(np.full((8, 64, 64, 3), i / 20, np.float32)) for i in range(20)]
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert bool((out == np.float32(i / 20)).all()), i
+
+
+def test_kernels_at_the_visualize_cli_batch_one_shape(cuda):
+    """The visualize CLI's PGD and trajectory launch pgd_step and the noise
+    at [1,224,224,3]."""
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+
+    shape = (1, 224, 224, 3)
+    x, g, x0 = _inputs(shape, cuda)
+    assert torch.equal(ew.pgd_step(x, g, x0, EPS, ALPHA), ew.pgd_step_plain(x, g, x0, EPS, ALPHA))
+    noise = ew.uniform_noise(shape, EPS, generator_from_seed(0), cuda).double()
+    eps32 = float(np.float32(EPS))
+    assert float(noise.min()) >= -eps32 and float(noise.max()) <= eps32
+    assert abs(float(noise.mean())) < 1e-2 * EPS
+    assert abs(float(noise.var()) / (EPS ** 2 / 3) - 1) < 2e-2
+
+
+def test_ssim_guards_itself_against_tf32(cuda):
+    """With TF32 allowed for cuDNN globally, SSIM on the card still agrees
+    with the float64 CPU value within 1e-5, and the global flag is left as
+    it was."""
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.metrics import ssim
+
+    rs = np.random.RandomState(1)
+    a = rs.uniform(0, 1, (2, 224, 224, 3)).astype(np.float32)
+    b = np.clip(a + np.float32(8 / 255) * np.sign(rs.randn(*a.shape)), 0, 1).astype(np.float32)
+    want = float(ssim(torch.from_numpy(a).double(), torch.from_numpy(b).double()))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = float(ssim(torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)))
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    assert abs(got - want) <= 1e-5
+
+
 # Seconds a conv test may take before the whole process ends with its
 # traceback: a kernel that waits forever on an mbarrier (a wrong byte count)
 # blocks inside torch.cuda.synchronize(), where no Python exception reaches.

@@ -107,10 +107,19 @@ def test_detector_aware_refuses_cw_before_any_work(capsys):
 
 
 def test_streaming_is_refused_before_any_device_work(image_dir, tmp_path, monkeypatch):
+    """Streaming is ported: an image set above --max_batch is no longer
+    refused before the device work, the run goes on to the device (the
+    streamed grid itself: tests/test_torch_defense_experiments_streaming.py)."""
     cli = "image_recognition_adversarial_example_attack_tpu_torch.cli.defense_experiments"
-    for name in ("resolve_device", "load_bundle"):
-        monkeypatch.setattr(f"{cli}.{name}", lambda *a: pytest.fail("touched the device"))
-    with pytest.raises(SystemExit, match=r"3 images exceed --max_batch 2.*--max_batch 0"):
+
+    class ReachedTheDevice(Exception):
+        pass
+
+    def reached(*args):
+        raise ReachedTheDevice
+
+    monkeypatch.setattr(f"{cli}.resolve_device", reached)
+    with pytest.raises(ReachedTheDevice):
         main(["--image_dir", str(image_dir), "--max_batch", "2", "--output_dir", str(tmp_path)])
 
 
