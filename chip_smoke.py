@@ -88,6 +88,32 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    (``to_jax_variables``, ``save_variables``) and loaded back through
    ``load_model(weights=...)`` with ``source == "cache"``: bf16 and float32
    logits on the phase-3 batch bit-equal to the random-init models'.
+12. families -- VGG19, DenseNet-121, ViT-B/16 and Swin-T at full width,
+   224x224, random weights from the seed: float32 logits of the card against
+   the CPU on phase 3's two images within 1e-5 relative (TF32 off; the TF32
+   reading printed beside it), the bf16 forward's ms at batch 128, bf16 vs
+   float32 top-1 agreement on the batch (printed, not gated), the bytes of
+   the parameters, and a profile of DenseNet's bf16 forward (its channel
+   concatenations).
+13. transfer -- (a) ``transfer_attack_batch`` with pgd-20 from the bf16
+   ResNet-50 to the four families at batch 128: exactly 20 pgd_step and 1
+   noise launches, x_adv in the eps-ball and [0,1], success vectors in {0,1},
+   its seconds, the seconds by model and a profile; (b) the same from the
+   ResNet-50 + DenseNet-121 logit ensemble to VGG19, ViT and Swin; (c) the
+   blackbox_transfer CLI in a subprocess at its defaults (fgsm, pgd, cw-200)
+   on phase 8's 128 PNGs: the table's header and three rows, nine panels;
+   (d) the transferability CLI at its defaults (pgd-20, 3 eps): its JSON,
+   summary table and heatmap; (e) on 300 PNGs, fgsm in float32 streamed in
+   chunks of 128 (``stream_transfer_cell``) and resident: equal source and
+   target success vectors, every difference printed; (f) the dataset_check
+   CLI on 128 generated JPEGs.
+14. native loader -- the port's build of the C++ loader: one chunk of 128
+   PNGs and one of 128 JPEGs decoded natively and with PIL, both rates and
+   the largest difference (at most 1/255); then phase 9(a)'s streamed grid
+   command again with ``ADV_TPU_NATIVE_LOADER=1``, img/s per cell beside
+   phase 9's.  On a host whose compiler finds no libjpeg the loader cannot
+   be built: the phase then checks that the toggle raises instead of
+   decoding with PIL, says so, and measures nothing.
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -98,6 +124,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -124,6 +151,8 @@ CW_STEPS = 100
 # successful iterate, final iterate).
 CW_C = 10.0
 N_STREAM, STREAM_CHUNK, N_F32 = 600, 128, 300
+FAMILIES = ("vgg19", "densenet121", "vit_b_16", "swin_t")
+TRANSFER_STEPS = 20  # the transferability CLI's default --steps
 # the key layout of the JAX visualize CLI's attack_report.json (without
 # --gradcam); the metric keys are the reference's, in its order
 REPORT_KEYS = {"image", "model", "clean_prediction", "params", "attacks"}
@@ -835,36 +864,38 @@ SUMMARY_RE = (r"^attack=(fgsm|pgd|cw), eps=(\d\.\d{5}), attack_success=\d\.\d{3}
               r"detector_adv_flag_rate=\d\.\d{3}, detector_attack_success=\d\.\d{3}$")
 
 
-def _run_experiments(image_dir: Path, out_dir: Path, *args: str) -> tuple[str, float]:
+def _run_experiments(image_dir: Path, out_dir: Path, *args: str,
+                     env: dict | None = None) -> tuple[str, float]:
     import re
 
-    cmd = [sys.executable, "-m", f"{PKG}.cli.defense_experiments", "--image_dir",
-           str(image_dir), "--output_dir", str(out_dir), *args]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"defense_experiments {' '.join(args)} exit {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
-    if "Using device: cuda" not in proc.stdout:
-        raise AssertionError("defense_experiments did not run on the card")
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("attack=")]
+    out, seconds = _run_cli_module("defense_experiments", "--image_dir", str(image_dir),
+                                   "--output_dir", str(out_dir), *args, env=env)
+    lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
     if not lines or not all(re.match(SUMMARY_RE, ln) for ln in lines):
         raise AssertionError(f"defense_experiments summary lines malformed: {lines}")
-    return proc.stdout, seconds
+    return out, seconds
 
 
-def _write_pngs(image_dir: Path, n: int, seed: int = 0) -> list[Path]:
-    """``n`` random 256x300 PNGs (a 224 crop after the resize)."""
+def _write_pngs(image_dir: Path, n: int, seed: int = 0, suffix: str = ".png") -> list[Path]:
+    """``n`` random 256x300 images (a 224 crop after the resize); the first
+    k of a seed's n are its k."""
     import numpy as np
     from PIL import Image
 
     image_dir.mkdir(parents=True)
     rng = np.random.RandomState(seed)
-    paths = [image_dir / f"img_{i:03d}.png" for i in range(n)]
+    paths = [image_dir / f"img_{i:03d}{suffix}" for i in range(n)]
     for p in paths:
         Image.fromarray((rng.rand(256, 300, 3) * 255).astype(np.uint8)).save(p)
     return paths
+
+
+def _linked(paths: list[Path], image_dir: Path) -> Path:
+    """A directory of symbolic links to ``paths``."""
+    image_dir.mkdir(parents=True)
+    for p in paths:
+        (image_dir / p.name).symlink_to(p)
+    return image_dir
 
 
 def phase_experiments() -> dict:
@@ -981,9 +1012,10 @@ def _cells_s(out_dir: Path) -> dict[str, float]:
     return {k: v["seconds"] for k, v in timings.items()}
 
 
-def phase_stream(state: dict, resident_cell_s: dict) -> dict:
-    """The grid streamed past --max_batch: the CLI, float32 streamed against
-    resident, the uint8 placer, and streamed cells in this process."""
+def phase_stream(state: dict, resident_cell_s: dict, paths: list[Path]) -> dict:
+    """The grid streamed past --max_batch on ``paths`` (N_STREAM PNGs): the
+    CLI, float32 streamed against resident, the uint8 placer, and streamed
+    cells in this process."""
     import numpy as np
     import torch
 
@@ -999,10 +1031,6 @@ def phase_stream(state: dict, resident_cell_s: dict) -> dict:
     torch.cuda.empty_cache()  # room for the subprocesses' batches
     res: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        paths = _write_pngs(Path(tmp) / "images", N_STREAM)
-        res["png_write_s"] = time.perf_counter() - t0
-
         # (a) the CLI streams 600 images in chunks of 128
         out_dir = Path(tmp) / "a"
         out, seconds = _run_experiments(paths[0].parent, out_dir, "--attacks", "fgsm", "pgd",
@@ -1268,7 +1296,7 @@ def phase_weights(state: dict) -> dict:
         path = Path(tmp) / "resnet50.msgpack"
         ref32 = load_model("resnet50", dtype=torch.float32, device="cuda")
         t0 = time.perf_counter()
-        save_variables(to_jax_variables(ref32.model), path)
+        save_variables(to_jax_variables(ref32.model, "resnet"), path)
         res["write_s"], res["bytes"] = time.perf_counter() - t0, path.stat().st_size
         for name, dtype, ref in (("bfloat16", torch.bfloat16, state["bundle"]),
                                  ("float32", torch.float32, ref32)):
@@ -1295,6 +1323,378 @@ def phase_weights(state: dict) -> dict:
     return res
 
 
+def _param_bytes(model) -> int:
+    return sum(t.numel() * t.element_size() for t in model.parameters())
+
+
+def phase_families(state: dict) -> dict:
+    """The four transfer families at full width: float32 card vs CPU, the
+    bf16 forward at batch 128, bf16 vs float32 top-1, parameter bytes."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    x, batch = state["x"], state["x"].shape[0]
+    x_small = torch.rand((2, 224, 224, 3), generator=generator_from_seed(5))  # phase 3's
+    res: dict = {}
+    state["bf16"], state["f32"] = {}, {}
+    for name in FAMILIES:
+        t0 = time.perf_counter()
+        cpu = load_model(name, dtype=torch.float32, device="cpu")
+        with torch.no_grad():
+            ref = make_fns(cpu)[0](x_small)
+        cpu_s = time.perf_counter() - t0
+        del cpu
+        card32 = load_model(name, dtype=torch.float32, device="cuda")
+        lf32 = make_fns(card32)[0]
+        with torch.no_grad():
+            got = lf32(x_small.cuda()).cpu()
+            top1_32 = lf32(x).argmax(-1)
+            torch.backends.cudnn.allow_tf32 = True
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = lf32(x_small.cuda()).cpu()
+            finally:
+                torch.backends.cudnn.allow_tf32 = False
+                torch.backends.cuda.matmul.allow_tf32 = False
+        scale = float(ref.abs().max())
+        f32_err = float((got - ref).abs().max()) / scale
+        tf32_err = float((tf32 - ref).abs().max()) / scale
+        if not f32_err <= F32_REL_TOL:
+            raise AssertionError(f"{name}: float32 logits on the card vs the CPU {f32_err:.3e} "
+                                 f"relative > {F32_REL_TOL:.0e}")
+        b = load_model(name, dtype=torch.bfloat16, device="cuda")
+        lf = make_fns(b)[0]
+        with torch.no_grad():
+            logits = lf(x)
+            ms = time_ms(lambda: lf(x), iters=5, warmup=1)
+        if logits.shape != (batch, 1000) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{name}: bf16 logits {tuple(logits.shape)}, not all finite")
+        agree = float((logits.argmax(-1) == top1_32).float().mean())
+        res[name] = {"f32_card_vs_cpu_rel": f32_err, "tf32_card_vs_cpu_rel": tf32_err,
+                     "bf16_forward_ms": ms, "bf16_img_s": batch / ms * 1e3,
+                     "bf16_vs_f32_top1_agreement": agree,
+                     "param_bytes_f32": _param_bytes(card32.model),
+                     "param_bytes_bf16": _param_bytes(b.model), "cpu_load_and_forward_s": cpu_s}
+        state["bf16"][name], state["f32"][name] = b, card32
+        r = res[name]
+        log(f"[families] {name}: float32 card vs CPU {f32_err:.3e} of max |logit| {scale:.3e} "
+            f"(limit {F32_REL_TOL:.0e}; TF32 allowed {tf32_err:.3e}); bf16 forward batch "
+            f"{batch} {ms:.2f} ms ({r['bf16_img_s']:.1f} img/s); bf16 vs float32 top-1 "
+            f"agreement {agree:.3f}; parameters {r['param_bytes_f32'] / 1e6:.1f} MB float32, "
+            f"{r['param_bytes_bf16'] / 1e6:.1f} MB bf16")
+    # DenseNet's concatenations on channels_last tensors: which kernels they take
+    lf = make_fns(state["bf16"]["densenet121"])[0]
+    with torch.no_grad():
+        prof = profile_breakdown(lambda: lf(x))
+    res["densenet121"]["profile"] = prof
+    log(f"[families] densenet121 bf16 forward profiled: busy {prof['busy_ms']:.1f} ms, "
+        f"{prof['kernels']} kernels; " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in prof["by_layer_ms"].items()))
+    for k in prof["top_kernels"][:8]:
+        log(f"[families]   {k['ms']:8.2f} ms  x{k['count']:<4d} {k['name'][:200]}")
+    return res
+
+
+def _timed(fn, name: str, acc: dict):
+    """``fn`` with its calls' synchronised seconds added to ``acc[name]``."""
+    import torch
+
+    def wrapped(x):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(x)
+        torch.cuda.synchronize()
+        acc[name] = acc.get(name, 0.0) + time.perf_counter() - t0
+        return out
+    return wrapped
+
+
+def _transfer_cell(name: str, src, targets: dict, x) -> dict:
+    """One pgd-20 transfer cell with its launches counted, then the same
+    cell timed by model and profiled (outside the count)."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import AttackParams
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.transfer import (
+        asr, transfer_attack_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    params = AttackParams(eps=EPS, alpha=ALPHA, steps=TRANSFER_STEPS)
+    ew.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cell = transfer_attack_batch(src, targets, x, "pgd", params, generator_from_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ew.launch_counts()
+    want = {"pgd_step": TRANSFER_STEPS, "quantize": 0, "uniform_noise": 1}
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, want {want}")
+    linf = _check_ball(cell.x_adv, x, EPS, name)
+    vecs = {"source": cell.source_success, **cell.target_success}
+    for k, v in vecs.items():
+        if v.shape != (x.shape[0],) or not set(v.unique().tolist()) <= {0, 1}:
+            raise AssertionError(f"{name}: {k} success vector {v.shape} {v.unique().tolist()}")
+    rates = {k: asr(v) for k, v in vecs.items()}
+    # the same cell, each model's calls synchronised and timed (the source's
+    # backward passes run outside its calls: they are the remainder)
+    acc: dict = {}
+    timed = {n: _timed(f, n, acc) for n, f in targets.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    transfer_attack_batch(_timed(src, "source forwards", acc), timed, x, "pgd", params,
+                          generator_from_seed(0))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    by_model = {**acc, "source backward and the rest": total - sum(acc.values())}
+    prof = profile_breakdown(lambda: transfer_attack_batch(src, targets, x, "pgd", params,
+                                                           generator_from_seed(0)))
+    log(f"[transfer] {name}: launches {counts}; {seconds:.3f} s for batch {x.shape[0]}; "
+        f"|x_adv - x|_inf {linf:.6f}; ASR " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items()))
+    log(f"[transfer] {name}: timed by model ({total:.3f} s): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in by_model.items()))
+    log(f"[transfer] {name}: profile: wall {prof['wall_ms']:.1f} ms, busy {prof['busy_ms']:.1f} "
+        f"ms ({prof['busy_share']:.3f}), {prof['kernels']} kernels; " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in prof["by_layer_ms"].items()))
+    return {"launches": counts, "seconds": seconds, "linf": linf, "asr": rates,
+            "by_model_s": by_model, "timed_total_s": total, "profile": prof}
+
+
+def _run_cli_module(module: str, *args: str, env: dict | None = None) -> tuple[str, float]:
+    """``python -m <package>.cli.<module> args`` from the repo: its stdout
+    and wall seconds; fails unless it exits 0 having run on the card."""
+    cmd = [sys.executable, "-m", f"{PKG}.cli.{module}", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+                          env=None if env is None else {**os.environ, **env})
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0 or "Using device: cuda" not in proc.stdout:
+        raise AssertionError(f"{module} {' '.join(args)} exit {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout, seconds
+
+
+def phase_transfer(state: dict, pngs: list[Path], jpegs: list[Path]) -> dict:
+    """Transfer cells in process, the two transfer CLIs and dataset_check in
+    subprocesses, and float32 fgsm streamed against resident."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        AttackParams, make_ensemble_logits_fn)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.images import load_image_batch
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.streaming import (
+        make_placer, stream_transfer_cell)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.transfer import (
+        transfer_attack_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    x = state["x"]
+    src = make_fns(state["bundle"])[0]
+    targets = {n: make_fns(state["bf16"][n])[0] for n in FAMILIES}
+    res: dict = {}
+    # (a) ResNet-50 -> the four families; (b) the ResNet-50 + DenseNet ensemble
+    res["cell"] = _transfer_cell("pgd-20 resnet50 -> 4 families", src, targets, x)
+    ensemble = make_ensemble_logits_fn([src, targets["densenet121"]])
+    res["ensemble"] = _transfer_cell(
+        "pgd-20 resnet50+densenet121 ensemble -> vgg19, vit_b_16, swin_t", ensemble,
+        {n: f for n, f in targets.items() if n != "densenet121"}, x)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img128 = _linked(pngs[:SHAPE[0]], Path(tmp) / "png128")
+        # (c) the blackbox CLI at its defaults
+        out, seconds = _run_cli_module("blackbox_transfer", "--image_dir", str(img128))
+        lines = out.strip().splitlines()[-4:]
+        rows_ok = all(re.fullmatch(rf"{a}(\t\d+\.\d%){{3}}", ln)
+                      for a, ln in zip(("FGSM", "PGD", "CW"), lines[1:]))
+        panels = sorted(p.name for p in (img128 / "blackbox_vis").iterdir())
+        if lines[0] != "Attack/Model\tVGG19\tViT\tSwin" or not rows_ok or len(panels) != 9:
+            raise AssertionError(f"blackbox_transfer printed {lines}, panels {panels}")
+        res["blackbox_cli"] = {"wall_s": seconds, "table": lines, "panels": len(panels)}
+        log(f"[transfer] blackbox_transfer CLI at its defaults (fgsm, pgd, cw-200; resnet50 -> "
+            f"vgg19, vit_b_16, swin_t) on {SHAPE[0]} PNGs: exit 0 in {seconds:.1f} s; "
+            f"{len(panels)} panels; " + " | ".join(ln.replace("\t", " ") for ln in lines))
+
+        # (d) the transferability CLI at its defaults
+        out_dir = Path(tmp) / "transfer"
+        out, seconds = _run_cli_module("transferability", "--image_dir", str(img128),
+                                       "--output_dir", str(out_dir))
+        data = json.loads((out_dir / "transfer_results.json").read_text())
+        cells = data.get("pgd", {})
+        want_targets = ["vgg19", "densenet121", "vit_b_16"]
+        ok = len(cells) == 3 and all(
+            len(c["source_success"]) == SHAPE[0] and list(c["transfer_success"]) == want_targets
+            and all(len(v) == SHAPE[0] for v in c["transfer_success"].values())
+            for c in cells.values())
+        summary = out[out.index("TRANSFERABILITY SUMMARY"):].splitlines()
+        rows = [ln for ln in summary if ln.startswith("pgd ")]
+        if not ok or len(rows) != 3 or not (out_dir / "transfer_heatmap_pgd.png").is_file():
+            raise AssertionError(f"transferability: cells {list(cells)}, rows {rows}\n{out[-2000:]}")
+        res["transferability_cli"] = {"wall_s": seconds, "rows": rows}
+        log(f"[transfer] transferability CLI at its defaults (pgd-20, 3 eps; resnet50 -> "
+            f"vgg19, densenet121, vit_b_16) on {SHAPE[0]} PNGs: exit 0 in {seconds:.1f} s")
+        for ln in summary[3:4] + rows:
+            log(f"[transfer]   {ln}")
+
+        # (f) dataset_check on 128 JPEGs
+        out, seconds = _run_cli_module("dataset_check", "--test_dir", str(jpegs[0].parent))
+        if f"Total images: {len(jpegs)}" not in out or "Low-confidence ratio:" not in out:
+            raise AssertionError(f"dataset_check printed:\n{out[-2000:]}")
+        res["dataset_check"] = {"wall_s": seconds}
+        log(f"[transfer] dataset_check CLI on {len(jpegs)} JPEGs: exit 0 in {seconds:.1f} s; "
+            + "; ".join(ln for ln in out.splitlines() if ln.startswith(("Total", "Low-conf"))))
+
+    # (e) float32 fgsm on 300 images, streamed in chunks of 128 and resident
+    src32 = make_fns(load_model("resnet50", dtype=torch.float32, device="cuda"))[0]
+    tg32 = {n: make_fns(state["f32"][n])[0] for n in ("vgg19", "densenet121", "vit_b_16")}
+    params = AttackParams(eps=EPS)
+
+    def cell_fn(xx, generator, eps):
+        return transfer_attack_batch(src32, tg32, xx, "fgsm", params, generator)
+
+    paths = pngs[:N_F32]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streamed = stream_transfer_cell(cell_fn, paths, seed=0, cell_id="fgsm", eps=EPS,
+                                    target_names=list(tg32), chunk_size=STREAM_CHUNK,
+                                    place=make_placer("cuda"))
+    stream_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cell = cell_fn(torch.from_numpy(load_image_batch(paths)).cuda(), None, EPS)
+    resident = {"source_success": cell.source_success.tolist(),
+                "transfer_success": {n: v.tolist() for n, v in cell.target_success.items()}}
+    resident_s = time.perf_counter() - t0
+    diffs = {}
+    for k, a, b in [("source", streamed["source_success"], resident["source_success"]),
+                    *((n, streamed["transfer_success"][n], resident["transfer_success"][n])
+                      for n in tg32)]:
+        idx = np.nonzero(np.asarray(a) != np.asarray(b))[0].tolist()
+        if len(a) != N_F32 or idx:
+            diffs[k] = idx
+    res["float32_stream"] = {"streamed_s": stream_s, "resident_s": resident_s,
+                             "differences": diffs,
+                             "asr": {k: float(np.mean(v)) for k, v in
+                                     [("source", resident["source_success"]),
+                                      *resident["transfer_success"].items()]}}
+    log(f"[transfer] float32 fgsm on {N_F32} PNGs, resnet50 -> vgg19, densenet121, vit_b_16: "
+        f"streamed in chunks of {STREAM_CHUNK} {stream_s:.2f} s, resident {resident_s:.2f} s "
+        f"(decode included in both); ASR {res['float32_stream']['asr']}; differences "
+        f"{diffs if diffs else 'none'}")
+    if diffs:
+        raise AssertionError(f"float32 streamed and resident success vectors differ: {diffs}")
+    del state["f32"]
+    return res
+
+
+# the compiler's words where the host has no libjpeg to build the loader with
+MISSING_LIBRARY = ("jpeglib.h: No such file", "cannot find -ljpeg")
+
+
+def _native_unavailable(error: str) -> dict:
+    """A host whose compiler finds no libjpeg: the loader cannot be built,
+    and the toggle must then raise, never decode with PIL in its place.
+    Nothing is measured."""
+    from image_recognition_adversarial_example_attack_tpu_torch.core.images import (
+        load_image_batch_tolerant)
+
+    first = next(ln for ln in error.splitlines() if any(m in ln for m in MISSING_LIBRARY))
+    os.environ["ADV_TPU_NATIVE_LOADER"] = "1"
+    try:
+        load_image_batch_tolerant([REPO / "README.md"])
+    except RuntimeError as e:
+        raised = str(e).splitlines()[0]
+    else:
+        raise AssertionError("ADV_TPU_NATIVE_LOADER=1 without a loader decoded all the same")
+    finally:
+        del os.environ["ADV_TPU_NATIVE_LOADER"]
+    log(f"[native] not measured: this host cannot build the loader ({first.strip()}); with "
+        f"ADV_TPU_NATIVE_LOADER=1 the batch loader raises: {raised[:160]}")
+    return {"available": False, "compiler": first.strip(), "toggle_raises": raised}
+
+
+def _decode_rates(fmt: str) -> dict:
+    """One chunk of seeded random 256x300 images in ``fmt``, decoded once by
+    the native loader (one thread per host core) and once by the batch
+    loader with the toggle off (PIL on one thread, as the streaming
+    pipeline's decode thread): the host's seconds and img/s of each, and the
+    largest difference."""
+    import numpy as np
+    from PIL import Image
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.images import (
+        load_image_batch_tolerant)
+    from image_recognition_adversarial_example_attack_tpu_torch.utils import native_loader
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.RandomState(0)
+        paths = [Path(tmp) / f"img_{i:03d}.{'png' if fmt == 'png' else 'jpg'}"
+                 for i in range(STREAM_CHUNK)]
+        for p in paths:
+            Image.fromarray((rng.rand(256, 300, 3) * 255).astype(np.uint8)).save(p)
+        t0 = time.perf_counter()
+        native, ok = native_loader.load_batch_native_with_status(paths)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pil, _ = load_image_batch_tolerant(paths)
+        pil_s = time.perf_counter() - t0
+    return {"native_s": native_s, "pil_s": pil_s, "native_img_s": STREAM_CHUNK / native_s,
+            "pil_img_s": STREAM_CHUNK / pil_s, "threads": os.cpu_count(),
+            "rows_decoded_natively": int(ok.sum()),
+            "max_abs_diff": float(np.abs(native - pil).max())}
+
+
+def phase_native(pngs: list[Path], stream_cells: dict) -> dict:
+    """The port's native loader against PIL on a chunk of each format, then
+    phase 9(a)'s streamed grid on ``pngs`` under ADV_TPU_NATIVE_LOADER=1."""
+    from image_recognition_adversarial_example_attack_tpu_torch.utils import native_loader
+
+    res: dict = {}
+    t0 = time.perf_counter()
+    try:
+        native_loader.load_library()
+    except RuntimeError as e:
+        if not any(m in str(e) for m in MISSING_LIBRARY):
+            raise
+        return _native_unavailable(str(e))
+    res["build_s"] = time.perf_counter() - t0
+    log(f"[native] the port's image loader built and loaded in {res['build_s']:.2f} s "
+        f"({os.cpu_count()} host cores)")
+    for fmt in ("png", "jpeg"):
+        r = res[fmt] = _decode_rates(fmt)
+        if r["rows_decoded_natively"] != STREAM_CHUNK or not r["max_abs_diff"] <= 1 / 255 + 1e-6:
+            raise AssertionError(f"native {fmt} decode: {r}")
+        log(f"[native] {STREAM_CHUNK} {fmt.upper()}s (256x300): native "
+            f"{r['native_img_s']:.1f} img/s on {r['threads']} threads, PIL {r['pil_img_s']:.1f} "
+            f"img/s on one; max |native - PIL| {r['max_abs_diff'] * 255:.3f}/255")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = Path(tmp) / "grid"
+        out, seconds = _run_experiments(pngs[0].parent, out_dir, "--attacks", "fgsm", "pgd",
+                                        "--max_batch", str(STREAM_CHUNK),
+                                        env={"ADV_TPU_NATIVE_LOADER": "1"})
+        partial = json.loads((out_dir / "results_partial.json").read_text())
+        if len(partial) != 6 or any(c["count"] != N_STREAM for c in partial.values()):
+            raise AssertionError(f"native streamed grid: {out[-3000:]}")
+        cells = {}
+        for cell_id, sec in _cells_s(out_dir).items():
+            cells[cell_id] = {"seconds": sec, "img_s": N_STREAM / sec,
+                              "pil_img_s": stream_cells[cell_id]["img_s"]}
+        res["grid"] = {"wall_s": seconds, "cells": cells,
+                       "summary": [ln for ln in out.splitlines() if ln.startswith("attack=")]}
+    log(f"[native] phase 9(a)'s command with ADV_TPU_NATIVE_LOADER=1: exit 0 in {seconds:.1f} s")
+    for cell_id, c in cells.items():
+        log(f"[native]   {cell_id}: {c['img_s']:.1f} img/s native, {c['pil_img_s']:.1f} img/s "
+            "with PIL (phase 9)")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=str, default=None,
@@ -1318,31 +1718,52 @@ def main(argv=None) -> int:
 
     from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
 
-    record = {"card": smi, "torch": torch.__version__}
-    record["build"] = phase_build()
-    record["kernels"] = phase_kernels()
-    record["conv"] = phase_conv()
-    state = phase_classify()
+    record = {"card": smi, "torch": torch.__version__, "phase_s": {}}
+
+    def run(key: str, fn, *args):
+        """One phase, its wall seconds logged and kept under ``phase_s``."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        record["phase_s"][key] = time.perf_counter() - t0
+        log(f"[time] {key}: {record['phase_s'][key]:.1f} s")
+        return out
+
+    record["build"] = run("build", phase_build)
+    record["kernels"] = run("kernels", phase_kernels)
+    record["conv"] = run("conv", phase_conv)
+    state = run("classify", phase_classify)
     record["classify"] = {k: v for k, v in state.items() if k not in ("bundle", "x", "y")}
-    record["pgd"] = phase_pgd(state)
-    record["cell"] = phase_cell(state)
+    record["pgd"] = run("pgd", phase_pgd, state)
+    record["cell"] = run("cell", phase_cell, state)
     state["threshold"] = record["cell"]["threshold"]
-    record["cw"] = phase_cw(state)
-    record["cells"] = phase_cells(state)
-    record["cli"] = phase_cli()
-    record["detectors"] = phase_detectors(state)
-    record["experiments"] = phase_experiments()
-    record["stream"] = phase_stream(state, record["experiments"]["grid"]["cell_s"])
-    record["visualize"] = phase_visualize(state)
-    record["weights"] = phase_weights(state)
+    record["cw"] = run("cw", phase_cw, state)
+    record["cells"] = run("cells", phase_cells, state)
+    record["cli"] = run("cli", phase_cli)
+    record["detectors"] = run("detectors", phase_detectors, state)
+    record["experiments"] = run("experiments", phase_experiments)
+    with tempfile.TemporaryDirectory() as shared:
+        # phase 8's 128 PNGs are the first 128 of these (the same seed)
+        t0 = time.perf_counter()
+        pngs = _write_pngs(Path(shared) / "png", N_STREAM)
+        png_write_s = time.perf_counter() - t0
+        jpegs = _write_pngs(Path(shared) / "jpeg", SHAPE[0], seed=1, suffix=".jpg")
+        record["stream"] = run("stream", phase_stream, state,
+                               record["experiments"]["grid"]["cell_s"], pngs)
+        record["stream"]["png_write_s"] = png_write_s
+        record["visualize"] = run("visualize", phase_visualize, state)
+        record["weights"] = run("weights", phase_weights, state)
+        record["families"] = run("families", phase_families, state)
+        record["transfer"] = run("transfer", phase_transfer, state, pngs, jpegs)
+        record["native"] = run("native", phase_native, pngs, record["stream"]["cli"]["cells"])
 
     # the elementwise kernels' main path: PGD-10, the eight cells, the
-    # streamed pgd cell and the visualize path's PGD-20 and trajectory; the
-    # conv's: the probe's entry point
+    # streamed pgd cell, the visualize path's PGD-20 and trajectory and the
+    # two pgd-20 transfer cells; the conv's: the probe's entry point
     detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
     runs = [record["pgd"], record["cell"], *record["cells"].values(),
             *(record["detectors"][c] for c in detector_cells),
-            record["stream"]["pgd_cell"], record["visualize"]["in_process"]]
+            record["stream"]["pgd_cell"], record["visualize"]["in_process"],
+            record["transfer"]["cell"], record["transfer"]["ensemble"]]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

@@ -35,14 +35,56 @@ def make_logits_fn(model: nn.Module, mean, std,
     another method of the model (e.g. ``"features_stage3"``) to run instead
     of ``forward``.
     """
-    fn = model if method is None else getattr(model, method)
-
     def logits_fn(x01: torch.Tensor) -> torch.Tensor:
+        # the method is looked up at call time, as Flax's ``apply(method=)``
+        # does: a family without it fails only where it is used
+        fn = model if method is None else getattr(model, method)
         x = x01 if input_dtype is None else x01.to(input_dtype)
         x = normalize_batch(x, mean, std)
         return fn(x.permute(0, 3, 1, 2)).float()
 
     return logits_fn
+
+
+def predict_labels(logits_fn: LogitsFn, x: torch.Tensor) -> torch.Tensor:
+    """[B] top-1 labels of ``logits_fn(x)``, with no autograd graph."""
+    with torch.no_grad():
+        return torch.argmax(logits_fn(x), dim=-1)
+
+
+def make_ensemble_logits_fn(logits_fns, weights=None) -> LogitsFn:
+    """The weighted mean of member logits (the logit-fusion ensemble of Dong
+    et al., CVPR 2018): an attack on it attacks every member at once, one
+    backward pass through all of them per step.  Equal weights by default;
+    given weights are normalized to sum to 1.  Refuses no members, a weight
+    count other than the member count, a non-positive weight sum, and
+    members whose logits differ in shape."""
+    fns = list(logits_fns)
+    if not fns:
+        raise ValueError("ensemble needs at least one member")
+    if weights is None:
+        w = [1.0 / len(fns)] * len(fns)
+    else:
+        w = [float(v) for v in weights]
+        if len(w) != len(fns):
+            raise ValueError(f"{len(w)} weights for {len(fns)} members")
+        total = sum(w)
+        if total <= 0:
+            raise ValueError("ensemble weights must sum to a positive value")
+        w = [v / total for v in w]
+
+    def ensemble(x: torch.Tensor) -> torch.Tensor:
+        outs = [fn(x) for fn in fns]
+        shapes = {tuple(o.shape) for o in outs}
+        if len(shapes) != 1:
+            raise ValueError("ensemble members disagree on logits shape "
+                             f"{sorted(shapes)} — members must share one class space")
+        out = w[0] * outs[0]
+        for wi, o in zip(w[1:], outs[1:]):
+            out = out + wi * o
+        return out
+
+    return ensemble
 
 
 def cross_entropy_sum(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -50,14 +50,21 @@ def resolve_dtype(name: str | None, device: torch.device) -> torch.dtype:
     return torch.bfloat16 if device.type == "cuda" else torch.float32
 
 
-def load_bundle(args: argparse.Namespace):
-    """Load ``args.model`` honoring the CLI's device/dtype/weights flags
-    (``--seed`` drives the attack's randomness, not the weights)."""
+def load_bundle(args: argparse.Namespace, name: str | None = None):
+    """Load ``name`` (default ``args.model``) honoring the CLI's
+    device/dtype/weights flags (``--seed`` drives the attack's randomness,
+    not the weights).
+
+    An explicit ``--weights`` file applies only to the model it was given
+    for, ``args.model``: in the multi-model CLIs every other model resolves
+    through the weights directory, as in the JAX package."""
     from ..models.zoo import load_model
 
     device = resolve_device(args.device)
-    return load_model(args.model, dtype=resolve_dtype(args.model_dtype, device),
-                      weights=args.weights, device=device)
+    target = name or args.model
+    weights = args.weights if target == args.model else None
+    return load_model(target, dtype=resolve_dtype(args.model_dtype, device),
+                      weights=weights, device=device)
 
 
 def make_fns(bundle):
@@ -133,9 +140,30 @@ def positive_int(value: str) -> int:
 
 
 def n_classes_of(model: nn.Module) -> int:
-    """The class count: the width of the model's classifier ``fc`` (no
-    forward pass)."""
-    return int(model.fc.out_features)
+    """The class count: the width of the model's classifier, its last
+    ``nn.Linear`` in every registered family (``fc``, ``classifier.6``,
+    ``classifier``, ``heads.head``, ``head``, ``Dense_0``); no forward pass."""
+    linears = [m for m in model.modules() if isinstance(m, nn.Linear)]
+    return int(linears[-1].out_features)
+
+
+# The --attacks choices of the JAX transfer CLIs (cli/blackbox_transfer.py,
+# cli/transferability.py): all are accepted, and the ones not ported yet are
+# refused before any device work (refuse_unported_attacks).
+TRANSFER_ATTACK_CHOICES = (
+    "fgsm", "pgd", "cw", "mifgsm", "dim", "tim", "apgd", "square", "deepfool", "nes", "spsa",
+    "bandits", "hsja", "ead", "apgd_dlr", "apgd_t", "fab", "stadv", "boundary", "simba",
+    "jsma", "pgd_l1", "spatial")
+
+
+def refuse_unported_attacks(attacks) -> None:
+    """SystemExit naming the requested attacks this package has not ported."""
+    from ..attacks.api import ATTACK_NAMES
+
+    missing = [a for a in attacks if a not in ATTACK_NAMES]
+    if missing:
+        raise SystemExit(f"--attacks {' '.join(missing)}: not ported to this package yet "
+                         f"(ported: {', '.join(ATTACK_NAMES)}); run without them")
 
 
 # The CLI args each ported attack reads (the run_attack dispatch,

@@ -4,10 +4,16 @@ The PIL pipeline of the JAX package, copied: shorter side -> 256 with PIL
 bilinear (antialiased, as torchvision does for PIL inputs) and torchvision's
 int-truncation of the long side, a centered 224 crop with round() offsets,
 scaled to [0,1].  Output is NHWC float32 numpy; callers move it to a device.
+
+With ``ADV_TPU_NATIVE_LOADER`` set to ``1``, ``on`` or ``true`` (exactly
+these, as in the JAX package), the batch loaders decode through the threaded
+C++ loader (``utils/native_loader.py``), within 1/255 of PIL; PIL decodes
+the rows the native decoder cannot.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from pathlib import Path
 from typing import Sequence
@@ -58,15 +64,47 @@ def list_images(image_dir: str | Path) -> list[Path]:
                   if p.is_file() and p.suffix.lower() in IMAGE_EXTS)
 
 
+def native_loader_enabled() -> bool:
+    """The ``ADV_TPU_NATIVE_LOADER`` toggle: on for ``1``, ``on`` or
+    ``true`` only."""
+    return os.environ.get("ADV_TPU_NATIVE_LOADER", "") in ("1", "on", "true")
+
+
+def load_image_batch(paths: Sequence[str | Path], size: int = IMAGE_SIZE) -> np.ndarray:
+    """Load many images into one [B, size, size, 3] float32 batch; raises on
+    an unreadable file.  Under the toggle the native loader decodes it, and
+    PIL each row it flags."""
+    if not paths:
+        raise ValueError("load_image_batch: empty path list")
+    if native_loader_enabled():
+        from ..utils.native_loader import load_image_batch_native
+
+        return load_image_batch_native(paths, size=size)
+    return np.concatenate([load_image(p, size=size) for p in paths], axis=0)
+
+
 def load_image_batch_tolerant(paths: Sequence[str | Path],
                               size: int = IMAGE_SIZE
                               ) -> tuple[np.ndarray, list[Path]]:
     """Load many images into one [B, size, size, 3] batch, skipping
     unreadable files with a warning on stderr. Returns (batch, loaded paths).
+    Under the toggle the native loader decodes the batch; PIL retries the
+    rows it flags, and the files PIL cannot read either are skipped.
     """
+    paths = list(paths)
+    native_out = None
+    ok = np.zeros((len(paths),), np.int32)  # the rows the native decoder filled
+    if paths and native_loader_enabled():
+        from ..utils.native_loader import load_batch_native_with_status
+
+        native_out, ok = load_batch_native_with_status(paths, size=size)
     arrays: list[np.ndarray] = []
     good: list[Path] = []
-    for p in paths:
+    for i, p in enumerate(paths):
+        if ok[i]:
+            arrays.append(native_out[i][None])
+            good.append(Path(p))
+            continue
         try:
             arrays.append(load_image(p, size=size))
             good.append(Path(p))

@@ -1,2 +1,2 @@
-"""Evaluation: the attack -> defend -> detect cell, its streamed form, the
-perturbation metrics and the attack trajectories."""
+"""Evaluation: the attack -> defend -> detect cell, the transfer cell, their
+streamed forms, the perturbation metrics and the attack trajectories."""

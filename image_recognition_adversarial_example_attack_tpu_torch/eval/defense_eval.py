@@ -25,7 +25,7 @@ from typing import Any
 
 import torch
 
-from ..attacks.api import AttackParams, LogitsFn, run_attack
+from ..attacks.api import AttackParams, LogitsFn, predict_labels, run_attack
 from ..core.constants import DEFAULT_CW_KAPPA
 from ..core.rng import generator_from_seed
 from ..defenses.detector import FeaturesFn, score_from_features, squeezing_score
@@ -114,11 +114,6 @@ def _attack(attack_target_fn: LogitsFn, logits_fn: LogitsFn, features_fn: Featur
                               generator=generator, **aware)
 
 
-def _argmax(logits_fn: LogitsFn, x: torch.Tensor) -> torch.Tensor:
-    with torch.no_grad():
-        return torch.argmax(logits_fn(x), dim=-1)
-
-
 def evaluate_defenses_batch(
     logits_fn: LogitsFn,
     features_fn: FeaturesFn,
@@ -141,7 +136,7 @@ def evaluate_defenses_batch(
     if eps_override is not None:
         params = replace(params, eps=float(eps_override))
 
-    pred_clean = _argmax(logits_fn, x)
+    pred_clean = predict_labels(logits_fn, x)
     clean_correct = (pred_clean == y_true).int()
 
     if config.adaptive:
@@ -151,11 +146,11 @@ def evaluate_defenses_batch(
         attack_target_fn = logits_fn
     x_adv = _attack(attack_target_fn, logits_fn, features_fn, x, y_true, thr,
                     config, params, generator)
-    pred_adv = _argmax(logits_fn, x_adv)
+    pred_adv = predict_labels(logits_fn, x_adv)
     attack_success = (pred_adv != y_true).int()
 
     x_def = defend_input(x_adv, config.defense)
-    pred_def = _argmax(logits_fn, x_def)
+    pred_def = predict_labels(logits_fn, x_def)
     defense_preproc_success = (pred_def == y_true).int()
 
     score_fn = make_detector_score_fn(logits_fn, features_fn, config)

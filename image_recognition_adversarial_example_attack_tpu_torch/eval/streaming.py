@@ -1,16 +1,18 @@
 """Dataset-scale streaming evaluation: a grid cell over more images than fit
 one resident batch (port of ``round_up``, ``make_placer``,
-``stream_defense_cell`` and their helpers of ``eval/streaming.py``).
+``stream_defense_cell``, ``stream_transfer_cell`` and their helpers of
+``eval/streaming.py``).
 
 - Fixed-shape chunks come from ``utils.pipeline.EvalBatchPipeline``
   (background decode, a bounded queue: constant host memory).
-- Each chunk goes through ``evaluate_defenses_batch``, the cell the
-  one-batch path runs, on the chunk's device tensor: chunking changes the
-  memory, never the arithmetic of a sample.
-- Only the six per-sample counter vectors come back to the host, in one
-  copy per chunk (``x_adv`` stays on the card); they are masked to the
-  chunk's ``n_valid`` prefix and summed.  Nothing else in the loop waits for
-  the card, so the decode of chunk t+1 runs while the card works on chunk t.
+- Each chunk goes through the cell the one-batch path runs
+  (``evaluate_defenses_batch``, or a transfer cell), on the chunk's device
+  tensor: chunking changes the memory, never the arithmetic of a sample.
+- Only the per-sample vectors come back to the host, in one copy per chunk
+  (``x_adv`` stays on the card unless a transfer cell saves it); they are
+  masked to the chunk's ``n_valid`` prefix.  Nothing else in the loop waits
+  for the card, so the decode of chunk t+1 runs while the card works on
+  chunk t.
 
 Deterministic attacks (fgsm, cw) give the one-batch counters.  A random
 attack (pgd's random start) draws each chunk's noise from
@@ -33,6 +35,7 @@ from ..core.constants import IMAGE_SIZE
 from ..core.rng import chunk_generator
 from ..utils.pipeline import EvalBatchPipeline
 from .defense_eval import STAT_KEYS, DefenseEvalConfig, evaluate_defenses_batch
+from .transfer import TransferCell
 
 Placer = Callable[[np.ndarray], torch.Tensor]
 
@@ -164,3 +167,46 @@ def stream_defense_cell(
     stats = {k: int(v) for k, v in zip(STAT_KEYS, totals)}
     stats["count"] = count
     return stats
+
+
+def stream_transfer_cell(
+    cell_fn: Callable[[torch.Tensor, torch.Generator, float], TransferCell],
+    paths: Sequence,
+    *,
+    seed: int,
+    cell_id: str,
+    eps: float,
+    target_names: Sequence[str],
+    chunk_size: int,
+    place: Placer,
+    size: int = IMAGE_SIZE,
+    save_adv: Callable[[np.ndarray, list], None] | None = None,
+) -> dict:
+    """One (attack, eps) transfer cell over any number of images.
+
+    ``cell_fn(x, generator, eps) -> TransferCell`` is the one-batch cell
+    (the source attack and every target's forward); chunk ``step`` draws
+    from ``chunk_generator(seed, cell_id, step)``.  Returns the one-batch
+    record, ``{"source_success": [..], "transfer_success": {name: [..]}}``,
+    per-sample ints over the readable images in order.
+    ``save_adv(x_adv_chunk, kept_paths)`` runs on each chunk's valid rows
+    when given (the only case in which ``x_adv`` leaves the card).
+    """
+    paths = list(paths)
+    src_parts: list[np.ndarray] = []
+    tgt_parts: dict[str, list[np.ndarray]] = {n: [] for n in target_names}
+    pipe = EvalBatchPipeline(paths, chunk_size, labels=range(len(paths)), size=size)
+    for step, x_np, idx_np, n_valid in pipe:
+        cell = cell_fn(place(x_np), chunk_generator(seed, cell_id, step), eps)
+        # the chunk's one read of the results: source and targets stacked
+        vecs = torch.stack([cell.source_success,
+                            *(cell.target_success[n] for n in target_names)]).cpu().numpy()
+        src_parts.append(vecs[0, :n_valid])
+        for row, name in enumerate(target_names, start=1):
+            tgt_parts[name].append(vecs[row, :n_valid])
+        if save_adv is not None:
+            save_adv(cell.x_adv[:n_valid].cpu().numpy(), [paths[i] for i in idx_np[:n_valid]])
+    return {
+        "source_success": np.concatenate(src_parts).tolist(),
+        "transfer_success": {n: np.concatenate(p).tolist() for n, p in tgt_parts.items()},
+    }

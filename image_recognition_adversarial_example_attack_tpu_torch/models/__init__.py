@@ -1,4 +1,5 @@
-"""ResNet, the model registry and the weight bridge."""
+"""The model families (ResNet, VGG, DenseNet, ViT, Swin, the tiny CNN), the
+model registry and the weight bridge."""
 
 from .convert import from_jax_variables, load_torch_checkpoint
 from .resnet import ResNet, resnet50, resnet_tiny

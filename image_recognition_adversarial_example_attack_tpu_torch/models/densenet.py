@@ -1,0 +1,90 @@
+"""DenseNet in PyTorch (port of ``models/densenet.py``): ``densenet121`` and
+``densenet_tiny``.
+
+Submodules carry torchvision's names (``features.conv0``,
+``features.denseblockB.denselayerL.{norm1,conv1,norm2,conv2}``,
+``features.transitionT.{norm,conv}``, ``features.norm5``, ``classifier``),
+so a torchvision ``.pth`` loads with ``strict=True``.  BatchNorm is the
+port's always-eval ``FrozenBatchNorm2d`` (eps 1e-5).
+
+Dense connectivity is a channel concatenation after every layer, as the JAX
+model's.  On channels_last tensors ``torch.cat`` along dim 1 writes a
+channels_last result (all inputs share the format), so the concatenation is
+one copy per layer, without a layout change.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .resnet import FrozenBatchNorm2d
+
+
+class DenseLayer(nn.Module):
+    """BN-ReLU-conv1x1 (bn_size * k channels) -> BN-ReLU-conv3x3 (k new
+    channels), concatenated to its input."""
+
+    def __init__(self, cin: int, growth_rate: int, bn_size: int = 4):
+        super().__init__()
+        self.norm1 = FrozenBatchNorm2d(cin)
+        self.conv1 = nn.Conv2d(cin, bn_size * growth_rate, 1, bias=False)
+        self.norm2 = FrozenBatchNorm2d(bn_size * growth_rate)
+        self.conv2 = nn.Conv2d(bn_size * growth_rate, growth_rate, 3, padding=1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv1(F.relu(self.norm1(x)))
+        y = self.conv2(F.relu(self.norm2(y)))
+        return torch.cat([x, y], dim=1)
+
+
+class Transition(nn.Module):
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.norm = FrozenBatchNorm2d(cin)
+        self.conv = nn.Conv2d(cin, cout, 1, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.avg_pool2d(self.conv(F.relu(self.norm(x))), 2, 2)
+
+
+class DenseNet(nn.Module):
+    def __init__(self, block_config: Sequence[int] = (6, 12, 24, 16), growth_rate: int = 32,
+                 init_features: int = 64, num_classes: int = 1000):
+        super().__init__()
+        self.features = nn.Sequential()
+        self.features.add_module("conv0", nn.Conv2d(3, init_features, 7, stride=2, padding=3,
+                                                    bias=False))
+        self.features.add_module("norm0", FrozenBatchNorm2d(init_features))
+        self.features.add_module("relu0", nn.ReLU())
+        self.features.add_module("pool0", nn.MaxPool2d(3, stride=2, padding=1))
+        c = init_features
+        for b, n_layers in enumerate(block_config, start=1):
+            block = nn.Sequential()
+            for i in range(1, n_layers + 1):
+                block.add_module(f"denselayer{i}", DenseLayer(c, growth_rate))
+                c += growth_rate
+            self.features.add_module(f"denseblock{b}", block)
+            if b != len(block_config):
+                self.features.add_module(f"transition{b}", Transition(c, c // 2))
+                c //= 2
+        self.features.add_module("norm5", FrozenBatchNorm2d(c))
+        self.classifier = nn.Linear(c, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B,3,H,W] normalized input -> [B,num_classes] logits."""
+        x = F.relu(self.features(x))
+        return self.classifier(x.mean(dim=(2, 3)))
+
+
+def densenet121(num_classes: int = 1000) -> DenseNet:
+    return DenseNet(num_classes=num_classes)
+
+
+def densenet_tiny(num_classes: int = 10) -> DenseNet:
+    """The JAX package's miniature DenseNet (same code path) for CPU tests."""
+    return DenseNet(block_config=(2, 2), growth_rate=8, init_features=16,
+                    num_classes=num_classes)

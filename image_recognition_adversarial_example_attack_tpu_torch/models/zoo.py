@@ -1,5 +1,6 @@
 """Model registry and weight resolution (port of ``models/zoo.py``, the
-``resnet50``, ``resnet50_robust`` and ``resnet_tiny`` entries).
+``resnet50``, ``resnet50_robust``, ``resnet_tiny`` and ``tiny`` entries and
+the transfer study's ``vgg19``, ``densenet121``, ``vit_b_16`` and ``swin_t``).
 
 Weight resolution for ``load_model(name)``, the JAX zoo's order:
 
@@ -18,10 +19,15 @@ entries raises instead of loading part of a model.  Unlike the JAX zoo, a
 ``.pth`` load writes no ``.msgpack`` cache beside it.
 
 The random init draws Flax's default distributions (LeCun-normal kernels,
-unit BatchNorm scale and variance, zero biases and means), but not Flax's
-bits: ``PRNGKey(0)`` cannot be reproduced without JAX.  To run the JAX
-package's exact weights, carry them across with
-``models.convert.from_jax_variables``.
+the packed qkv projection's with fan-in D; unit BatchNorm and LayerNorm
+scale, unit BatchNorm variance; zero biases and means; ViT's class token
+zero; ViT's position embedding and Swin's relative position bias table
+normal with standard deviation 0.02), but not Flax's bits: ``PRNGKey(0)``
+cannot be reproduced without JAX.  To run the JAX package's exact weights,
+carry them across with ``models.convert.from_jax_variables``.
+
+In a bfloat16 model, BatchNorm and LayerNorm keep float32 parameters and
+normalize in float32, as Flax's do.
 
 Every parameter has ``requires_grad`` off, so ``torch.autograd.grad`` with
 respect to the input builds only the input-gradient chain.
@@ -43,8 +49,13 @@ from torch import nn
 from ..core.constants import IMAGE_SIZE, IMAGENET_MEAN, IMAGENET_STD
 from ..core.device import resolve_device
 from .convert import from_jax_variables, load_torch_checkpoint
+from .densenet import densenet121
 from .flax_msgpack import read_variables
 from .resnet import FrozenBatchNorm2d, resnet50, resnet_tiny
+from .swin import WindowAttention, swin_t
+from .tiny import TinyCNN
+from .vgg import vgg19
+from .vit import Encoder, LayerNorm, SelfAttention, ViT, vit_b_16
 
 
 @dataclass
@@ -61,23 +72,42 @@ class ModelBundle:
     input_size: int = IMAGE_SIZE
 
 
-_REGISTRY: dict[str, Callable[[], nn.Module]] = {
-    "resnet50": resnet50,
+# name -> (weight-layout family for models.convert, constructor)
+_REGISTRY: dict[str, tuple[str, Callable[[], nn.Module]]] = {
+    "resnet50": ("resnet", resnet50),
     # the adversarially trained arm (--model_type robust): resnet50's
     # architecture with its own weights file; the caller sets the identity
     # normalization
-    "resnet50_robust": resnet50,
-    "resnet_tiny": resnet_tiny,
+    "resnet50_robust": ("resnet", resnet50),
+    "resnet_tiny": ("resnet", resnet_tiny),
+    "tiny": ("tiny", lambda: TinyCNN(num_classes=1000)),
+    # the transfer study's families
+    "vgg19": ("vgg", vgg19),
+    "densenet121": ("densenet", densenet121),
+    "vit_b_16": ("vit", vit_b_16),
+    "swin_t": ("swin", swin_t),
 }
 
 
 def model_meta(name: str) -> dict:
-    """Default input_size/mean/std for a registered model name."""
+    """Default input_size/mean/std for a registered model name: 224 and the
+    ImageNet statistics for every family registered here."""
     return {"input_size": IMAGE_SIZE, "mean": IMAGENET_MEAN, "std": IMAGENET_STD}
 
 
 def list_models() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def model_family(name: str) -> str:
+    """The weight-layout family of a registered model, as
+    ``models.convert.from_jax_variables`` and ``to_jax_variables`` take it."""
+    return _REGISTRY[name][0]
+
+
+def build_model(name: str) -> nn.Module:
+    """A registered model's module, its weights uninitialized."""
+    return _REGISTRY[name][1]()
 
 
 def weights_dir() -> Path:
@@ -89,27 +119,39 @@ INIT_SEED = 0
 
 @torch.no_grad()
 def random_init_(model: nn.Module) -> nn.Module:
-    """Flax's default init distributions from a generator seeded with
-    ``INIT_SEED``."""
+    """Flax's default init distributions, drawn in module order from a
+    generator seeded with ``INIT_SEED``."""
     g = torch.Generator().manual_seed(INIT_SEED)
+
+    def lecun_(w: torch.Tensor, fan_in: int) -> None:
+        w.normal_(0.0, math.sqrt(1.0 / fan_in), generator=g)
+
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
-            fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, math.sqrt(1.0 / fan_in), generator=g)
+            lecun_(m.weight, m.weight[0].numel())
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, FrozenBatchNorm2d):
-            m.reset_parameters()  # scale 1, bias 0, mean 0, var 1
+        elif isinstance(m, SelfAttention):  # packed qkv, fan-in D
+            lecun_(m.in_proj_weight, m.in_proj_weight.shape[1])
+            m.in_proj_bias.zero_()
+        elif isinstance(m, (FrozenBatchNorm2d, LayerNorm)):
+            m.reset_parameters()  # scale 1, bias 0 (BatchNorm: mean 0, var 1)
+        elif isinstance(m, ViT):
+            m.class_token.zero_()
+        elif isinstance(m, Encoder):
+            m.pos_embedding.normal_(0.0, 0.02, generator=g)
+        elif isinstance(m, WindowAttention):
+            m.relative_position_bias_table.normal_(0.0, 0.02, generator=g)
     return model
 
 
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Convs and the classifier compute in ``dtype``; BatchNorm keeps its
-    float32 statistics and normalizes in float32, as Flax's BatchNorm does
-    for a bfloat16 model."""
+    """Convs, GEMMs and attention compute in ``dtype``; BatchNorm and
+    LayerNorm keep float32 parameters and normalize in float32, as Flax's
+    do for a bfloat16 model."""
     model.to(dtype=dtype)
     for m in model.modules():
-        if isinstance(m, FrozenBatchNorm2d):
+        if isinstance(m, (FrozenBatchNorm2d, LayerNorm)):
             m.float()
     return model
 
@@ -129,7 +171,7 @@ def load_model(name: str, dtype: torch.dtype = torch.float32,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     meta = model_meta(name)
-    model = _REGISTRY[name]()
+    model = build_model(name)
 
     candidates: list[Path] = []
     if weights is not None:
@@ -141,7 +183,7 @@ def load_model(name: str, dtype: torch.dtype = torch.float32,
         if not path.is_file():
             continue
         if path.suffix == ".msgpack":
-            state, source = from_jax_variables(read_variables(path)), "cache"
+            state, source = from_jax_variables(read_variables(path), model_family(name)), "cache"
         elif path.suffix in (".pth", ".pt"):
             state, source = load_torch_checkpoint(path), "converted"
         else:

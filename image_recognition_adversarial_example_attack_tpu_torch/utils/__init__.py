@@ -1,1 +1,2 @@
-"""Host-side utilities: phase timing and the streaming input pipeline."""
+"""Host-side utilities: phase timing, the streaming input pipeline and the
+native image loader."""

@@ -1,7 +1,8 @@
-"""The figures of the defense grid and of the visualize CLI (port of
-``plot_defense_heatmaps``, ``plot_attack_samples``, ``plot_attack_grid``,
-``plot_attack_trajectory`` and ``plot_perturbation_analysis`` of
-``viz/plots.py``), drawn with PIL alone.
+"""The figures of the defense grid, the visualize CLI and the transfer CLIs
+(port of ``plot_defense_heatmaps``, ``plot_attack_samples``,
+``plot_attack_grid``, ``plot_attack_trajectory``,
+``plot_perturbation_analysis``, ``plot_transfer_heatmap`` and
+``plot_blackbox_pair`` of ``viz/plots.py``), drawn with PIL alone.
 
 The contract with the JAX package is the file names and the plotted values,
 not the styling:
@@ -20,7 +21,11 @@ not the styling:
   line, and the L2 growth) and ``perturbation_analysis.png`` (per attack:
   the 50-bin histogram of the perturbation on [-0.1, 0.1] and the log1p of
   the shifted spectrum of its channel mean, ``perturbation_histogram`` and
-  ``perturbation_spectrum``).
+  ``perturbation_spectrum``);
+- the transferability CLI's ``transfer_heatmap_<attack>.png`` (eps rows x
+  target columns of the transfer success rate, orange ramp, annotated to 3
+  decimals) and the blackbox CLI's ``<image>_<attack>.png`` (clean and
+  adversarial side by side, each model's label under its panel).
 
 PIL, because the CUDA machines the port runs on need not have matplotlib;
 Pillow is there already for the image pipeline.  Nothing here touches the
@@ -478,3 +483,67 @@ def plot_perturbation_analysis(x_clean: np.ndarray, results: Mapping[str, Mappin
         _text(draw, (cx + 495, sy + side), f"{float(spec.min()):.2f}", f_tick, align="left")
         _text(draw, (cx + 50 + side / 2, sy - 25), f"{attack_name.upper()} frequency", f_head)
     img.save(save_path)
+
+
+# ---------------------------------------------------------------------------
+# The transfer CLIs' figures
+# ---------------------------------------------------------------------------
+
+def plot_transfer_heatmap(matrix: np.ndarray, eps_values: Sequence[float],
+                          model_names: Sequence[str], source_model: str, attack_name: str,
+                          out_path) -> None:
+    """eps x target-model heatmap of the transfer success rate."""
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    matrix = np.asarray(matrix, np.float64)
+    n_eps, n_models = matrix.shape
+    w, h = 1500, 900
+    img = Image.new("RGB", (w, h), _WHITE)
+    draw = ImageDraw.Draw(img)
+    f_title, f_label, f_cell = _font(28), _font(22), _font(24)
+    gx0, gy0, gx1, gy1 = 220, 140, w - 180, h - 140
+    cw, ch = (gx1 - gx0) / n_models, (gy1 - gy0) / n_eps
+    colors = ramp(matrix, "Oranges")
+    for i in range(n_eps):
+        for j in range(n_models):
+            cell = (gx0 + j * cw, gy0 + i * ch, gx0 + (j + 1) * cw, gy0 + (i + 1) * ch)
+            draw.rectangle(cell, fill=tuple(int(c) for c in colors[i, j]), outline=_WHITE,
+                           width=2)
+            ink = _WHITE if matrix[i, j] > 0.55 else _INK
+            _text(draw, ((cell[0] + cell[2]) / 2, (cell[1] + cell[3]) / 2),
+                  f"{matrix[i, j]:.3f}", f_cell, fill=ink)
+    for j, name in enumerate(model_names):
+        _text(draw, (gx0 + (j + 0.5) * cw, gy1 + 25), str(name), f_label)
+    for i, e in enumerate(eps_values):
+        _text(draw, (gx0 - 12, gy0 + (i + 0.5) * ch), f"{e:.3f}", f_label, align="right")
+    bar = ramp(np.linspace(1.0, 0.0, int(gy1 - gy0)), "Oranges")[:, None, :]
+    img.paste(Image.fromarray(np.repeat(bar, 25, axis=1)), (gx1 + 30, gy0))
+    _text(draw, (gx1 + 63, gy0), "1.0", f_label, align="left")
+    _text(draw, (gx1 + 63, gy1), "0.0", f_label, align="left")
+    _text(draw, ((gx0 + gx1) / 2, 60), "Transferability attack success rates\n"
+          f"source: {source_model}, attack: {attack_name.upper()}", f_title)
+    _text(draw, ((gx0 + gx1) / 2, h - 60), "Target models (black-box)", f_label)
+    _vertical_text(img, (50, (gy0 + gy1) / 2), "Perturbation budget (eps)", f_label)
+    img.save(out_path)
+
+
+def plot_blackbox_pair(img_clean: np.ndarray, img_adv: np.ndarray, clean_text: str,
+                       adv_text: str, title: str, attack_name: str, out_path) -> None:
+    """Clean and adversarial image side by side under ``title``, each
+    panel's model labels (one per line) underneath."""
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    tile, gap, top = 448, 40, 120
+    lines = max(clean_text.count("\n"), adv_text.count("\n")) + 1
+    w, h = 2 * tile + 3 * gap, top + tile + 40 + 30 * lines
+    img = Image.new("RGB", (w, h), _WHITE)
+    draw = ImageDraw.Draw(img)
+    f_title, f_head, f_text = _font(26), _font(22), _font(18)
+    _text(draw, (w / 2, 35), title, f_title)
+    for k, (x, head, text) in enumerate(((img_clean, "Clean", clean_text),
+                                         (img_adv, f"Adv ({attack_name})", adv_text))):
+        x0 = gap + k * (tile + gap)
+        _text(draw, (x0 + tile / 2, top - 30), head, f_head)
+        img.paste(_tile(x, tile), (x0, top))
+        _text(draw, (x0 + tile / 2, top + tile + 20 + 15 * lines), text, f_text)
+    img.save(out_path)

@@ -63,7 +63,7 @@ def port_resnet(name: str, variables, dtype=np.float64, num_classes: int | None 
     """The port's model with the Flax variables bridged in (strict load)."""
     kw = {} if num_classes is None else {"num_classes": num_classes}
     model = getattr(port_models, name)(**kw).to(TORCH_DTYPES[dtype])
-    model.load_state_dict(from_jax_variables(variables), strict=True)
+    model.load_state_dict(from_jax_variables(variables, "resnet"), strict=True)
     model.requires_grad_(False)
     return model.eval()
 

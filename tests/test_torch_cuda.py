@@ -372,3 +372,71 @@ def test_conv3x3_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         cv.conv3x3(shifted.view(x.shape), w)
     assert cv.LAUNCHES["conv3x3"] == before
+
+
+@pytest.mark.parametrize("name", ["vgg19", "densenet121", "vit_b_16", "swin_t"])
+def test_transfer_family_float32_logits_on_the_card_match_the_cpu(cuda, name):
+    """Each transfer family at full width, the same seeded weights: float32
+    logits on the card (TF32 off) within 1e-5 of the largest CPU logit."""
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    x = torch.rand((1, 224, 224, 3), generator=torch.Generator().manual_seed(0))
+    out = {}
+    for d in ("cpu", "cuda"):
+        lf = make_fns(load_model(name, device=d))[0]
+        with torch.no_grad():
+            out[d] = lf(x.to(d)).cpu()
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    scale = float(out["cpu"].abs().max())
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-5 * scale
+
+
+def test_transfer_cell_launches_exactly_its_pgd_kernels(cuda):
+    """A pgd-3 transfer cell (resnet_tiny -> tiny) launches 3 pgd_step and 1
+    noise kernel, and no more for the targets' forwards."""
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import AttackParams
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.transfer import (
+        transfer_attack_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    src = make_fns(load_model("resnet_tiny", device=cuda))[0]
+    tgt = make_fns(load_model("tiny", device=cuda))[0]
+    x = torch.rand((4, 32, 32, 3), device=cuda)
+    ew.reset_launches()
+    cell = transfer_attack_batch(src, {"tiny": tgt}, x, "pgd", AttackParams(steps=3),
+                                 generator_from_seed(0), convention="blackbox")
+    torch.cuda.synchronize()
+    assert ew.launch_counts() == {"pgd_step": 3, "quantize": 0, "uniform_noise": 1}
+    assert float((cell.x_adv - x).abs().max()) <= EPS + 1e-6
+    assert set(cell.target_success["tiny"].tolist()) <= {0, 1}
+
+
+def test_native_loader_inside_a_streamed_chunk(cuda, tmp_path, monkeypatch):
+    """Under ADV_TPU_NATIVE_LOADER=1 the streamed chunks that reach the card
+    are the native decoder's pixels; on a host whose compiler finds no
+    libjpeg the stream raises instead of decoding with PIL."""
+    from PIL import Image
+
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.streaming import make_placer
+    from image_recognition_adversarial_example_attack_tpu_torch.utils import native_loader
+    from image_recognition_adversarial_example_attack_tpu_torch.utils.pipeline import (
+        EvalBatchPipeline)
+
+    rng = np.random.RandomState(0)
+    paths = []
+    for i in range(5):
+        paths.append(tmp_path / f"img_{i}.{'png' if i % 2 else 'jpg'}")
+        Image.fromarray((rng.rand(260, 300, 3) * 255).astype(np.uint8)).save(paths[-1])
+    monkeypatch.setenv("ADV_TPU_NATIVE_LOADER", "1")
+    if not native_loader.native_available():
+        with pytest.raises(RuntimeError, match="native image loader"):
+            list(EvalBatchPipeline(paths, 2))
+        return
+    want, ok = native_loader.load_batch_native_with_status(paths)
+    assert ok.all()
+    place = make_placer(cuda)
+    got = [place(x)[:n].cpu().numpy() for _, x, _, n in EvalBatchPipeline(paths, 2)]
+    assert np.array_equal(np.concatenate(got), want)

@@ -124,20 +124,20 @@ def test_to_jax_variables_inverts_the_bridge(tiny64):
     state dict bit for bit."""
     _, variables = tiny64
     model = port_resnet("resnet_tiny", variables, np.float64, num_classes=10)
-    tree = to_jax_variables(model)
+    tree = to_jax_variables(model, "resnet")
     assert _same_tree(tree, variables)
-    back = from_jax_variables(tree)
+    back = from_jax_variables(tree, "resnet")
     sd = model.state_dict()
     assert back.keys() == sd.keys()
     assert all(torch.equal(back[k], sd[k]) for k in sd)
 
 
 def _write_pth(path, variables):
-    torch.save(from_jax_variables(variables), path)
+    torch.save(from_jax_variables(variables, "resnet"), path)
 
 
 def _params_equal(model, variables) -> bool:
-    want = from_jax_variables(variables)
+    want = from_jax_variables(variables, "resnet")
     return all(torch.equal(v, want[k].to(v.dtype)) for k, v in model.state_dict().items())
 
 
@@ -153,7 +153,7 @@ def test_search_order_and_source_as_jax(layout, want, tmp_path, monkeypatch):
     """--weights first, then <dir>/<name>.msgpack, then <dir>/<name>.pth;
     the port's ``source`` is the JAX zoo's for each layout, and the file
     that wins is the one loaded."""
-    other = to_jax_variables(resnet_tiny())  # the .pth files' weights
+    other = to_jax_variables(resnet_tiny(), "resnet")  # the .pth files' weights
     rs = np.random.RandomState(1)
     cache = jax.tree_util.tree_map(  # the .msgpack files' weights
         lambda a: (a + rs.uniform(0.5, 1.0, a.shape)).astype(np.float32), other)
@@ -190,7 +190,7 @@ def test_search_order_and_source_as_jax(layout, want, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("fault", ["missing", "extra"])
 def test_a_partial_tree_raises(fault, tmp_path):
-    tree = to_jax_variables(resnet_tiny())
+    tree = to_jax_variables(resnet_tiny(), "resnet")
     if fault == "missing":
         del tree["params"]["layer2_0"]["conv1"]
     else:

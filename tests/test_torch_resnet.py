@@ -75,7 +75,7 @@ def test_head_from_features_splits_the_forward(tiny64):
 
 def test_resnet50_through_the_bridge_float32():
     module, variables = flax_resnet("resnet50", np.float32, size=64)
-    sd = from_jax_variables(variables)
+    sd = from_jax_variables(variables, "resnet")
     assert set(sd) == torchvision_resnet50_keys() and len(sd) == 320
     model = port_resnet("resnet50", variables, np.float32)
     assert set(model.state_dict()) == torchvision_resnet50_keys()
@@ -92,16 +92,16 @@ def test_bridge_renames_and_raises_on_unmapped_keys():
     assert torch_module_path(("layer4_2", "downsample_bn")) == "layer4.2.downsample.1"
     assert torch_module_path(("layer3_5", "bn2")) == "layer3.5.bn2"
     with pytest.raises(ValueError, match="unmapped"):
-        from_jax_variables({"params": {"fc": {"weird": np.zeros(3)}}})
+        from_jax_variables({"params": {"fc": {"weird": np.zeros(3)}}}, "resnet")
     with pytest.raises(ValueError, match="unmapped"):
-        from_jax_variables({"params": {}, "cache": {}})
+        from_jax_variables({"params": {}, "cache": {}}, "resnet")
     with pytest.raises(ValueError, match="unmapped"):
-        from_jax_variables({"batch_stats": {"bn1": {"count": np.zeros(3)}}})
+        from_jax_variables({"batch_stats": {"bn1": {"count": np.zeros(3)}}}, "resnet")
 
 
 def test_bridge_layouts(tiny64):
     _, variables = tiny64
-    sd = from_jax_variables(variables)
+    sd = from_jax_variables(variables, "resnet")
     k = variables["params"]["layer2_0"]["downsample_conv"]["kernel"]  # HWIO
     np.testing.assert_array_equal(sd["layer2.0.downsample.0.weight"].numpy(),
                                   k.transpose(3, 2, 0, 1))
@@ -116,7 +116,7 @@ def test_bridge_layouts(tiny64):
 def test_zoo_loads_a_pth_with_wrapper_prefixes(tmp_path, tiny64):
     _, variables = tiny64
     sd = {f"module.{k}": v.float() if v.is_floating_point() else v
-          for k, v in from_jax_variables(variables).items()}
+          for k, v in from_jax_variables(variables, "resnet").items()}
     path = tmp_path / "tiny.pth"
     torch.save(sd, path)
     b = load_model("resnet_tiny", weights=path, device="cpu")
@@ -163,7 +163,7 @@ def test_zoo_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_model("resnet_tiny")
     with pytest.raises(ValueError, match="unknown model"):
-        load_model("vgg19", device="cpu")
+        load_model("mobilenet_v2", device="cpu")  # not ported yet
 
 
 def test_batchnorm_ignores_train_mode(tiny64):
