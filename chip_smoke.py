@@ -114,6 +114,33 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    phase 9's.  On a host whose compiler finds no libjpeg the loader cannot
    be built: the phase then checks that the toggle raises instead of
    decoding with PIL, says so, and measures nothing.
+15. visualize, complete -- the visualize CLI in a subprocess with
+   ``--gradcam --landscape`` on one PNG: ``gradcam_attack.png``,
+   ``loss_landscape.png`` and a ``gradcam_iou`` in [0,1] per attack; in
+   process, Grad-CAM at batch 128 in bf16 and float32 (7x7 CAMs in [0,1],
+   their attention IoU, ms); one 441-point landscape in one batch in bf16
+   and float32 (seconds, peak memory), its centre against the clean CE at
+   batch 1 (float32 within 1e-5); ``make_gradcam_fn`` on VGG19 raises
+   ValueError.
+16. int8 -- each int8 op on the card (``torch._int_mm`` behind an im2col)
+   bit-equal to the plain int64 route on the CPU, float32 and bf16, at
+   ResNet-50's stem (K = 147), a 3x3 and a 1x1 stage conv, a strided 1x1
+   downsample and the fc head at M = 1 and 128, its input gradient against
+   the float op's, its ms beside the float op's; the five families and the
+   tiny CNN in int8, bf16 and float32 at batch 128: forward ms beside the
+   float model's (and phases 3 and 12), top-1 agreement with the float
+   model, quantized calls per forward against the JAX families' hooked
+   layers; PGD-10 on the int8 ResNet-50 through ``load_model(int8=True)``
+   (exactly 10 pgd_step and 1 noise launches, ex/s); the classify CLI with
+   ``--int8``.
+17. transfer attacks -- mifgsm, dim and tim (10 steps) on ResNet-50 at
+   batch 128: exactly 10 pgd_step and no noise launches each, the eps-ball,
+   seconds; dim at diversity_prob 0 bit-equal to mifgsm; a mifgsm-20
+   transfer cell to the four families (20 / 0 launches); then, in this
+   process, the transferability CLI and the grid CLI with ``--attacks
+   mifgsm dim tim`` on phase 8's 128 PNGs: the summary lines and exactly
+   the launches of their nine cells (20 pgd_step a transfer cell; 10
+   pgd_step and 1 quantize a grid cell).
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -1695,6 +1722,433 @@ def phase_native(pngs: list[Path], stream_cells: dict) -> dict:
     return res
 
 
+# the visualize CLI's report with --gradcam: one more key per attack
+GRADCAM_ATTACK_KEYS = ATTACK_KEYS | {"gradcam_iou"}
+LANDSCAPE_GRID = 21  # the visualize CLI's default: 441 points in one batch
+
+
+def _gradcam_iou(cams_a, cams_b, size: int):
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.explain import (
+        cam_shift_iou, upsample_cam)
+
+    return cam_shift_iou(upsample_cam(cams_a, size, size), upsample_cam(cams_b, size, size))
+
+
+def phase_visualize_full(state: dict) -> dict:
+    """Phase 15: the visualize CLI with --gradcam --landscape; Grad-CAM at
+    batch 128 (bf16 against float32); one 441-point landscape in one batch,
+    its seconds and peak memory, its centre against the clean CE; the
+    Grad-CAM refusal of a model without the conv tap."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.explain import (
+        make_gradcam_fn)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.landscape import (
+        adversarial_plane, loss_landscape)
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    res: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        (img,) = _write_pngs(Path(tmp) / "img", 1, seed=3)
+        out_dir = Path(tmp) / "viz"
+        out, seconds = _run_cli_module("visualize", "--image", str(img), "--gradcam",
+                                       "--landscape", "--output_dir", str(out_dir))
+        for name in ("gradcam_attack.png", "loss_landscape.png", "attack_report.json"):
+            if not (out_dir / name).is_file():
+                raise AssertionError(f"visualize --gradcam --landscape wrote no {name}")
+        report = json.loads((out_dir / "attack_report.json").read_text())
+        ious = {n: a.get("gradcam_iou") for n, a in report["attacks"].items()}
+        if (list(ious) != ["fgsm", "pgd", "cw"]
+                or any(set(a) != GRADCAM_ATTACK_KEYS for a in report["attacks"].values())
+                or not all(0.0 <= v <= 1.0 for v in ious.values())):
+            raise AssertionError(f"visualize --gradcam report: {report['attacks']}")
+    res["cli"] = {"wall_s": seconds, "gradcam_iou": ious}
+    log(f"[visualize+] CLI --gradcam --landscape (grid {LANDSCAPE_GRID}, PGD-20, CW-100): exit "
+        f"0 in {seconds:.1f} s; gradcam_attack.png, loss_landscape.png; gradcam_iou "
+        + ", ".join(f"{n} {v:.3f}" for n, v in ious.items()))
+
+    # Grad-CAM at batch 128: bf16 (the bundle) against float32, same weights
+    b16, x, y = state["bundle"], state["x"], state["y"]
+    b32 = load_model("resnet50", dtype=torch.float32, device="cuda")
+    cams = {}
+    for name, b, in_dtype in (("bfloat16", b16, torch.bfloat16), ("float32", b32, None)):
+        fn = make_gradcam_fn(b.model, b.mean, b.std, input_dtype=in_dtype)
+        cam = fn(x, y)
+        if (tuple(cam.shape) != (x.shape[0], 7, 7) or not bool(torch.isfinite(cam).all())
+                or float(cam.min()) < 0.0 or float(cam.max()) > 1.0):
+            raise AssertionError(f"Grad-CAM {name}: {tuple(cam.shape)}, range "
+                                 f"[{float(cam.min())}, {float(cam.max())}]")
+        cams[name] = cam
+        res[f"gradcam_{name}_ms"] = time_ms(lambda: fn(x, y), iters=5, warmup=1)
+    iou = _gradcam_iou(cams["bfloat16"], cams["float32"], x.shape[1])
+    diff = float((cams["bfloat16"] - cams["float32"]).abs().max())
+    res["gradcam_bf16_vs_f32"] = {"iou_mean": float(iou.mean()), "iou_min": float(iou.min()),
+                                  "cam_max_abs_diff": diff}
+    log(f"[visualize+] Grad-CAM batch {x.shape[0]}: bf16 {res['gradcam_bfloat16_ms']:.2f} ms, "
+        f"float32 {res['gradcam_float32_ms']:.2f} ms; CAMs 7x7 in [0,1]; bf16 vs float32 "
+        f"attention IoU mean {float(iou.mean()):.3f} (min {float(iou.min()):.3f}), max |CAM "
+        f"diff| {diff:.3f}")
+
+    # one landscape: 441 points in one batched forward, bf16 (the CLI's) and float32
+    x0 = x[0]
+    x_adv = torch.clamp(x0 + EPS * torch.sign(torch.randn(x0.shape, generator=generator_from_seed(
+        4), device="cpu").to(x0.device)), 0.0, 1.0)
+    plane = adversarial_plane(x0, x_adv, generator_from_seed(5))
+    for name, b in (("bfloat16", b16), ("float32", b32)):
+        lf = make_fns(b)[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        grid = loss_landscape(lf, x0, int(y[0]), plane, grid=LANDSCAPE_GRID)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss_landscape(lf, x0, int(y[0]), plane, grid=LANDSCAPE_GRID)
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+        if tuple(grid.shape) != (LANDSCAPE_GRID, LANDSCAPE_GRID) or not bool(
+                torch.isfinite(grid).all()):
+            raise AssertionError(f"landscape {name}: {tuple(grid.shape)}")
+        with torch.no_grad():
+            clean = float(-torch.log_softmax(lf(x0[None]), -1)[0, int(y[0])])
+        centre = float(grid[LANDSCAPE_GRID // 2, LANDSCAPE_GRID // 2])
+        rel = abs(centre - clean) / abs(clean)
+        res[f"landscape_{name}"] = {"seconds_first": seconds, "seconds": again,
+                                    "peak_gib_above_resident": peak, "centre": centre,
+                                    "clean_ce": clean, "centre_rel_err": rel,
+                                    "min": float(grid.min()), "max": float(grid.max())}
+        log(f"[visualize+] landscape {name}: {LANDSCAPE_GRID ** 2} points in one batch, "
+            f"{seconds:.3f} s first, {again:.3f} s again; peak {peak:.2f} GiB above the "
+            f"resident; loss {float(grid.min()):.4f}..{float(grid.max()):.4f}; centre "
+            f"{centre:.6f} vs the clean CE at batch 1 {clean:.6f} (rel {rel:.2e})")
+        # float32 (TF32 off): the batch of 441 and the batch of 1 agree to
+        # float32 rounding; bf16 rounds in other places at other batch shapes
+        if name == "float32" and not rel <= 1e-5:
+            raise AssertionError(f"landscape centre {centre} vs clean CE {clean}: {rel:.2e}")
+    del b32
+
+    try:
+        vgg = state["bf16"]["vgg19"]
+        make_gradcam_fn(vgg.model, vgg.mean, vgg.std, input_dtype=torch.bfloat16)
+    except ValueError as exc:
+        res["vgg19_refusal"] = str(exc)
+        log(f"[visualize+] make_gradcam_fn(vgg19) raises ValueError: {exc}")
+    else:
+        raise AssertionError("make_gradcam_fn accepted VGG19, which has no conv tap split")
+    return res
+
+
+# quantized-op calls per forward, one per layer the JAX family hooks
+INT8_HOOKS = {"resnet50": (53, 1), "vgg19": (16, 3), "densenet121": (120, 1),
+              "vit_b_16": (1, 49), "swin_t": (1, 52), "tiny": (2, 1)}
+
+
+def _int8_twin(bundle):
+    """The bundle's model rebuilt with int8=True, the same weights and dtype."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.models import zoo
+
+    model = zoo.build_model(bundle.name, int8=True)
+    model.load_state_dict(bundle.model.state_dict(), strict=True)
+    model.requires_grad_(False).eval()
+    zoo.set_compute_dtype(model, bundle.dtype)
+    return model.to(device=bundle.device, memory_format=torch.channels_last)
+
+
+def phase_int8(state: dict, classify_ms: float, family_ms: dict) -> dict:
+    """Phase 16: the int8 ops on the card against the exact plain route;
+    the six families in int8 (bf16 and float32); PGD-10 on the int8
+    ResNet-50; the classify CLI with --int8."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        AttackParams, make_logits_fn, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.ops import int8
+
+    res: dict = {"ops": {}, "families": {}}
+    g = generator_from_seed(11)
+    # (a) per op: the _int_mm route on the card against the plain int64
+    # route on the CPU (bit-equal), the gradient against the float op's
+    ops = {  # name -> (input NCHW or [M,K], weight, stride, padding)
+        "stem 7x7/2, K=147": ((4, 3, 224, 224), (64, 3, 7, 7), 2, 3),
+        "layer1 3x3, K=576": ((4, 64, 56, 56), (64, 64, 3, 3), 1, 1),
+        "layer1 1x1, K=256": ((4, 256, 56, 56), (64, 256, 1, 1), 1, 0),
+        "layer3 downsample 1x1/2, K=512": ((4, 512, 28, 28), (1024, 512, 1, 1), 2, 0),
+        "fc M=1": ((1, 2048), (1000, 2048), None, None),
+        "fc M=128": ((128, 2048), (1000, 2048), None, None),
+    }
+    for name, (xs, ws, stride, pad) in ops.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(xs, generator=g).to(dtype)
+            w = (torch.randn(ws, generator=g) * ws[1] ** -0.5).to(dtype)
+            conv = stride is not None
+
+            def op(a, b):
+                return int8.int8_conv2d(a, b, stride, pad) if conv else int8.int8_linear(a, b)
+
+            def float_op(a, b):
+                return F.conv2d(a, b, stride=stride, padding=pad) if conv else F.linear(a, b)
+
+            want = op(x, w)  # the CPU: the plain int64 route
+            xc = x.to("cuda")
+            if conv:
+                xc = xc.contiguous(memory_format=torch.channels_last)
+            xc.requires_grad_(True)
+            wc = w.to("cuda")
+            got = op(xc, wc)
+            equal = torch.equal(got.detach().cpu(), want)
+            gout = torch.randn(got.shape, generator=g).to(dtype).to("cuda")
+            (gx,) = torch.autograd.grad(got, xc, gout)
+            (fx,) = torch.autograd.grad(float_op(xc, wc), xc, gout)
+            # the same float op's backward: equal but for the algorithm cuDNN
+            # or cuBLAS picks, within float32 rounding (bf16: one ulp)
+            grad_err = float((gx.float() - fx.float()).abs().max()) / float(fx.float().abs().max())
+            with torch.no_grad():
+                ms = time_ms(lambda: op(xc, wc), iters=10, warmup=2)
+                float_ms = time_ms(lambda: float_op(xc, wc), iters=10, warmup=2)
+            key = f"{name} {str(dtype)[6:]}"
+            res["ops"][key] = {"bit_equal": equal, "grad_rel_diff": grad_err, "ms": ms,
+                               "float_op_ms": float_ms}
+            log(f"[int8] {key}: card vs plain route bit-equal {equal}; input gradient vs the "
+                f"float op's max |diff| {grad_err:.2e} of its largest; {ms:.3f} ms (float op "
+                f"{float_ms:.3f} ms)")
+            if not equal or grad_err > (1e-6 if dtype == torch.float32 else 8e-3):
+                raise AssertionError(f"int8 op {key}: bit-equal {equal}, grad diff {grad_err}")
+
+    # (b) per family, bf16 and float32 at batch 128
+    x, batch = state["x"], state["x"].shape[0]
+    fams = {"resnet50": state["bundle"], **{n: state["bf16"][n] for n in FAMILIES}}
+    for name in ("resnet50", *FAMILIES, "tiny"):
+        for dtype in (torch.bfloat16, torch.float32):
+            base = fams.get(name) if dtype == torch.bfloat16 else None
+            base = base or load_model(name, dtype=dtype, device="cuda")
+            in_dtype = None if dtype == torch.float32 else dtype
+            lf = make_logits_fn(base.model, base.mean, base.std, input_dtype=in_dtype)
+            lf8 = make_logits_fn(_int8_twin(base), base.mean, base.std, input_dtype=in_dtype)
+            with torch.no_grad():
+                ref = lf(x)
+                int8.reset_calls()
+                out = lf8(x)
+                calls = int8.call_counts()
+                ms = time_ms(lambda: lf8(x), iters=3, warmup=1)
+                float_ms = time_ms(lambda: lf(x), iters=3, warmup=1)
+            agree = float((out.argmax(-1) == ref.argmax(-1)).float().mean())
+            want = dict(zip(("conv", "linear"), INT8_HOOKS[name]))
+            if calls != want or not bool(torch.isfinite(out).all()) or out.shape != ref.shape:
+                raise AssertionError(f"int8 {name} {dtype}: calls {calls} (want {want}), "
+                                     f"{tuple(out.shape)}")
+            phase_ms = classify_ms if name == "resnet50" else family_ms.get(name)
+            key = f"{name} {str(dtype)[6:]}"
+            res["families"][key] = {"int8_forward_ms": ms, "float_forward_ms": float_ms,
+                                    "bf16_forward_ms_phases_3_12": phase_ms,
+                                    "top1_agreement": agree, "calls": calls}
+            log(f"[int8] {key} batch {batch}: int8 forward {ms:.2f} ms, the float model "
+                f"{float_ms:.2f} ms (phases 3/12 bf16: "
+                f"{'-' if phase_ms is None else f'{phase_ms:.2f}'} ms); top-1 agreement "
+                f"with the float model {agree:.3f}; quantized calls {calls}")
+            if base is not fams.get(name):
+                del base
+            torch.cuda.empty_cache()
+
+    # (c) PGD-10 on the int8 ResNet-50 (bf16), through load_model(int8=True)
+    b8 = load_model("resnet50", dtype=torch.bfloat16, device="cuda", int8=True)
+    lf8 = make_logits_fn(b8.model, b8.mean, b8.std, input_dtype=torch.bfloat16)
+    y = state["y"]
+    params = AttackParams(eps=EPS, alpha=ALPHA, steps=STEPS)
+    ew.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_adv = run_attack("pgd", lf8, x, y, params, generator_from_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ew.launch_counts()
+    want = {"pgd_step": STEPS, "quantize": 0, "uniform_noise": 1}
+    if counts != want:
+        raise AssertionError(f"int8 PGD-10 launches {counts}, want {want}")
+    linf = _check_ball(x_adv, x, EPS, "int8 pgd")
+    t0 = time.perf_counter()
+    run_attack("pgd", lf8, x, y, params, generator_from_seed(1))
+    torch.cuda.synchronize()
+    again = time.perf_counter() - t0
+    res["pgd"] = {"launches": counts, "seconds_first": seconds, "seconds": again,
+                  "ex_per_s": batch / again, "linf": linf}
+    log(f"[int8] PGD-10 on the int8 resnet50 (bf16) batch {batch}: launches {counts}; "
+        f"{seconds:.3f} s first, {again:.3f} s again ({batch / again:.1f} ex/s); |x_adv - x|_inf "
+        f"{linf:.6f}")
+    del b8
+
+    # (d) the classify CLI with --int8
+    with tempfile.TemporaryDirectory() as tmp:
+        (img,) = _write_pngs(Path(tmp) / "img", 1, seed=9)
+        proc, cli_s = _run_cli(img, Path(tmp) / "adv.png", "--attack", "pgd", "--int8")
+    res["classify_cli_s"] = cli_s
+    log(f"[int8] classify --int8 --attack pgd: exit 0 in {cli_s:.1f} s; "
+        + " | ".join(proc.stdout.strip().splitlines()[:2]))
+    return res
+
+
+TRANSFER_ATTACKS = ("mifgsm", "dim", "tim")
+
+
+def _in_process_cli(main, argv: list[str]) -> tuple[str, float, dict]:
+    """A CLI's ``main(argv)`` in this process: its stdout, seconds and the
+    kernel launches of the run (reset before, read after)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    buf = io.StringIO()
+    ew.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        code = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    if code != 0 or "Using device: cuda" not in out:
+        raise AssertionError(f"{main.__module__} {' '.join(argv)} exit {code}:\n{out[-3000:]}")
+    return out, seconds, ew.launch_counts()
+
+
+def phase_transfer_attacks(state: dict, pngs: list[Path]) -> dict:
+    """Phase 17: mifgsm, dim and tim at batch 128 on ResNet-50 with exact
+    launch counts, DIM at p=0 against MI-FGSM, a pgd-20-shaped transfer
+    cell with mifgsm, then the transferability and grid CLIs with the three
+    attacks on phase 8's 128 PNGs."""
+    import re
+
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        AttackParams, mifgsm_attack, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.dim import dim_attack
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import (
+        defense_experiments, transferability)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.transfer import (
+        transfer_attack_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    x, y, batch = state["x"], state["y"], state["x"].shape[0]
+    lf = make_fns(state["bundle"])[0]
+    params = AttackParams(eps=EPS, alpha=ALPHA, steps=STEPS)
+    res: dict = {"attacks": {}}
+    want = {"pgd_step": STEPS, "quantize": 0, "uniform_noise": 0}
+    for name in TRANSFER_ATTACKS:
+        ew.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x_adv = run_attack(name, lf, x, y, params, generator_from_seed(0))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ew.launch_counts()
+        if counts != want:
+            raise AssertionError(f"{name}-10 launches {counts}, want {want}")
+        linf = _check_ball(x_adv, x, EPS, name)
+        with torch.no_grad():
+            success = float((lf(x_adv).argmax(-1) != y).float().mean())
+        res["attacks"][name] = {"launches": counts, "seconds": seconds,
+                                "ex_per_s": batch / seconds, "linf": linf, "success": success}
+        log(f"[transfer attacks] {name}-10 resnet50 bf16 batch {batch}: launches {counts}; "
+            f"{seconds:.3f} s ({batch / seconds:.1f} ex/s); |x_adv - x|_inf {linf:.6f}; "
+            f"attack success {success:.3f}")
+    mi = mifgsm_attack(lf, x, y, eps=EPS, alpha=ALPHA, steps=STEPS)
+    mi2 = mifgsm_attack(lf, x, y, eps=EPS, alpha=ALPHA, steps=STEPS)
+    di0 = dim_attack(lf, x, y, eps=EPS, alpha=ALPHA, steps=STEPS,
+                     generator=generator_from_seed(0), diversity_prob=0.0)
+    res["dim_p0_equals_mifgsm"] = bool(torch.equal(di0, mi))
+    res["mifgsm_repeat_equal"] = bool(torch.equal(mi2, mi))
+    log(f"[transfer attacks] dim at diversity_prob 0 bit-equal to mifgsm: "
+        f"{res['dim_p0_equals_mifgsm']} (mifgsm run twice bit-equal: "
+        f"{res['mifgsm_repeat_equal']})")
+    if not res["dim_p0_equals_mifgsm"]:
+        raise AssertionError("dim at diversity_prob 0 differs from mifgsm: max |diff| "
+                             f"{float((di0 - mi).abs().max())}")
+
+    # a pgd-20-shaped transfer cell with mifgsm: resnet50 -> the four families
+    targets = {n: make_fns(state["bf16"][n])[0] for n in FAMILIES}
+    cell_params = AttackParams(eps=EPS, alpha=ALPHA, steps=TRANSFER_STEPS)
+    ew.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cell = transfer_attack_batch(lf, targets, x, "mifgsm", cell_params, generator_from_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ew.launch_counts()
+    if counts != {"pgd_step": TRANSFER_STEPS, "quantize": 0, "uniform_noise": 0}:
+        raise AssertionError(f"mifgsm-20 transfer cell launches {counts}")
+    linf = _check_ball(cell.x_adv, x, EPS, "mifgsm transfer cell")
+    rates = {k: float(v.float().mean()) for k, v in
+             {"source": cell.source_success, **cell.target_success}.items()}
+    res["cell"] = {"launches": counts, "seconds": seconds, "linf": linf, "asr": rates}
+    log(f"[transfer attacks] mifgsm-{TRANSFER_STEPS} transfer cell resnet50 -> 4 families: "
+        f"launches {counts}; {seconds:.3f} s; ASR " + ", ".join(
+            f"{k} {v:.3f}" for k, v in rates.items()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        img128 = _linked(pngs[:SHAPE[0]], Path(tmp) / "png128")
+        n_eps = 3
+        out_dir = Path(tmp) / "tr"
+        out, seconds, counts = _in_process_cli(transferability.main, [
+            "--image_dir", str(img128), "--attacks", *TRANSFER_ATTACKS,
+            "--output_dir", str(out_dir)])
+        data = json.loads((out_dir / "transfer_results.json").read_text())
+        summary = out[out.index("TRANSFERABILITY SUMMARY"):].splitlines()
+        rows = [ln for ln in summary if ln.split(" ")[0] in TRANSFER_ATTACKS]
+        want_tr = {"pgd_step": len(TRANSFER_ATTACKS) * n_eps * TRANSFER_STEPS, "quantize": 0,
+                   "uniform_noise": 0}
+        if (sorted(data) != sorted(TRANSFER_ATTACKS) or any(len(v) != n_eps for v in data.values())
+                or len(rows) != len(TRANSFER_ATTACKS) * n_eps or counts != want_tr):
+            raise AssertionError(f"transferability --attacks mifgsm dim tim: {sorted(data)}, "
+                                 f"rows {rows}, launches {counts} (want {want_tr})")
+        res["transferability_cli"] = {"seconds": seconds, "launches": counts, "rows": rows}
+        log(f"[transfer attacks] transferability CLI --attacks mifgsm dim tim (20 steps, "
+            f"{n_eps} eps; resnet50 -> vgg19, densenet121, vit_b_16) on {SHAPE[0]} PNGs: "
+            f"{seconds:.1f} s in process; launches {counts} "
+            f"({TRANSFER_STEPS} pgd_step in each of {len(rows)} cells)")
+        for ln in rows:
+            log(f"[transfer attacks]   {ln}")
+
+        out_dir = Path(tmp) / "grid"
+        out, seconds, counts = _in_process_cli(defense_experiments.main, [
+            "--image_dir", str(img128), "--attacks", *TRANSFER_ATTACKS, "--viz_samples", "0",
+            "--output_dir", str(out_dir)])
+        summary = re.compile(
+            r"^attack=(mifgsm|dim|tim), eps=(\d\.\d{5}), attack_success=\d\.\d{3}, "
+            r"preproc_defense_acc=\d\.\d{3}, detector_clean_pass_rate=\d\.\d{3}, "
+            r"detector_adv_flag_rate=\d\.\d{3}, detector_attack_success=\d\.\d{3}$")
+        lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
+        cells = len(TRANSFER_ATTACKS) * n_eps
+        want_grid = {"pgd_step": cells * STEPS, "quantize": cells, "uniform_noise": 0}
+        if len(lines) != cells or not all(summary.match(ln) for ln in lines) \
+                or counts != want_grid:
+            raise AssertionError(f"grid --attacks mifgsm dim tim: lines {lines}, launches "
+                                 f"{counts} (want {want_grid})")
+        cell_s = _cells_s(out_dir)
+        res["grid_cli"] = {"seconds": seconds, "launches": counts, "lines": lines,
+                           "cell_s": cell_s}
+        log(f"[transfer attacks] grid CLI --attacks mifgsm dim tim (10 steps, {n_eps} eps) on "
+            f"{SHAPE[0]} PNGs: {seconds:.1f} s in process; launches {counts} ({STEPS} pgd_step "
+            f"and 1 quantize per cell); cells " + ", ".join(
+                f"{k} {v:.2f} s" for k, v in cell_s.items()))
+        for ln in lines:
+            log(f"[transfer attacks]   {ln}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=str, default=None,
@@ -1755,15 +2209,23 @@ def main(argv=None) -> int:
         record["families"] = run("families", phase_families, state)
         record["transfer"] = run("transfer", phase_transfer, state, pngs, jpegs)
         record["native"] = run("native", phase_native, pngs, record["stream"]["cli"]["cells"])
+        record["visualize_full"] = run("visualize_full", phase_visualize_full, state)
+        record["int8"] = run("int8", phase_int8, state, record["classify"]["forward_ms"],
+                             {n: record["families"][n]["bf16_forward_ms"] for n in FAMILIES})
+        record["transfer_attacks"] = run("transfer_attacks", phase_transfer_attacks, state, pngs)
 
     # the elementwise kernels' main path: PGD-10, the eight cells, the
-    # streamed pgd cell, the visualize path's PGD-20 and trajectory and the
-    # two pgd-20 transfer cells; the conv's: the probe's entry point
+    # streamed pgd cell, the visualize path's PGD-20 and trajectory, the
+    # two pgd-20 transfer cells, PGD-10 on the int8 ResNet-50, the three
+    # transfer attacks, the mifgsm transfer cell and the two CLIs run with
+    # them; the conv's: the probe's entry point
     detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
+    ta = record["transfer_attacks"]
     runs = [record["pgd"], record["cell"], *record["cells"].values(),
             *(record["detectors"][c] for c in detector_cells),
             record["stream"]["pgd_cell"], record["visualize"]["in_process"],
-            record["transfer"]["cell"], record["transfer"]["ensemble"]]
+            record["transfer"]["cell"], record["transfer"]["ensemble"], record["int8"]["pgd"],
+            *ta["attacks"].values(), ta["cell"], ta["transferability_cli"], ta["grid_cli"]]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

@@ -106,7 +106,8 @@ def input_grad(logits_fn: LogitsFn, x: torch.Tensor, y: torch.Tensor) -> torch.T
 
 @dataclass(frozen=True)
 class AttackParams:
-    """The parameters that the ported attacks (fgsm, pgd, cw) read."""
+    """The parameters that the ported attacks read (fgsm, pgd, cw and the
+    transfer family mifgsm, dim, tim)."""
 
     eps: float = DEFAULT_EPS
     alpha: float = DEFAULT_ALPHA
@@ -116,14 +117,42 @@ class AttackParams:
     cw_steps: int = 100
     cw_lr: float = DEFAULT_CW_LR
     random_start: bool = True
+    mu: float = 1.0  # the momentum decay of mifgsm, dim and tim
 
 
+# ---------------------------------------------------------------------------
+# The registry (the JAX package's ``_register``): every attack registers its
+# handler and its threat model, so the registry-driven invariant sweep
+# (tests/test_torch_zoo_invariants.py) covers each attack as it lands.
+#
+# Threat models: "linf" / "l2" / "l1" -- an eps-ball in that norm around x;
+# "l0" -- a bounded count of changed coordinates; "none" -- minimal-norm or
+# non-Lp attacks, held only to the [0,1] range, shape and determinism.
+# ---------------------------------------------------------------------------
+_DISPATCH: dict[str, Callable[..., torch.Tensor]] = {}
+ATTACK_THREAT: dict[str, str] = {}
+
+
+def _register(name: str, threat: str):
+    if threat not in ("linf", "l2", "l1", "l0", "none"):
+        raise ValueError(f"unknown threat model '{threat}'")
+
+    def deco(fn):
+        _DISPATCH[name] = fn
+        ATTACK_THREAT[name] = threat
+        return fn
+
+    return deco
+
+
+@_register("fgsm", "linf")
 def _run_fgsm(logits_fn, x, y_true, params, generator, y_target):
     from .fgsm import fgsm_attack
 
     return fgsm_attack(logits_fn, x, y_true, eps=params.eps, y_target=y_target)
 
 
+@_register("pgd", "linf")
 def _run_pgd(logits_fn, x, y_true, params, generator, y_target):
     from .pgd import pgd_linf_attack
 
@@ -133,6 +162,7 @@ def _run_pgd(logits_fn, x, y_true, params, generator, y_target):
         random_start=params.random_start, y_target=y_target)
 
 
+@_register("cw", "none")
 def _run_cw(logits_fn, x, y_true, params, generator, y_target):
     from .cw import cw_l2_attack
 
@@ -143,7 +173,31 @@ def _run_cw(logits_fn, x, y_true, params, generator, y_target):
     return res.x_adv
 
 
-_DISPATCH = {"fgsm": _run_fgsm, "pgd": _run_pgd, "cw": _run_cw}
+@_register("mifgsm", "linf")
+def _run_mifgsm(logits_fn, x, y_true, params, generator, y_target):
+    from .mifgsm import mifgsm_attack
+
+    return mifgsm_attack(logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
+                         steps=params.steps, mu=params.mu, y_target=y_target)
+
+
+@_register("dim", "linf")
+def _run_dim(logits_fn, x, y_true, params, generator, y_target):
+    from .dim import dim_attack
+
+    return dim_attack(logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
+                      steps=params.steps, generator=generator, mu=params.mu,
+                      y_target=y_target)
+
+
+@_register("tim", "linf")
+def _run_tim(logits_fn, x, y_true, params, generator, y_target):
+    from .tim import tim_attack
+
+    return tim_attack(logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
+                      steps=params.steps, mu=params.mu, y_target=y_target)
+
+
 ATTACK_NAMES: tuple[str, ...] = tuple(_DISPATCH)
 
 
@@ -151,8 +205,9 @@ def run_attack(attack_name: str, logits_fn: LogitsFn, x: torch.Tensor,
                y_true: torch.Tensor, params: AttackParams,
                generator: torch.Generator | None = None,
                y_target: torch.Tensor | None = None) -> torch.Tensor:
-    """'fgsm' | 'pgd' | 'cw' -> x_adv in [0,1]. ``y_target`` selects the targeted
-    mode. ``generator`` feeds the random start (default: seed 0)."""
+    """'fgsm' | 'pgd' | 'cw' | 'mifgsm' | 'dim' | 'tim' -> x_adv in [0,1].
+    ``y_target`` selects the targeted mode. ``generator`` feeds the
+    randomness (pgd's random start, dim's transforms; default: seed 0)."""
     handler = _DISPATCH.get(attack_name)
     if handler is None:
         raise ValueError(f"attack '{attack_name}' is not ported yet "

@@ -15,8 +15,9 @@ Image sets larger than ``--max_batch`` stream in chunks of that size
 (``utils.pipeline.EvalBatchPipeline``); each chunk's attack draws from
 ``core.rng.chunk_generator(seed, attack, step)``, the resident run's from
 ``core.rng.cell_generator(seed, attack)``.  The JAX CLI's attack choices
-other than fgsm, pgd and cw are refused before any device work, and its
-``--square_steps`` and extended-attack flags are not ported yet.
+other than fgsm, pgd, cw, mifgsm, dim and tim are refused before any device
+work, and its ``--square_steps`` and extended-attack flags are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from ..core.device import resolve_device
 from ..core.images import list_images, load_image_batch
 from ..core.labels import load_imagenet_labels
 from ..core.rng import cell_generator, chunk_generator
-from .common import (TRANSFER_ATTACK_CHOICES, add_model_args, load_bundle, make_fns,
+from .common import (ATTACK_CHOICES, add_model_args, load_bundle, make_fns,
                      maybe_profile, refuse_unported_attacks)
 
 TARGET_DISPLAY = {"vgg19": "VGG19", "vit_b_16": "ViT", "swin_t": "Swin"}
@@ -47,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Black-box transfer sweep: ResNet-50 -> VGG19/ViT/Swin")
     parser.add_argument("--image_dir", type=str, default="picture")
     parser.add_argument("--attacks", type=str, nargs="+", default=["fgsm", "pgd", "cw"],
-                        choices=TRANSFER_ATTACK_CHOICES)
+                        choices=ATTACK_CHOICES)
     parser.add_argument("--eps", type=float, default=DEFAULT_EPS)
     parser.add_argument("--alpha", type=float, default=DEFAULT_ALPHA)
     parser.add_argument("--steps", type=int, default=DEFAULT_STEPS)

@@ -1,11 +1,12 @@
 """Classify-and-attack CLI (port of ``cli/classify.py``, the ``ResNet.py``
-surface) for ``--attack {none,fgsm,pgd,cw}``.
+surface) for ``--attack {none,fgsm,pgd,cw,mifgsm,dim,tim}``.
 
     python -m image_recognition_adversarial_example_attack_tpu_torch.cli.classify \\
         image.jpg --attack pgd --save_adv adv.png [--device cpu]
 
 A directory input becomes one [B,224,224,3] batch; the attack runs once and
-the results print per image in the reference's format.
+the results print per image in the reference's format.  The JAX CLI's other
+``--attack`` choices are accepted and refused before any device work.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from ..core.constants import (DEFAULT_ALPHA, DEFAULT_CW_C, DEFAULT_CW_KAPPA, DEF
 from ..core.images import list_images, load_image_batch_tolerant, save_image_01
 from ..core.labels import load_imagenet_labels
 from ..core.rng import generator_from_seed
-from .common import (add_model_args, load_bundle, make_fns, maybe_profile, print_topk,
-                     topk_host)
+from .common import (CLASSIFY_ATTACK_CHOICES, add_model_args, load_bundle, make_fns,
+                     maybe_profile, print_topk, refuse_unported_attacks, topk_host)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -33,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("image", nargs="?", default="example.jpg")
     parser.add_argument("--topk", type=int, default=5)
-    parser.add_argument("--attack", choices=["none", "fgsm", "pgd", "cw"], default="none")
+    parser.add_argument("--attack", choices=list(CLASSIFY_ATTACK_CHOICES), default="none")
     parser.add_argument("--label", type=int, default=None)
     parser.add_argument("--eps", type=float, default=DEFAULT_EPS)
     parser.add_argument("--alpha", type=float, default=DEFAULT_ALPHA)
@@ -50,6 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.attack != "none":
+        refuse_unported_attacks([args.attack], flag="--attack")
 
     image_path = Path(args.image)
     if image_path.is_dir():

@@ -32,6 +32,12 @@ def add_model_args(parser: argparse.ArgumentParser, default_model: str = "resnet
     parser.add_argument("--model-dtype", type=str, default=None,
                         choices=["float32", "bfloat16"],
                         help="compute dtype (default: bfloat16 on CUDA, float32 on CPU)")
+    parser.add_argument("--int8", action="store_true",
+                        help="quantized inference (every registered family): int8 "
+                             "weights per output channel and activations per example, "
+                             "int32 sums through torch._int_mm on the card (an int64 "
+                             "product on the CPU), gradients of the float op; a "
+                             "robustness-evaluation mode (ops/int8.py)")
     parser.add_argument("--seed", type=int, default=0, help="random seed")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="write a torch.profiler Chrome trace here")
@@ -52,7 +58,7 @@ def resolve_dtype(name: str | None, device: torch.device) -> torch.dtype:
 
 def load_bundle(args: argparse.Namespace, name: str | None = None):
     """Load ``name`` (default ``args.model``) honoring the CLI's
-    device/dtype/weights flags (``--seed`` drives the attack's randomness,
+    device/dtype/weights/int8 flags (``--seed`` drives the attack's randomness,
     not the weights).
 
     An explicit ``--weights`` file applies only to the model it was given
@@ -64,7 +70,14 @@ def load_bundle(args: argparse.Namespace, name: str | None = None):
     target = name or args.model
     weights = args.weights if target == args.model else None
     return load_model(target, dtype=resolve_dtype(args.model_dtype, device),
-                      weights=weights, device=device)
+                      weights=weights, device=device, int8=bool(getattr(args, "int8", False)))
+
+
+def input_dtype_of(bundle):
+    """The input-cast dtype of a bundle's closures: its compute dtype, or
+    None for float32 (the one place of the policy, so the logits, feature
+    and Grad-CAM closures agree)."""
+    return bundle.dtype if bundle.dtype != torch.float32 else None
 
 
 def make_fns(bundle):
@@ -73,7 +86,7 @@ def make_fns(bundle):
     from ..attacks.api import make_logits_fn
     from ..defenses.detector import make_features_fn
 
-    input_dtype = bundle.dtype if bundle.dtype != torch.float32 else None
+    input_dtype = input_dtype_of(bundle)
     lf = make_logits_fn(bundle.model, bundle.mean, bundle.std, input_dtype=input_dtype)
     ff = make_features_fn(bundle.model, bundle.mean, bundle.std, input_dtype=input_dtype)
     return lf, ff
@@ -147,22 +160,25 @@ def n_classes_of(model: nn.Module) -> int:
     return int(linears[-1].out_features)
 
 
-# The --attacks choices of the JAX transfer CLIs (cli/blackbox_transfer.py,
-# cli/transferability.py): all are accepted, and the ones not ported yet are
-# refused before any device work (refuse_unported_attacks).
-TRANSFER_ATTACK_CHOICES = (
+# The --attacks choices of the JAX grid and transfer CLIs
+# (cli/defense_experiments.py, cli/blackbox_transfer.py, cli/transferability.py)
+# and the --attack choices of its classify CLI (the same, with pgd_l2, after
+# "none"): all are accepted, and the ones not ported yet are refused before
+# any device work (refuse_unported_attacks).
+ATTACK_CHOICES = (
     "fgsm", "pgd", "cw", "mifgsm", "dim", "tim", "apgd", "square", "deepfool", "nes", "spsa",
     "bandits", "hsja", "ead", "apgd_dlr", "apgd_t", "fab", "stadv", "boundary", "simba",
     "jsma", "pgd_l1", "spatial")
+CLASSIFY_ATTACK_CHOICES = ("none", "fgsm", "pgd", "pgd_l2", *ATTACK_CHOICES[2:])
 
 
-def refuse_unported_attacks(attacks) -> None:
+def refuse_unported_attacks(attacks, flag: str = "--attacks") -> None:
     """SystemExit naming the requested attacks this package has not ported."""
     from ..attacks.api import ATTACK_NAMES
 
     missing = [a for a in attacks if a not in ATTACK_NAMES]
     if missing:
-        raise SystemExit(f"--attacks {' '.join(missing)}: not ported to this package yet "
+        raise SystemExit(f"{flag} {' '.join(missing)}: not ported to this package yet "
                          f"(ported: {', '.join(ATTACK_NAMES)}); run without them")
 
 
@@ -172,6 +188,9 @@ def refuse_unported_attacks(attacks) -> None:
 ATTACK_KNOB_ARGS: dict[str, frozenset] = {
     "fgsm": frozenset(),
     "pgd": frozenset({"steps", "alpha"}),
+    "mifgsm": frozenset({"steps", "alpha", "mu"}),
+    "dim": frozenset({"steps", "alpha", "mu"}),
+    "tim": frozenset({"steps", "alpha", "mu"}),
     "cw": frozenset({"cw_c", "cw_kappa", "cw_steps", "cw_lr"}),
 }
 _ALL_KNOB_ARGS: frozenset = frozenset().union(*ATTACK_KNOB_ARGS.values())

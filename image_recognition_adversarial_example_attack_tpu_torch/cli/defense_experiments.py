@@ -1,5 +1,6 @@
 """Defense experiment CLI (port of ``cli/defense_experiments.py``, the
-``defense_experiments.py`` surface) for the attacks fgsm, pgd and cw.
+``defense_experiments.py`` surface) for the attacks fgsm, pgd, cw, mifgsm, dim
+and tim.
 
     python -m image_recognition_adversarial_example_attack_tpu_torch.cli.defense_experiments \\
         --image_dir imgs/ [--attacks fgsm pgd cw] [--eps_list ...] [--device cpu]
@@ -19,7 +20,8 @@ detector is calibrated (or given) on at most the first 100 images; after it
 come the summary lines, the sample figure (PGD at ``eps_list[1]``, alpha
 eps/4, 10 steps), the heatmaps and ``timings.json``.
 
-The JAX CLI's certified, CIFAR-10, int8 and extended-attack options are not
+The JAX CLI's other ``--attacks`` choices are accepted and refused before any
+device work; its certified, CIFAR-10 and extended-attack options are not
 ported yet.
 """
 
@@ -43,10 +45,11 @@ from ..defenses.preprocess import DefenseConfig, defend_input
 from ..eval.defense_eval import (DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch,
                                  summary_line)
 from ..eval.streaming import make_placer, round_up, stream_defense_cell
-from .common import (EPS_INDEPENDENT_ATTACKS, add_imagenet_val_arg, add_model_args,
-                     apply_imagenet_val, cell_rng_id, check_label_range, config_fingerprint,
-                     labels_digest, load_bundle, make_fns, maybe_profile, n_classes_of,
-                     resolve_image_inputs, resolve_labels, resolve_labels_sentinel)
+from .common import (ATTACK_CHOICES, EPS_INDEPENDENT_ATTACKS, add_imagenet_val_arg,
+                     add_model_args, apply_imagenet_val, cell_rng_id, check_label_range,
+                     config_fingerprint, labels_digest, load_bundle, make_fns, maybe_profile,
+                     n_classes_of, refuse_unported_attacks, resolve_image_inputs,
+                     resolve_labels, resolve_labels_sentinel)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,7 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--image", type=str, default="example.jpg")
 
     parser.add_argument("--attacks", type=str, nargs="+", default=["fgsm", "pgd", "cw"],
-                        choices=["fgsm", "pgd", "cw"])
+                        choices=list(ATTACK_CHOICES))
     parser.add_argument("--eps_list", type=float, nargs="+", default=list(DEFAULT_EPS_LIST))
     parser.add_argument("--alpha", type=float, default=DEFAULT_ALPHA)
     parser.add_argument("--steps", type=int, default=DEFAULT_STEPS)
@@ -172,6 +175,7 @@ def _calibrate(args, logits_fn, features_fn, x_clean, n, pseudo_fn, n_classes):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    refuse_unported_attacks(args.attacks)
 
     if args.detector_aware:
         bad = [a for a in args.attacks if a not in ("fgsm", "pgd")]

@@ -18,8 +18,9 @@ id)``; cw reads no eps, so it is computed once per sweep and reused.  Image
 sets larger than ``--max_batch`` stream in chunks of that size
 (``eval.streaming.stream_transfer_cell``).  Unknown models and models of
 mixed input sizes are refused with exit code 2; the JAX CLI's attack choices
-other than fgsm, pgd and cw are refused before any device work, and its
-``--square_steps`` and extended-attack flags are not ported yet.
+other than fgsm, pgd, cw, mifgsm, dim and tim are refused before any device
+work, and its ``--square_steps`` and extended-attack flags are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from ..core.device import resolve_device
 from ..core.images import load_image_batch, save_image_01
 from ..core.rng import cell_generator
 from ..eval.transfer import transfer_attack_batch
-from .common import (EPS_INDEPENDENT_ATTACKS, TRANSFER_ATTACK_CHOICES, add_model_args,
+from .common import (EPS_INDEPENDENT_ATTACKS, ATTACK_CHOICES, add_model_args,
                      cell_rng_id, load_bundle, make_fns, maybe_profile,
                      refuse_unported_attacks, resolve_image_inputs)
 
@@ -56,7 +57,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--image_dir", type=str, default=None)
     parser.add_argument("--image", type=str, default="example.jpg")
     parser.add_argument("--attacks", type=str, nargs="+", default=["pgd"],
-                        choices=TRANSFER_ATTACK_CHOICES)
+                        choices=ATTACK_CHOICES)
     parser.add_argument("--eps_list", type=float, nargs="+", default=list(DEFAULT_EPS_LIST))
     parser.add_argument("--alpha", type=float, default=DEFAULT_ALPHA)
     parser.add_argument("--steps", type=int, default=20)

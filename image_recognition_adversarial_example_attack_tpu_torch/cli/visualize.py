@@ -8,13 +8,20 @@ Runs fgsm, pgd and cw on one image, then the PGD trajectory, and writes
 ``attack_comparison.png``, ``attack_trajectory.png``,
 ``perturbation_analysis.png``, the printed metric block and
 ``attack_report.json``.  As in the JAX CLI, the reference's ``pred_adj``
-typo (a KeyError while writing the report) is fixed.  The randomness (pgd's
-random start, then the trajectory's) is drawn in that order from one
-generator seeded with ``--seed``.
+typo (a KeyError while writing the report) is fixed.
 
-``--gradcam`` and ``--landscape`` are accepted and refused before any device
-work: Grad-CAM (``eval/explain.py``) and the loss landscape
-(``eval/landscape.py``) are not ported yet.
+``--landscape`` adds ``loss_landscape.png``: per attack, the cross-entropy
+on the plane through the image spanned by the attack's direction and a
+random orthogonal one (``eval/landscape.py``), ``--landscape_grid`` squared
+points in one batched forward.  ``--gradcam`` adds ``gradcam_attack.png``:
+the Grad-CAM maps of the clean prediction on the clean image and of the
+adversarial prediction on each adversarial image (``eval/explain.py``), and
+the report's ``gradcam_iou`` per attack; a model without the conv tap
+(every family but ResNet) prints ``gradcam skipped: ...`` and goes on.
+
+The randomness is drawn in the JAX CLI's order from one generator seeded
+with ``--seed``: pgd's random start, the trajectory's, then one plane per
+attack.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from ..core.labels import load_imagenet_labels
 from ..core.rng import generator_from_seed
 from ..eval.metrics import attack_metrics, metrics_to_python
 from ..eval.trajectory import pgd_trajectory
-from .common import add_model_args, load_bundle, make_fns, maybe_profile
+from .common import add_model_args, input_dtype_of, load_bundle, make_fns, maybe_profile
 
 ATTACKS = ("fgsm", "pgd", "cw")
 
@@ -50,23 +57,22 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--output_dir", type=str, default="./attack_visualization")
     parser.add_argument("--save_images", action="store_true")
     parser.add_argument("--gradcam", action="store_true",
-                        help="Grad-CAM attention maps (eval/explain.py): not ported "
-                             "to this package yet, refused")
+                        help="also emit gradcam_attack.png: Grad-CAM attention maps "
+                             "of the clean vs adversarial prediction per attack, with "
+                             "the attention-shift IoU (conv models; eval/explain.py)")
     parser.add_argument("--landscape", action="store_true",
-                        help="the loss landscape (eval/landscape.py): not ported to "
-                             "this package yet, refused")
+                        help="also emit loss_landscape.png: the CE surface on the "
+                             "plane spanned by each attack's direction and a random "
+                             "orthogonal direction (eval/landscape.py)")
     parser.add_argument("--landscape_grid", type=int, default=21,
-                        help="landscape resolution (with --landscape)")
+                        help="landscape resolution (one [grid^2] batched forward per "
+                             "attack)")
     add_model_args(parser)
     return parser
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, module in (("gradcam", "eval/explain.py"), ("landscape", "eval/landscape.py")):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag} is not ported to this package yet ({module} comes "
-                             "with the next visualization slice); run without it")
 
     image_path = Path(args.image)
     if not image_path.exists():
@@ -133,6 +139,53 @@ def main(argv=None) -> int:
     plot_perturbation_analysis(x_np, grid_results, output_dir / "perturbation_analysis.png")
     print(f"  saved: {output_dir / 'perturbation_analysis.png'}")
 
+    if args.landscape:
+        from ..eval.landscape import adversarial_plane, loss_landscape
+        from ..viz.plots import plot_loss_landscape
+
+        span = 1.5
+        landscapes = {}
+        for attack_name, r in results.items():
+            x_adv = torch.from_numpy(r["x_adv"][0]).to(device)
+            plane = adversarial_plane(x[0], x_adv, generator)
+            landscapes[attack_name] = loss_landscape(
+                logits_fn, x[0], clean_id, plane, span=span,
+                grid=int(args.landscape_grid)).cpu().numpy()
+        plot_loss_landscape(landscapes, span, output_dir / "loss_landscape.png")
+        print(f"  saved: {output_dir / 'loss_landscape.png'}")
+
+    cam_report: dict[str, float] = {}
+    if args.gradcam:
+        from ..eval.explain import cam_shift_iou, make_gradcam_fn, upsample_cam
+
+        try:
+            gradcam_fn = make_gradcam_fn(bundle.model, bundle.mean, bundle.std,
+                                         input_dtype=input_dtype_of(bundle))
+        except ValueError as exc:
+            print(f"  gradcam skipped: {exc}")
+        else:
+            height, width = x.shape[1], x.shape[2]
+            cam_clean = upsample_cam(gradcam_fn(x, y), height, width)
+            cam_results = {}
+            for attack_name, r in results.items():
+                x_adv = torch.from_numpy(r["x_adv"]).to(device)
+                y_adv = torch.tensor([r["pred_adv"][0]], dtype=torch.int64, device=device)
+                cam_adv = upsample_cam(gradcam_fn(x_adv, y_adv), height, width)
+                iou = float(cam_shift_iou(cam_clean, cam_adv)[0])
+                cam_report[attack_name] = iou
+                cam_results[attack_name] = {
+                    "x_adv": r["x_adv"][0],
+                    "cam_clean": cam_clean[0].cpu().numpy(),
+                    "cam_adv": cam_adv[0].cpu().numpy(),
+                    "pred_clean": r["pred_clean"],
+                    "pred_adv": r["pred_adv"],
+                    "cam_iou": iou,
+                }
+            from ..viz.plots import plot_gradcam_panel
+
+            plot_gradcam_panel(x_np, cam_results, output_dir / "gradcam_attack.png")
+            print(f"  saved: {output_dir / 'gradcam_attack.png'}")
+
     # the metric block (the reference's print layout)
     print("\nQuantitative metrics:")
     print("-" * 80)
@@ -183,6 +236,7 @@ def main(argv=None) -> int:
                 "confidence": float(r["pred_adv"][2]),
                 "success": bool(clean_id != r["pred_adv"][0]),
                 "metrics": metrics_cache[name],
+                **({"gradcam_iou": cam_report[name]} if name in cam_report else {}),
             }
             for name, r in results.items()
         },

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.int8 import conv2d_class, linear_class
+
 
 class FrozenBatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d that always normalizes with its running statistics (the
@@ -34,8 +36,8 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
                             self.weight, self.bias, False, 0.0, self.eps)
 
 
-def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+def _conv(cin: int, cout: int, k: int, stride: int = 1, int8: bool = False) -> nn.Conv2d:
+    return conv2d_class(int8)(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
 class Bottleneck(nn.Module):
@@ -44,17 +46,17 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, features: int, stride: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, int8: bool = False):
         super().__init__()
         cout = features * self.expansion
-        self.conv1 = _conv(cin, features, 1)
+        self.conv1 = _conv(cin, features, 1, int8=int8)
         self.bn1 = FrozenBatchNorm2d(features)
-        self.conv2 = _conv(features, features, 3, stride)
+        self.conv2 = _conv(features, features, 3, stride, int8)
         self.bn2 = FrozenBatchNorm2d(features)
-        self.conv3 = _conv(features, cout, 1)
+        self.conv3 = _conv(features, cout, 1, int8=int8)
         self.bn3 = FrozenBatchNorm2d(cout)
         self.relu = nn.ReLU()
-        self.downsample = (nn.Sequential(_conv(cin, cout, 1, stride),
+        self.downsample = (nn.Sequential(_conv(cin, cout, 1, stride, int8),
                                          FrozenBatchNorm2d(cout))
                            if downsample else None)
 
@@ -67,13 +69,16 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """ResNet-v1.5 with Bottleneck blocks. Takes a normalized NCHW batch."""
+    """ResNet-v1.5 with Bottleneck blocks. Takes a normalized NCHW batch.
+
+    ``int8=True``: every conv and the classifier run in int8
+    (``ops/int8.py``), with the same parameters."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
-                 num_classes: int = 1000, width: int = 64):
+                 num_classes: int = 1000, width: int = 64, int8: bool = False):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
-        self.conv1 = _conv(3, width, 7, 2)
+        self.conv1 = _conv(3, width, 7, 2, int8)
         self.bn1 = FrozenBatchNorm2d(width)
         self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
@@ -84,10 +89,10 @@ class ResNet(nn.Module):
             for i in range(n_blocks):
                 stride = 2 if (stage > 0 and i == 0) else 1
                 # block 0 of every stage projects, stage 0 included
-                blocks.append(Bottleneck(cin, feats, stride, downsample=(i == 0)))
+                blocks.append(Bottleneck(cin, feats, stride, downsample=(i == 0), int8=int8))
                 cin = feats * Bottleneck.expansion
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
-        self.fc = nn.Linear(cin, num_classes)
+        self.fc = linear_class(int8)(cin, num_classes)
 
     def _stages(self):
         return [getattr(self, f"layer{s + 1}") for s in range(len(self.stage_sizes))]
@@ -115,15 +120,17 @@ class ResNet(nn.Module):
         return self._features(x, len(self.stage_sizes))
 
     def head_from_features(self, feats: torch.Tensor) -> torch.Tensor:
-        """[B,C,h,w] last-conv map -> [B,num_classes] logits (GAP + fc)."""
-        return self.fc(feats.mean(dim=(2, 3)))
+        """[B,C,h,w] last-conv map -> [B,num_classes] logits (GAP + fc), in
+        the model's compute dtype whatever the map's (Grad-CAM hands it the
+        float32 map, as the JAX head casts it)."""
+        return self.fc(feats.to(self.fc.weight.dtype).mean(dim=(2, 3)))
 
 
-def resnet50(num_classes: int = 1000) -> ResNet:
-    return ResNet(stage_sizes=(3, 4, 6, 3), num_classes=num_classes, width=64)
+def resnet50(num_classes: int = 1000, int8: bool = False) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), num_classes=num_classes, width=64, int8=int8)
 
 
-def resnet_tiny(num_classes: int = 10) -> ResNet:
+def resnet_tiny(num_classes: int = 10, int8: bool = False) -> ResNet:
     """The JAX package's miniature ResNet: the same Bottleneck topology at
     1/8 width and one block per stage; works on inputs as small as 32x32."""
-    return ResNet(stage_sizes=(1, 1, 1, 1), num_classes=num_classes, width=8)
+    return ResNet(stage_sizes=(1, 1, 1, 1), num_classes=num_classes, width=8, int8=int8)

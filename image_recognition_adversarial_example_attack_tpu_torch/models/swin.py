@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.int8 import conv2d_class, linear_class
 from .vit import LayerNorm, attention, merge_heads, split_heads
 
 
@@ -59,11 +60,15 @@ def shift_attn_mask(h: int, w: int, window: int, shift: int) -> np.ndarray:
 
 
 class WindowAttention(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window: int, shift: int):
+    """Shifted-window attention.  ``int8=True`` quantizes qkv and proj, whose
+    input is ``[B * nW, ws*ws, C]``: one activation scale per window, as in
+    the JAX model; the attention products stay float."""
+
+    def __init__(self, dim: int, num_heads: int, window: int, shift: int, int8: bool = False):
         super().__init__()
         self.num_heads, self.window, self.shift = num_heads, window, shift
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = linear_class(int8)(dim, 3 * dim)
+        self.proj = linear_class(int8)(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window - 1) ** 2, num_heads))
         self.register_buffer("relative_position_index",
@@ -106,14 +111,17 @@ class WindowAttention(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window: int, shift: int, mlp_ratio: int = 4):
+    def __init__(self, dim: int, num_heads: int, window: int, shift: int, mlp_ratio: int = 4,
+                 int8: bool = False):
         super().__init__()
+        dense = linear_class(int8)
         self.norm1 = LayerNorm(dim, eps=1e-5)
-        self.attn = WindowAttention(dim, num_heads, window, shift)
+        self.attn = WindowAttention(dim, num_heads, window, shift, int8)
         self.norm2 = LayerNorm(dim, eps=1e-5)
-        # torchvision's MLP: Linear, GELU, Dropout, Linear, Dropout
-        self.mlp = nn.Sequential(nn.Linear(dim, dim * mlp_ratio), nn.GELU(), nn.Identity(),
-                                 nn.Linear(dim * mlp_ratio, dim), nn.Identity())
+        # torchvision's MLP: Linear, GELU, Dropout, Linear, Dropout; on the
+        # [B, H, W, C] map, so one activation scale per example
+        self.mlp = nn.Sequential(dense(dim, dim * mlp_ratio), nn.GELU(), nn.Identity(),
+                                 dense(dim * mlp_ratio, dim), nn.Identity())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.norm1(x))
@@ -123,9 +131,9 @@ class SwinBlock(nn.Module):
 class PatchMerging(nn.Module):
     """2x2 neighbourhood concatenated (4C) -> LayerNorm -> Linear to 2C."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, int8: bool = False):
         super().__init__()
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = linear_class(int8)(4 * dim, 2 * dim, bias=False)
         self.norm = LayerNorm(4 * dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -137,31 +145,34 @@ class PatchMerging(nn.Module):
 class PatchEmbed(nn.Sequential):
     """``features.0``: the patch conv (0), NCHW -> NHWC (1), LayerNorm (2)."""
 
-    def __init__(self, patch_size: int, dim: int):
-        super().__init__(nn.Conv2d(3, dim, patch_size, stride=patch_size), nn.Identity(),
-                         LayerNorm(dim, eps=1e-5))
+    def __init__(self, patch_size: int, dim: int, int8: bool = False):
+        super().__init__(conv2d_class(int8)(3, dim, patch_size, stride=patch_size),
+                         nn.Identity(), LayerNorm(dim, eps=1e-5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self[2](self[0](x).permute(0, 2, 3, 1))
 
 
 class SwinTransformer(nn.Module):
+    """``int8=True``: the patch conv, qkv, proj, the MLPs, the patch
+    mergings' reduction and the head run in int8 (``ops/int8.py``)."""
+
     def __init__(self, patch_size: int = 4, embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2), num_heads: Sequence[int] = (3, 6, 12, 24),
-                 window: int = 7, num_classes: int = 1000):
+                 window: int = 7, num_classes: int = 1000, int8: bool = False):
         super().__init__()
-        layers: list[nn.Module] = [PatchEmbed(patch_size, embed_dim)]
+        layers: list[nn.Module] = [PatchEmbed(patch_size, embed_dim, int8)]
         dim = embed_dim
         for s, (depth, heads) in enumerate(zip(depths, num_heads)):
             if s > 0:
-                layers.append(PatchMerging(dim))
+                layers.append(PatchMerging(dim, int8))
                 dim *= 2
             layers.append(nn.Sequential(*[
-                SwinBlock(dim, heads, window, 0 if blk % 2 == 0 else window // 2)
+                SwinBlock(dim, heads, window, 0 if blk % 2 == 0 else window // 2, int8=int8)
                 for blk in range(depth)]))
         self.features = nn.Sequential(*layers)
         self.norm = LayerNorm(dim, eps=1e-5)
-        self.head = nn.Linear(dim, num_classes)
+        self.head = linear_class(int8)(dim, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B,3,H,W] normalized input -> [B,num_classes] logits."""
@@ -169,11 +180,11 @@ class SwinTransformer(nn.Module):
         return self.head(x.mean(dim=(1, 2)))
 
 
-def swin_t(num_classes: int = 1000) -> SwinTransformer:
-    return SwinTransformer(num_classes=num_classes)
+def swin_t(num_classes: int = 1000, int8: bool = False) -> SwinTransformer:
+    return SwinTransformer(num_classes=num_classes, int8=int8)
 
 
-def swin_tiny_test(num_classes: int = 10) -> SwinTransformer:
+def swin_tiny_test(num_classes: int = 10, int8: bool = False) -> SwinTransformer:
     """The JAX package's miniature Swin (same code path): 32x32, window 4."""
     return SwinTransformer(patch_size=2, embed_dim=16, depths=(2, 2), num_heads=(2, 4),
-                           window=4, num_classes=num_classes)
+                           window=4, num_classes=num_classes, int8=int8)

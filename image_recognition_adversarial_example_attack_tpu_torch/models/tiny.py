@@ -12,16 +12,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.int8 import conv2d_class, linear_class
+
 
 class TinyCNN(nn.Module):
     """conv3x3-relu-avgpool2 -> conv3x3-relu -> global mean -> dense, on a
-    normalized NCHW batch of any small size."""
+    normalized NCHW batch of any small size; ``int8=True`` quantizes both
+    convs and the dense layer (``ops/int8.py``)."""
 
-    def __init__(self, num_classes: int = 8, features: int = 8):
+    def __init__(self, num_classes: int = 8, features: int = 8, int8: bool = False):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(3, features, 3, padding=1)
-        self.Conv_1 = nn.Conv2d(features, features * 2, 3, padding=1)
-        self.Dense_0 = nn.Linear(features * 2, num_classes)
+        conv, dense = conv2d_class(int8), linear_class(int8)
+        self.Conv_0 = conv(3, features, 3, padding=1)
+        self.Conv_1 = conv(features, features * 2, 3, padding=1)
+        self.Dense_0 = dense(features * 2, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.avg_pool2d(F.relu(self.Conv_0(x)), 2, 2)

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.int8 import conv2d_class, linear, linear_class
+
 
 class LayerNorm(nn.LayerNorm):
     """LayerNorm over the last axis that normalizes in its parameters' dtype
@@ -61,30 +63,32 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention with one packed qkv projection, named as
-    ``nn.MultiheadAttention``'s parameters."""
+    ``nn.MultiheadAttention``'s parameters.  ``int8=True`` quantizes the qkv
+    and output projections; the attention products stay float."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, int8: bool = False):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.int8 = num_heads, int8
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
-        self.out_proj = nn.Linear(dim, dim)
+        self.out_proj = linear_class(int8)(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, k, v = split_heads(F.linear(x, self.in_proj_weight, self.in_proj_bias),
+        q, k, v = split_heads(linear(x, self.in_proj_weight, self.in_proj_bias, self.int8),
                               self.num_heads)
         return self.out_proj(merge_heads(attention(q, k, v)))
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, mlp_dim: int):
+    def __init__(self, dim: int, num_heads: int, mlp_dim: int, int8: bool = False):
         super().__init__()
+        dense = linear_class(int8)
         self.ln_1 = LayerNorm(dim, eps=1e-6)
-        self.self_attention = SelfAttention(dim, num_heads)
+        self.self_attention = SelfAttention(dim, num_heads, int8)
         self.ln_2 = LayerNorm(dim, eps=1e-6)
         # torchvision's MLPBlock: Linear, GELU, Dropout, Linear, Dropout
-        self.mlp = nn.Sequential(nn.Linear(dim, mlp_dim), nn.GELU(), nn.Identity(),
-                                 nn.Linear(mlp_dim, dim), nn.Identity())
+        self.mlp = nn.Sequential(dense(dim, mlp_dim), nn.GELU(), nn.Identity(),
+                                 dense(mlp_dim, dim), nn.Identity())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attention(self.ln_1(x))
@@ -92,12 +96,14 @@ class EncoderBlock(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, n_tokens: int, dim: int, depth: int, num_heads: int, mlp_dim: int):
+    def __init__(self, n_tokens: int, dim: int, depth: int, num_heads: int, mlp_dim: int,
+                 int8: bool = False):
         super().__init__()
         self.pos_embedding = nn.Parameter(torch.zeros(1, n_tokens, dim))
         self.layers = nn.Sequential()
         for i in range(depth):
-            self.layers.add_module(f"encoder_layer_{i}", EncoderBlock(dim, num_heads, mlp_dim))
+            self.layers.add_module(f"encoder_layer_{i}",
+                                   EncoderBlock(dim, num_heads, mlp_dim, int8))
         self.ln = LayerNorm(dim, eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -106,18 +112,20 @@ class Encoder(nn.Module):
 
 class ViT(nn.Module):
     """torchvision's ViT: conv patchify, class token, learned position
-    embedding, pre-norm encoder, the class token's head."""
+    embedding, pre-norm encoder, the class token's head.  ``int8=True``
+    quantizes the patch conv, every token Linear (per example over
+    [T, D]) and the head (``ops/int8.py``)."""
 
     def __init__(self, patch_size: int = 16, dim: int = 768, depth: int = 12,
                  num_heads: int = 12, mlp_dim: int = 3072, num_classes: int = 1000,
-                 image_size: int = 224):
+                 image_size: int = 224, int8: bool = False):
         super().__init__()
-        self.conv_proj = nn.Conv2d(3, dim, patch_size, stride=patch_size)
+        self.conv_proj = conv2d_class(int8)(3, dim, patch_size, stride=patch_size)
         self.class_token = nn.Parameter(torch.zeros(1, 1, dim))
         n_tokens = (image_size // patch_size) ** 2 + 1
-        self.encoder = Encoder(n_tokens, dim, depth, num_heads, mlp_dim)
+        self.encoder = Encoder(n_tokens, dim, depth, num_heads, mlp_dim, int8)
         self.heads = nn.Sequential()
-        self.heads.add_module("head", nn.Linear(dim, num_classes))
+        self.heads.add_module("head", linear_class(int8)(dim, num_classes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B,3,H,W] normalized input -> [B,num_classes] logits."""
@@ -127,11 +135,11 @@ class ViT(nn.Module):
         return self.heads(x[:, 0])
 
 
-def vit_b_16(num_classes: int = 1000) -> ViT:
-    return ViT(num_classes=num_classes)
+def vit_b_16(num_classes: int = 1000, int8: bool = False) -> ViT:
+    return ViT(num_classes=num_classes, int8=int8)
 
 
-def vit_tiny(num_classes: int = 10) -> ViT:
+def vit_tiny(num_classes: int = 10, int8: bool = False) -> ViT:
     """The JAX package's miniature ViT (same code path): 32x32 / 8, depth 2."""
     return ViT(patch_size=8, dim=32, depth=2, num_heads=2, mlp_dim=64,
-               num_classes=num_classes, image_size=32)
+               num_classes=num_classes, image_size=32, int8=int8)

@@ -31,10 +31,16 @@ normalize in float32, as Flax's do.
 
 Every parameter has ``requires_grad`` off, so ``torch.autograd.grad`` with
 respect to the input builds only the input-gradient chain.
+
+``int8=True`` builds the model in quantized-inference mode (``ops/int8.py``:
+the JAX families' hooked convs and Dense layers as ``QuantConv2d`` /
+``QuantLinear``): the same parameter tree, so every weight-resolution path
+above works unchanged, and the random init draws the same weights.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
 import os
 import warnings
@@ -72,15 +78,15 @@ class ModelBundle:
     input_size: int = IMAGE_SIZE
 
 
-# name -> (weight-layout family for models.convert, constructor)
-_REGISTRY: dict[str, tuple[str, Callable[[], nn.Module]]] = {
+# name -> (weight-layout family for models.convert, constructor taking int8=)
+_REGISTRY: dict[str, tuple[str, Callable[..., nn.Module]]] = {
     "resnet50": ("resnet", resnet50),
     # the adversarially trained arm (--model_type robust): resnet50's
     # architecture with its own weights file; the caller sets the identity
     # normalization
     "resnet50_robust": ("resnet", resnet50),
     "resnet_tiny": ("resnet", resnet_tiny),
-    "tiny": ("tiny", lambda: TinyCNN(num_classes=1000)),
+    "tiny": ("tiny", lambda int8=False: TinyCNN(num_classes=1000, int8=int8)),
     # the transfer study's families
     "vgg19": ("vgg", vgg19),
     "densenet121": ("densenet", densenet121),
@@ -105,9 +111,16 @@ def model_family(name: str) -> str:
     return _REGISTRY[name][0]
 
 
-def build_model(name: str) -> nn.Module:
-    """A registered model's module, its weights uninitialized."""
-    return _REGISTRY[name][1]()
+def build_model(name: str, int8: bool = False) -> nn.Module:
+    """A registered model's module, its weights uninitialized; ``int8=True``
+    in quantized-inference mode, which a constructor without an ``int8``
+    parameter refuses with ValueError."""
+    ctor = _REGISTRY[name][1]
+    if not int8:
+        return ctor()
+    if "int8" not in inspect.signature(ctor).parameters:
+        raise ValueError(f"model '{name}' does not support int8 inference yet")
+    return ctor(int8=True)
 
 
 def weights_dir() -> Path:
@@ -158,8 +171,10 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 def load_model(name: str, dtype: torch.dtype = torch.float32,
                weights: str | Path | None = None,
-               device: torch.device | str | None = "cuda") -> ModelBundle:
-    """Resolve a model by name; see the module docstring for the order.
+               device: torch.device | str | None = "cuda",
+               int8: bool = False) -> ModelBundle:
+    """Resolve a model by name; see the module docstring for the order
+    (and for ``int8``).
 
     float32 means float32 on the card too: TF32 is turned off for cuDNN
     convolutions and cuBLAS matmuls, which PyTorch otherwise allows for
@@ -171,7 +186,7 @@ def load_model(name: str, dtype: torch.dtype = torch.float32,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     meta = model_meta(name)
-    model = build_model(name)
+    model = build_model(name, int8=int8)
 
     candidates: list[Path] = []
     if weights is not None:

@@ -1,7 +1,8 @@
 """The figures of the defense grid, the visualize CLI and the transfer CLIs
 (port of ``plot_defense_heatmaps``, ``plot_attack_samples``,
 ``plot_attack_grid``, ``plot_attack_trajectory``,
-``plot_perturbation_analysis``, ``plot_transfer_heatmap`` and
+``plot_perturbation_analysis``, ``plot_gradcam_panel``,
+``plot_loss_landscape``, ``plot_transfer_heatmap`` and
 ``plot_blackbox_pair`` of ``viz/plots.py``), drawn with PIL alone.
 
 The contract with the JAX package is the file names and the plotted values,
@@ -21,7 +22,12 @@ not the styling:
   line, and the L2 growth) and ``perturbation_analysis.png`` (per attack:
   the 50-bin histogram of the perturbation on [-0.1, 0.1] and the log1p of
   the shifted spectrum of its channel mean, ``perturbation_histogram`` and
-  ``perturbation_spectrum``);
+  ``perturbation_spectrum``); with ``--gradcam`` ``gradcam_attack.png`` (per
+  attack: the clean image, the clean and adversarial CAMs over their images
+  at opacity 0.55 and the |CAM shift|, magma ramp, the IoU in the banner),
+  with ``--landscape`` ``loss_landscape.png`` (per attack: the loss over the
+  adversarial plane in 24 bands of the magma ramp, the clean and the
+  adversarial point marked);
 - the transferability CLI's ``transfer_heatmap_<attack>.png`` (eps rows x
   target columns of the transfer success rate, orange ramp, annotated to 3
   decimals) and the blackbox CLI's ``<image>_<attack>.png`` (clean and
@@ -482,6 +488,120 @@ def plot_perturbation_analysis(x_clean: np.ndarray, results: Mapping[str, Mappin
         _text(draw, (cx + 495, sy), f"{float(spec.max()):.2f}", f_tick, align="left")
         _text(draw, (cx + 495, sy + side), f"{float(spec.min()):.2f}", f_tick, align="left")
         _text(draw, (cx + 50 + side / 2, sy - 25), f"{attack_name.upper()} frequency", f_head)
+    img.save(save_path)
+
+
+CAM_ALPHA = 0.55  # the CAM's opacity over the image (the JAX panel's)
+
+
+def cam_overlay(img: np.ndarray | None, cam: np.ndarray) -> np.ndarray:
+    """uint8 RGB [H,W,3]: ``cam`` ([0,1], [H,W]) on the magma ramp, blended
+    over ``img`` ([0,1] HWC) at ``CAM_ALPHA``, or alone where there is no
+    image."""
+    heat = ramp(cam, "magma").astype(np.float64)
+    if img is None:
+        return heat.astype(np.uint8)
+    base = np.clip(np.asarray(img, np.float64), 0.0, 1.0) * 255.0
+    return np.round(base * (1 - CAM_ALPHA) + heat * CAM_ALPHA).astype(np.uint8)
+
+
+def plot_gradcam_panel(x_clean: np.ndarray, results: Mapping[str, Mapping], save_path) -> None:
+    """The Grad-CAM attention-shift panel: one row per attack, the clean
+    image, the clean prediction's CAM over it, the adversarial prediction's
+    CAM over the adversarial image and the |CAM shift| map, under a banner
+    with the attack's name and the attention IoU.
+
+    ``results[attack]`` needs ``x_adv`` [H,W,3], ``cam_clean`` / ``cam_adv``
+    [H,W] (upsampled, in [0,1]), ``pred_clean`` / ``pred_adv`` (id, name,
+    prob) and ``cam_iou``."""
+    save_path = Path(save_path)
+    save_path.parent.mkdir(parents=True, exist_ok=True)
+    tile, gap, banner, head = 300, 30, 60, 40
+    w = 4 * tile + 5 * gap
+    row_h = banner + head + tile + gap
+    img = Image.new("RGB", (w, row_h * max(1, len(results))), _WHITE)
+    draw = ImageDraw.Draw(img)
+    f_banner, f_head = _font(28), _font(20)
+    for idx, (attack_name, r) in enumerate(results.items()):
+        cam_clean, cam_adv = np.asarray(r["cam_clean"]), np.asarray(r["cam_adv"])
+        panels = (
+            (_to_uint8(np.asarray(x_clean)), "Clean input"),
+            (cam_overlay(x_clean, cam_clean), f"CAM: {r['pred_clean'][1]}"),
+            (cam_overlay(r["x_adv"], cam_adv), f"Adv CAM: {r['pred_adv'][1]}"),
+            (cam_overlay(None, np.abs(cam_adv - cam_clean)), "|CAM shift|"),
+        )
+        y = idx * row_h
+        _text(draw, (w / 2, y + banner / 2),
+              f"{attack_name.upper()}: attention IoU {float(r['cam_iou']):.3f}", f_banner)
+        for k, (pixels, title) in enumerate(panels):
+            x0 = gap + k * (tile + gap)
+            _text(draw, (x0 + tile / 2, y + banner + head / 2), title, f_head)
+            img.paste(Image.fromarray(pixels).resize((tile, tile), Image.Resampling.NEAREST),
+                      (x0, y + banner + head))
+    img.save(save_path)
+
+
+LANDSCAPE_LEVELS = 24  # filled-contour bands (the JAX figure's contourf levels)
+
+
+def landscape_bands(grid: np.ndarray) -> np.ndarray:
+    """[G,G] losses -> [G,G] in [0,1]: each loss's band among
+    ``LANDSCAPE_LEVELS`` equal bands over the grid's own range (a constant
+    grid is all band 0)."""
+    grid = np.asarray(grid, np.float64)
+    lo, span = float(grid.min()), float(grid.max() - grid.min())
+    if span <= 0:
+        return np.zeros_like(grid)
+    band = np.minimum(np.floor((grid - lo) / span * LANDSCAPE_LEVELS), LANDSCAPE_LEVELS - 1)
+    return band / (LANDSCAPE_LEVELS - 1)
+
+
+def plot_loss_landscape(landscapes: Mapping[str, np.ndarray], span: float, save_path) -> None:
+    """One panel per attack of the loss over the adversarial plane
+    (``eval/landscape.py``): x is the attack direction in units of the
+    attack's own L2 length (the adversarial example at x = 1), y a random
+    orthogonal direction; banded on the magma ramp over each panel's range,
+    the clean input (center, circle) and the adversarial endpoint (cross)
+    marked, the range on a color bar."""
+    save_path = Path(save_path)
+    save_path.parent.mkdir(parents=True, exist_ok=True)
+    n = max(1, len(landscapes))
+    col, side, top = 620, 420, 80
+    w, h = col * n, top + side + 120
+    img = Image.new("RGB", (w, h), _WHITE)
+    draw = ImageDraw.Draw(img)
+    f_title, f_label, f_tick = _font(26), _font(18), _font(16)
+    for idx, (attack_name, grid) in enumerate(landscapes.items()):
+        grid = np.asarray(grid, np.float64)
+        x0, y0 = idx * col + 90, top
+        # each grid point is a cell's center: the image spans half a cell
+        # beyond +-span on every side
+        half = span / max(1, grid.shape[0] - 1)
+        extent = span + half
+        # rows: b from +span (top) down to -span; columns: a from -span to +span
+        heat = ramp(landscape_bands(grid).T[::-1], "magma")
+        img.paste(Image.fromarray(np.ascontiguousarray(heat)).resize(
+            (side, side), Image.Resampling.NEAREST), (x0, y0))
+        draw.rectangle((x0, y0, x0 + side, y0 + side), outline=_INK, width=2)
+
+        def px(a: float, b: float) -> tuple[float, float]:
+            return (x0 + (a + extent) / (2 * extent) * side,
+                    y0 + (extent - b) / (2 * extent) * side)
+
+        for (a, b), kind, color in (((0.0, 0.0), "o", _WHITE), ((1.0, 0.0), "x", _WHITE)):
+            _marker(draw, *px(a, b), kind, color, r=8)
+        for v in (-span, 0.0, span):
+            _text(draw, (px(v, 0)[0], y0 + side + 15), f"{v:g}", f_tick)
+            _text(draw, (x0 - 8, px(0, v)[1]), f"{v:g}", f_tick, align="right")
+        _text(draw, (x0 + side / 2, y0 + side + 45), "attack direction (units of ||delta||)", f_label)
+        _text(draw, (x0 + side / 2, top / 2), f"{attack_name.upper()} loss surface", f_title)
+        _vertical_text(img, (x0 - 60, y0 + side / 2), "random orthogonal direction", f_label)
+        bar = ramp(np.linspace(1.0, 0.0, side), "magma")[:, None, :]
+        img.paste(Image.fromarray(np.repeat(bar, 18, axis=1)), (x0 + side + 15, y0))
+        _text(draw, (x0 + side + 38, y0), f"{float(grid.max()):.3g}", f_tick, align="left")
+        _text(draw, (x0 + side + 38, y0 + side), f"{float(grid.min()):.3g}", f_tick,
+              align="left")
+        _text(draw, (x0 + side / 2, y0 + side + 80), "cross-entropy (color bar)", f_tick)
     img.save(save_path)
 
 

@@ -103,8 +103,8 @@ def test_pgd_random_start_is_seeded_and_in_the_ball(setup):
 
 
 def test_unported_attacks_raise():
-    assert ATTACK_NAMES == ("fgsm", "pgd", "cw")
-    for name in ("deepfool", "square", "mifgsm"):
+    assert ATTACK_NAMES == ("fgsm", "pgd", "cw", "mifgsm", "dim", "tim")
+    for name in ("deepfool", "square", "apgd"):
         assert name in jax_api.ATTACK_NAMES
         with pytest.raises(ValueError, match="not ported yet"):
             run_attack(name, lambda x: x, torch.zeros(1, 2, 2, 3),

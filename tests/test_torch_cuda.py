@@ -440,3 +440,79 @@ def test_native_loader_inside_a_streamed_chunk(cuda, tmp_path, monkeypatch):
     place = make_placer(cuda)
     got = [place(x)[:n].cpu().numpy() for _, x, _, n in EvalBatchPipeline(paths, 2)]
     assert np.array_equal(np.concatenate(got), want)
+
+
+# ---------------------------------------------------------------------------
+# int8 inference (ops/int8.py): torch._int_mm on the card against the plain
+# int64 route, bit for bit; the transfer family's launches
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 1000), (128, 2048, 1000), (5, 147, 64),
+                                   (4096, 147, 64), (33, 576, 64), (7, 10, 3)])
+def test_int_mm_route_on_the_card_equals_the_plain_route(cuda, m, k, n):
+    from image_recognition_adversarial_example_attack_tpu_torch.ops import int8
+
+    g = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    got = int8.int_matmul(a.to(cuda), w.to(cuda))
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), int8.int_matmul_plain(a, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("conv", [((2, 3, 32, 32), (8, 3, 7, 7), 2, 3),
+                                  ((2, 16, 14, 14), (16, 16, 3, 3), 1, 1),
+                                  ((2, 16, 14, 14), (32, 16, 1, 1), 2, 0)])
+def test_int8_conv_on_the_card_equals_the_cpu(cuda, dtype, conv):
+    """The same quantization and integer sums on both devices: bit-equal
+    outputs; the gradient is the float convolution's."""
+    from image_recognition_adversarial_example_attack_tpu_torch.ops import int8
+
+    xs, ws, stride, pad = conv
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(xs, generator=g).to(dtype)
+    w = (torch.randn(ws, generator=g) * 0.2).to(dtype)
+    want = int8.int8_conv2d(x, w, stride, pad)
+    xc = x.to(cuda).contiguous(memory_format=torch.channels_last).requires_grad_(True)
+    got = int8.int8_conv2d(xc, w.to(cuda), stride, pad)
+    assert torch.equal(got.cpu(), want)
+    gout = torch.randn(got.shape, generator=g).to(dtype).to(cuda)
+    (gx,) = torch.autograd.grad(got, xc, gout)
+    xf = x.to(cuda).requires_grad_(True)
+    (fx,) = torch.autograd.grad(torch.nn.functional.conv2d(xf, w.to(cuda), stride=stride,
+                                                           padding=pad), xf, gout)
+    torch.testing.assert_close(gx, fx)
+
+
+def test_int8_resnet_on_the_card_calls_every_hooked_layer(cuda):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import make_logits_fn
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.ops import int8
+
+    b = load_model("resnet_tiny", device=cuda, int8=True)
+    lf = make_logits_fn(b.model, b.mean, b.std)
+    int8.reset_calls()
+    with torch.no_grad():
+        out = lf(torch.rand((4, 32, 32, 3), device=cuda))
+    assert int8.call_counts() == {"conv": 17, "linear": 1}
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("name", ["mifgsm", "dim", "tim"])
+def test_transfer_attacks_launch_one_pgd_step_per_step(cuda, name):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        AttackParams, make_logits_fn, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    b = load_model("resnet_tiny", device=cuda)
+    lf = make_logits_fn(b.model, b.mean, b.std)
+    x = torch.rand((4, 32, 32, 3), device=cuda)
+    y = lf(x).argmax(-1)
+    ew.reset_launches()
+    x_adv = run_attack(name, lf, x, y, AttackParams(steps=3), generator_from_seed(0))
+    torch.cuda.synchronize()
+    assert ew.launch_counts() == {"pgd_step": 3, "quantize": 0, "uniform_noise": 0}
+    assert float((x_adv - x).abs().max()) <= EPS + 1e-6
+    assert float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0

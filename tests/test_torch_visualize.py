@@ -1,6 +1,6 @@
 """The port's trajectories (eval/trajectory.py), the visualize CLI's figures
-(viz/plots.py) and the CLI itself (cli/visualize.py) against the JAX
-package on the CPU.
+(viz/plots.py) and the CLI itself (cli/visualize.py, with ``--gradcam`` and
+``--landscape``) against the JAX package on the CPU.
 
 The trajectories run resnet_tiny on bridged float64 weights with float64
 logits on both sides, so no sign() of the gradient can flip: probabilities
@@ -153,12 +153,21 @@ def test_visualize_cli_writes_the_jax_report(cli_inputs, capsys):
 
 @pytest.mark.parametrize("flag", ["--gradcam", "--landscape"])
 def test_unported_flags_exit_before_device_work(flag, cli_inputs, monkeypatch):
+    """The two flags were refused before any device work until Grad-CAM and
+    the landscape were ported; now each is accepted and the run goes on to
+    the device."""
     cli = "image_recognition_adversarial_example_attack_tpu_torch.cli.visualize"
-    for name in ("resolve_device", "load_bundle"):
-        monkeypatch.setattr(f"{cli}.{name}", lambda *a: pytest.fail("touched the device"))
+
+    class ReachedTheDevice(Exception):
+        pass
+
+    def reached(*a):
+        raise ReachedTheDevice
+
+    monkeypatch.setattr(f"{cli}.resolve_device", reached)
     from image_recognition_adversarial_example_attack_tpu_torch.cli import visualize
 
-    with pytest.raises(SystemExit, match=f"{flag} is not ported"):
+    with pytest.raises(ReachedTheDevice):
         visualize.main([*cli_inputs["args"], flag])
 
 
@@ -169,5 +178,67 @@ def test_parser_keeps_the_jax_flags():
     ours = {a.dest: a.default for a in visualize.build_parser()._actions}
     theirs = {a.dest: a.default for a in jax_cli.build_parser()._actions}
     assert set(ours) - set(theirs) == {"device"}
-    assert set(theirs) - set(ours) == {"int8"}
+    assert set(theirs) - set(ours) == set()
     assert {k for k in ours if k in theirs and ours[k] != theirs[k]} == set()
+
+
+def test_gradcam_and_landscape_write_the_jax_report(cli_inputs, capsys):
+    """``--gradcam --landscape``: the two extra figures, and the report's
+    attacks carry the JAX CLI's one extra key, ``gradcam_iou`` (JAX
+    cli/visualize.py:256-257; the rest of the layout is held to the JAX
+    CLI's by test_visualize_cli_writes_the_jax_report)."""
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import visualize
+
+    extra = ["--gradcam", "--landscape", "--landscape_grid", "3"]
+    ours_dir = cli_inputs["root"] / "ours_gc"
+    assert visualize.main([*cli_inputs["args"], *extra, "--device", "cpu",
+                           "--output_dir", str(ours_dir)]) == 0
+    out = capsys.readouterr().out
+    for name in ("gradcam_attack.png", "loss_landscape.png"):
+        assert f"saved: {ours_dir / name}" in out
+        with Image.open(ours_dir / name) as im:
+            assert im.format == "PNG" and im.width > 1000, name
+    ours = json.loads((ours_dir / "attack_report.json").read_text())
+    assert list(ours["attacks"]) == ["fgsm", "pgd", "cw"]
+    for attack, r in ours["attacks"].items():
+        assert set(r) == {"predicted_class", "predicted_name", "confidence", "success",
+                          "metrics", "gradcam_iou"}, attack
+        assert 0.0 <= r["gradcam_iou"] <= 1.0
+
+
+def test_gradcam_is_skipped_on_a_model_without_the_conv_tap(tmp_path, capsys):
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import visualize
+
+    img = tmp_path / "img.png"
+    Image.fromarray((np.random.RandomState(1).rand(40, 40, 3) * 255).astype(np.uint8)).save(img)
+    assert visualize.main(["--image", str(img), "--model", "tiny", "--device", "cpu",
+                           "--steps", "1", "--cw_steps", "1", "--gradcam",
+                           "--output_dir", str(tmp_path / "out")]) == 0
+    assert "gradcam skipped: TinyCNN exposes no features_last/head_from_features split" \
+        in capsys.readouterr().out
+    report = json.loads((tmp_path / "out" / "attack_report.json").read_text())
+    assert all("gradcam_iou" not in r for r in report["attacks"].values())
+    assert not (tmp_path / "out" / "gradcam_attack.png").exists()
+
+
+def test_landscape_and_gradcam_figures(tmp_path):
+    """The overlay's blend, the landscape's bands, and the two files."""
+    cam = np.linspace(0, 1, 16).reshape(4, 4)
+    img = np.full((4, 4, 3), 0.5)
+    over = plots.cam_overlay(img, cam)
+    want = np.round(127.5 * (1 - plots.CAM_ALPHA)
+                    + plots.ramp(cam, "magma").astype(np.float64) * plots.CAM_ALPHA)
+    np.testing.assert_array_equal(over, want.astype(np.uint8))
+    np.testing.assert_array_equal(plots.cam_overlay(None, cam), plots.ramp(cam, "magma"))
+    grid = np.arange(25, dtype=np.float64).reshape(5, 5)
+    bands = plots.landscape_bands(grid)
+    assert bands.min() == 0.0 and bands.max() == 1.0 and np.all(np.diff(bands.ravel()) >= 0)
+    np.testing.assert_array_equal(plots.landscape_bands(np.ones((3, 3))), 0.0)
+    plots.plot_loss_landscape({"fgsm": grid, "pgd": grid.T}, 1.5, tmp_path / "ll.png")
+    plots.plot_gradcam_panel(img, {"pgd": {"x_adv": img, "cam_clean": cam, "cam_adv": cam.T,
+                                           "pred_clean": (1, "a", 0.5),
+                                           "pred_adv": (2, "b", 0.4), "cam_iou": 0.25}},
+                             tmp_path / "gc.png")
+    for name in ("ll.png", "gc.png"):
+        with Image.open(tmp_path / name) as im:
+            assert im.format == "PNG" and im.width > 500
