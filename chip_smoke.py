@@ -141,6 +141,32 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    mifgsm dim tim`` on phase 8's 128 PNGs: the summary lines and exactly
    the launches of their nine cells (20 pgd_step a transfer cell; 10
    pgd_step and 1 quantize a grid cell).
+18. white-box zoo -- ResNet-50 bf16, random weights, pseudo-labels: (a) at
+   batch 128, apgd, apgd_dlr and apgd_t (10 steps, 9 targets), fab (10
+   steps, 9 targets), pgd_l2 (eps 3), pgd_l1 (eps 12), pgd_multi_restart
+   (5 restarts of PGD-10) and spatial (10 draws; then the 5 x 3 x 3 grid):
+   each output in its threat model's ball, in [0,1] and finite, ex/s, the
+   share of labels flipped, exactly its launches (noise: 1, 1, 9, 9, 0,
+   1, 5 and 0; pgd_step 50 for the restarts, else 0); (b) at batch 32,
+   deepfool (50 steps, 10 classes), ead (100 steps), jsma (100 steps; at
+   most 100 pixels changed) and stadv (200 steps); (c) each attack of (a)
+   and (b) run twice from the same generator, bit-equal; the float32 input
+   gradient at batch 32 three times with cuDNN's default and deterministic
+   algorithms (equal with the latter, the suite CLI's setting); (d) the
+   attack_suite CLI in a subprocess on 32 of phase 8's PNGs with the eleven
+   new names and fgsm, budgets cut to ``--steps 5 --n_target_classes 3
+   --deepfool_steps 5 --cw_steps 10 --jsma_steps 10 --stadv_steps 20``
+   (printed; the JAX CLI's header, rows and JSON keys); the same command
+   in this process with and without deterministic cuDNN (reruns still
+   bit-equal, each attack's steady seconds beside the subprocess's); in
+   this process in float32 with fgsm, apgd and pgd_l1, one batch and
+   streamed in chunks of 16 (the fgsm rows' ASR equal), and fab, deepfool,
+   ead, jsma, stadv and spatial at smaller budgets (their reruns
+   bit-equal); (e) the grid CLI in this process on phase 8's 128 PNGs with ``--attacks
+   apgd fab deepfool pgd_l1 --eps_list 0.0157 0.0314`` (budgets cut to
+   ``--steps 5 --deepfool_steps 10``, printed): eight summary lines
+   (deepfool's cell computed once), one quantize launch a computed cell,
+   and the noise of apgd, fab and pgd_l1.
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -2149,6 +2175,321 @@ def phase_transfer_attacks(state: dict, pngs: list[Path]) -> dict:
     return res
 
 
+# phase 18: the white-box zoo.  name -> (eps, alpha, expected noise launches);
+# pgd_l2 and pgd_l1 take budgets of their own norms (ImageNet's L2 eps 3;
+# SLIDE's L1 eps 12 at 224x224), alpha 2.5 * eps / steps
+ZOO_A = {"apgd": (EPS, ALPHA, 1), "apgd_dlr": (EPS, ALPHA, 1), "apgd_t": (EPS, ALPHA, 9),
+         "fab": (EPS, ALPHA, 9), "pgd_l2": (3.0, 0.75, 0), "pgd_l1": (12.0, 3.0, 1),
+         "spatial": (EPS, ALPHA, 0)}
+ZOO_B = ("deepfool", "ead", "jsma", "stadv")
+ZOO_B_BATCH, SUITE_N, SUITE_CHUNK = 32, 32, 16
+RESTARTS = 5
+SUITE_ATTACKS = ("fgsm", "apgd", "apgd_dlr", "apgd_t", "fab", "deepfool", "ead", "jsma",
+                 "stadv", "spatial", "pgd_l2", "pgd_l1")
+SUITE_KEYS = {"count", "eps", "model", "labels", "ece_clean", "results"}
+SUITE_STREAM_KEYS = SUITE_KEYS | {"requested", "streamed", "max_batch"}
+SUITE_ROW_KEYS = {"attack", "asr", "linf", "l2_mean", "changed_pct", "ssim", "psnr", "ece",
+                  "compile_run_s", "steady_s"}
+# the suite's budgets, cut (printed) to keep phase 18 near two minutes: the
+# twelve attacks in bf16, with cuDNN's deterministic algorithms (the CLI as
+# shipped, a subprocess) and without (in process); the six attacks whose
+# float32 reruns no other run checks, smaller still
+SUITE_CUT = ("--steps", "5", "--n_target_classes", "3", "--deepfool_steps", "5",
+             "--cw_steps", "10", "--jsma_steps", "10", "--stadv_steps", "20")
+SUITE_F32_REST = ("fab", "deepfool", "ead", "jsma", "stadv", "spatial")
+SUITE_F32_CUT = ("--steps", "2", "--n_target_classes", "2", "--deepfool_steps", "3",
+                 "--cw_steps", "5", "--jsma_steps", "5", "--stadv_steps", "10")
+GRID_ATTACKS, GRID_EPS = ("apgd", "fab", "deepfool", "pgd_l1"), ("0.0157", "0.0314")
+GRID_STEPS, GRID_DEEPFOOL_STEPS = 5, 10  # the grid's cut budgets (phase 18(e))
+
+
+def _check_threat(name: str, threat: str, x_adv, x, eps: float, jsma_steps: int) -> float:
+    """``x_adv`` finite, in [0,1] and inside its threat model: the L∞, L2
+    or L1 ball (the largest per-sample norm is returned), at most one
+    changed pixel a jsma step (it moves one feature a step), or nothing
+    more for 'none'."""
+    import torch
+
+    if not bool(torch.isfinite(x_adv).all()):
+        raise AssertionError(f"{name}: non-finite output")
+    if not (float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0):
+        raise AssertionError(f"{name}: x_adv leaves [0,1]")
+    d = (x_adv - x).reshape(x.shape[0], -1).double()
+    size = {"linf": d.abs().amax(dim=1), "l2": d.norm(dim=1), "l1": d.abs().sum(dim=1),
+            "l0": (d.reshape(x.shape[0], -1, 3) != 0).any(-1).sum(-1).double(),
+            "none": d.abs().amax(dim=1)}[threat]
+    bound = {"linf": eps + 1e-6, "l2": eps * (1 + 1e-5), "l1": eps * (1 + 1e-5),
+             "l0": jsma_steps, "none": 1.0}[threat]
+    if not float(size.max()) <= bound:
+        raise AssertionError(f"{name}: {threat} size {float(size.max())} > {bound}")
+    return float(size.max())
+
+
+def _zoo_run(name: str, fn, x, y, lf, want: dict, threat: str, eps: float,
+             jsma_steps: int = 100) -> tuple[dict, object]:
+    """One counted run of an attack (launches reset before, read after,
+    host clock ending in a synchronisation), its threat model, then the
+    same call again from a fresh generator of the same seed: bit-equal."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    ew.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_adv = fn(generator_from_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ew.launch_counts()
+    if counts != want:
+        raise AssertionError(f"{name}: launches {counts}, want {want}")
+    size = _check_threat(name, threat, x_adv, x, eps, jsma_steps)
+    with torch.no_grad():
+        flipped = float((lf(x_adv).argmax(-1) != y).float().mean())
+    again = fn(generator_from_seed(0))
+    if not torch.equal(again, x_adv):
+        raise AssertionError(f"{name}: two runs from the same generator differ, max |diff| "
+                             f"{float((again - x_adv).abs().max()):.3e}")
+    batch = x.shape[0]
+    rec = {"launches": counts, "seconds": seconds, "ex_per_s": batch / seconds,
+           "threat": threat, "size": size, "flipped": flipped, "rerun_bit_equal": True}
+    log(f"[zoo] {name} batch {batch}: {seconds:.3f} s ({batch / seconds:.1f} ex/s); launches "
+        f"{counts}; {threat} size {size:.6g}; flipped {flipped:.3f}; rerun bit-equal")
+    return rec, x_adv
+
+
+def _suite_rows(out: str, names) -> dict[str, list[str]]:
+    """The suite table's rows by attack, after checking its header."""
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.attack_suite import HEADER
+
+    lines = out.splitlines()
+    if HEADER not in lines:
+        raise AssertionError(f"attack_suite printed no header:\n{out[-2000:]}")
+    head = lines.index(HEADER)
+    rows = {ln.split()[0]: ln for ln in lines[head + 2:head + 2 + len(names)]}
+    if list(rows) != list(names) or any(len(r.split()) != 10 for r in rows.values()):
+        raise AssertionError(f"attack_suite rows {list(rows.values())}")
+    return rows
+
+
+def _f32_grad_reruns(state: dict, x, y) -> dict:
+    """The float32 ResNet-50's input gradient at ``x``, three calls each with
+    ``torch.backends.cudnn.deterministic`` off and on: whether the reruns
+    are bit-equal (required with it on) and their largest difference."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        input_grad, make_logits_fn)
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    b = load_model("resnet50", dtype=torch.float32, device="cuda")
+    lf = make_logits_fn(b.model, b.mean, b.std)
+    out = {}
+    prev = torch.backends.cudnn.deterministic
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            g = [input_grad(lf, x, y) for _ in range(3)]
+            diff = max(float((g[0] - gi).abs().max()) for gi in g[1:])
+            out[f"deterministic_{det}"] = {"equal": diff == 0.0, "max_diff": diff}
+            log(f"[zoo] float32 input gradient at batch {x.shape[0]}, three calls, "
+                f"cudnn.deterministic={det}: largest difference {diff:.3e}")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    if not out["deterministic_True"]["equal"]:
+        raise AssertionError("float32 input gradients differ under cudnn.deterministic")
+    return out
+
+
+def phase_white_box_zoo(state: dict, pngs: list[Path]) -> dict:
+    """Phase 18: the white-box attacks at batch 128 and 32 with their
+    threat models, launches and bit-equal reruns, then the attack_suite CLI
+    (with and without deterministic cuDNN; float32) and the grid CLI with
+    four of them."""
+    import contextlib
+    import re
+    from unittest import mock
+
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        ATTACK_THREAT, AttackParams, pgd_multi_restart, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import (
+        attack_suite, defense_experiments)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+
+    x, y, batch = state["x"], state["y"], state["x"].shape[0]
+    lf = make_fns(state["bundle"])[0]
+    res: dict = {"a": {}, "b": {}}
+    zero = {"pgd_step": 0, "quantize": 0, "uniform_noise": 0}
+
+    # (a) batch 128
+    for name, (eps, alpha, noise) in ZOO_A.items():
+        params = AttackParams(eps=eps, alpha=alpha, steps=STEPS, n_target_classes=9)
+        res["a"][name], _ = _zoo_run(
+            name, lambda g, n=name, p=params: run_attack(n, lf, x, y, p, g), x, y, lf,
+            {**zero, "uniform_noise": noise}, ATTACK_THREAT[name], eps)
+    grid = AttackParams(spatial_candidates=0, spatial_grid_rot=5, spatial_grid_trans=3)
+    res["a"]["spatial_grid"], _ = _zoo_run(
+        "spatial grid 5x3x3", lambda g: run_attack("spatial", lf, x, y, grid, g), x, y, lf,
+        zero, "none", EPS)
+    res["a"]["pgd_multi_restart"], _ = _zoo_run(
+        f"pgd_multi_restart R={RESTARTS} PGD-{STEPS}",
+        lambda g: pgd_multi_restart(lf, x, y, eps=EPS, alpha=ALPHA, steps=STEPS, generator=g,
+                                    restarts=RESTARTS),
+        x, y, lf, {"pgd_step": RESTARTS * STEPS, "quantize": 0, "uniform_noise": RESTARTS},
+        "linf", EPS)
+
+    # (b) batch 32: the expensive ones
+    xb, yb = x[:ZOO_B_BATCH].contiguous(), y[:ZOO_B_BATCH]
+    params = AttackParams()  # deepfool 50 x 10 classes, ead 100, jsma 100, stadv 200
+    for name in ZOO_B:
+        res["b"][name], _ = _zoo_run(
+            name, lambda g, n=name: run_attack(n, lf, xb, yb, params, g), xb, yb, lf, zero,
+            ATTACK_THREAT[name], EPS, jsma_steps=params.jsma_steps)
+
+    # why the suite CLI asks cuDNN for deterministic algorithms: a float32
+    # input gradient computed three times, with and without
+    res["f32_grad_reruns"] = _f32_grad_reruns(state, xb, yb)
+
+    # (d) the suite CLI: bf16 in a subprocess, then without deterministic
+    # cuDNN and in float32 in process
+    with tempfile.TemporaryDirectory() as tmp:
+        img32 = _linked(pngs[:SUITE_N], Path(tmp) / "png32")
+        out_json = Path(tmp) / "suite.json"
+        log(f"[zoo] cut: the suite CLI runs {' '.join(SUITE_CUT)} (defaults {STEPS}, 9, 50, "
+            f"100, 100, 200)")
+        out, seconds = _run_cli_module("attack_suite", "--image_dir", str(img32), "--attacks",
+                                       *SUITE_ATTACKS, *SUITE_CUT, "--output", str(out_json))
+        rows = _suite_rows(out, SUITE_ATTACKS)
+        data = json.loads(out_json.read_text())
+        if (set(data) != SUITE_KEYS or data["count"] != SUITE_N
+                or any(set(r) != SUITE_ROW_KEYS for r in data["results"])):
+            raise AssertionError(f"attack_suite JSON keys {sorted(data)}")
+        res["suite_cli"] = {"seconds": seconds, "rows": list(rows.values()),
+                            "results": data["results"]}
+        log(f"[zoo] attack_suite CLI (subprocess), {SUITE_N} PNGs, 12 attacks, "
+            f"cudnn.deterministic: exit 0 in {seconds:.1f} s")
+        for ln in rows.values():
+            log(f"[zoo]   {ln}")
+
+        # the same command twice in process, as shipped and with cuDNN's
+        # default algorithms: the setting's cost row by row (steady_s, each
+        # attack's second call), both runs in one process state
+        if torch.backends.cudnn.deterministic:
+            raise AssertionError("cudnn.deterministic left on before the suite's comparison")
+        inproc = {}
+        for mode, ctx in (("deterministic", attack_suite._deterministic_cudnn),
+                          ("default", contextlib.nullcontext)):
+            path = Path(tmp) / f"suite_{mode}.json"
+            with mock.patch.object(attack_suite, "_deterministic_cudnn", ctx):
+                out, seconds, counts = _in_process_cli(attack_suite.main, [
+                    "--image_dir", str(img32), "--attacks", *SUITE_ATTACKS, *SUITE_CUT,
+                    "--output", str(path)])
+            # two calls each of apgd, apgd_dlr and pgd_l1 (1 start) and of
+            # apgd_t and fab (3 targets)
+            want = {**zero, "uniform_noise": 2 * (3 + 2 * 3)}
+            if counts != want:
+                raise AssertionError(f"attack_suite in process, cuDNN {mode}: launches {counts} "
+                                     f"(want {want})")
+            inproc[mode] = {"seconds": seconds, "launches": counts,
+                            "rows": list(_suite_rows(out, SUITE_ATTACKS).values()),
+                            "results": json.loads(path.read_text())["results"]}
+        steady = {r["attack"]: (r["steady_s"], d["steady_s"], n["steady_s"]) for r, d, n in zip(
+            data["results"], inproc["deterministic"]["results"], inproc["default"]["results"])}
+        res["suite_inproc"] = inproc
+        res["suite_steady_s"] = steady
+        log(f"[zoo] attack_suite CLI in process: {inproc['deterministic']['seconds']:.1f} s "
+            f"with cudnn.deterministic, {inproc['default']['seconds']:.1f} s without (reruns "
+            f"bit-equal); steady s subprocess / in process with / without: " + ", ".join(
+                f"{k} {a:.3f}/{d:.3f}/{n:.3f}" for k, (a, d, n) in steady.items())
+            + "; sums " + "/".join(f"{sum(v[i] for v in steady.values()):.3f}" for i in range(3)))
+
+        three = ("fgsm", "apgd", "pgd_l1")
+        f32 = {}
+        for mode, extra, want_noise in (("one batch", [], 4),
+                                        ("streamed", ["--max_batch", str(SUITE_CHUNK)], 4)):
+            path = Path(tmp) / f"suite_{mode[0]}.json"
+            out, seconds, counts = _in_process_cli(attack_suite.main, [
+                "--image_dir", str(img32), "--attacks", *three, "--model-dtype", "float32",
+                "--output", str(path), *extra])
+            data = json.loads(path.read_text())
+            want_keys = SUITE_STREAM_KEYS if extra else SUITE_KEYS
+            # apgd's and pgd_l1's starts: two calls one batch, two chunks streamed
+            want = {**zero, "uniform_noise": want_noise}
+            if set(data) != want_keys or counts != want:
+                raise AssertionError(f"attack_suite {mode}: keys {sorted(data)}, launches "
+                                     f"{counts} (want {want})")
+            f32[mode] = {"seconds": seconds, "launches": counts,
+                         "rows": list(_suite_rows(out, three).values()),
+                         "results": data["results"]}
+            log(f"[zoo] attack_suite CLI float32 {mode} (fgsm apgd pgd_l1, {SUITE_N} PNGs"
+                + (f", chunks of {SUITE_CHUNK}" if extra else "") + f"): {seconds:.1f} s in "
+                f"process; launches {counts}")
+            for ln in f32[mode]["rows"]:
+                log(f"[zoo]   {ln}")
+        asr = {m: f32[m]["results"][0]["asr"] for m in f32}
+        # float32 reruns of the six attacks no run above checks there: the
+        # CLI raises unless each attack's two calls are bit-equal
+        log(f"[zoo] cut: float32 {' '.join(SUITE_F32_REST)} run {' '.join(SUITE_F32_CUT)}")
+        path = Path(tmp) / "suite_f32_rest.json"
+        out, seconds, counts = _in_process_cli(attack_suite.main, [
+            "--image_dir", str(img32), "--attacks", *SUITE_F32_REST, *SUITE_F32_CUT,
+            "--model-dtype", "float32", "--output", str(path)])
+        want = {**zero, "uniform_noise": 2 * 2}  # fab's 2 targets, two calls
+        if counts != want:
+            raise AssertionError(f"attack_suite float32 {' '.join(SUITE_F32_REST)}: launches "
+                                 f"{counts} (want {want})")
+        f32["rest"] = {"seconds": seconds, "launches": counts,
+                       "rows": list(_suite_rows(out, SUITE_F32_REST).values()),
+                       "results": json.loads(path.read_text())["results"]}
+        log(f"[zoo] attack_suite CLI float32 {' '.join(SUITE_F32_REST)}: {seconds:.1f} s in "
+            f"process, every rerun bit-equal; launches {counts}")
+        for ln in f32["rest"]["rows"]:
+            log(f"[zoo]   {ln}")
+        if asr["one batch"] != asr["streamed"]:
+            raise AssertionError(f"float32 fgsm ASR streamed {asr['streamed']} != one batch "
+                                 f"{asr['one batch']}")
+        res["suite_f32"] = f32
+        log(f"[zoo] float32 fgsm ASR streamed = one batch: {asr['streamed']:.6f}")
+
+        # (e) the grid CLI with four of them, its budgets cut (printed) to
+        # keep the phase near two minutes; (a) and (b) ran the defaults
+        img128 = _linked(pngs[:SHAPE[0]], Path(tmp) / "png128")
+        out_dir = Path(tmp) / "grid"
+        log(f"[zoo] cut: the grid CLI runs --steps {GRID_STEPS} (default {STEPS}) and "
+            f"--deepfool_steps {GRID_DEEPFOOL_STEPS} (default 50)")
+        out, seconds, counts = _in_process_cli(defense_experiments.main, [
+            "--image_dir", str(img128), "--attacks", *GRID_ATTACKS, "--eps_list", *GRID_EPS,
+            "--steps", str(GRID_STEPS), "--deepfool_steps", str(GRID_DEEPFOOL_STEPS),
+            "--viz_samples", "0", "--output_dir", str(out_dir)])
+        summary = re.compile(
+            r"^attack=(apgd|fab|deepfool|pgd_l1), eps=(\d\.\d{5}), attack_success=\d\.\d{3}, "
+            r"preproc_defense_acc=\d\.\d{3}, detector_clean_pass_rate=\d\.\d{3}, "
+            r"detector_adv_flag_rate=\d\.\d{3}, detector_attack_success=\d\.\d{3}$")
+        lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
+        computed = 3 * len(GRID_EPS) + 1  # deepfool: one cell for both eps
+        want = {"pgd_step": 0, "quantize": computed,
+                "uniform_noise": len(GRID_EPS) * (1 + 9 + 1)}
+        reused = out.count("(deepfool is eps-independent: reusing the computed cell)")
+        if (len(lines) != len(GRID_ATTACKS) * len(GRID_EPS)
+                or not all(summary.match(ln) for ln in lines) or counts != want or reused != 1):
+            raise AssertionError(f"grid --attacks {' '.join(GRID_ATTACKS)}: lines {lines}, "
+                                 f"launches {counts} (want {want}), deepfool reused {reused}")
+        cell_s = _cells_s(out_dir)
+        res["grid_cli"] = {"seconds": seconds, "launches": counts, "lines": lines,
+                           "cell_s": cell_s}
+        log(f"[zoo] grid CLI --attacks {' '.join(GRID_ATTACKS)} --eps_list "
+            f"{' '.join(GRID_EPS)} --steps {GRID_STEPS} --deepfool_steps {GRID_DEEPFOOL_STEPS} "
+            f"on {SHAPE[0]} PNGs: {seconds:.1f} s in process; launches "
+            f"{counts} (1 quantize a computed cell); cells " + ", ".join(
+                f"{k} {v:.2f} s" for k, v in cell_s.items()))
+        for ln in lines:
+            log(f"[zoo]   {ln}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=str, default=None,
@@ -2213,19 +2554,23 @@ def main(argv=None) -> int:
         record["int8"] = run("int8", phase_int8, state, record["classify"]["forward_ms"],
                              {n: record["families"][n]["bf16_forward_ms"] for n in FAMILIES})
         record["transfer_attacks"] = run("transfer_attacks", phase_transfer_attacks, state, pngs)
+        record["zoo"] = run("zoo", phase_white_box_zoo, state, pngs)
 
     # the elementwise kernels' main path: PGD-10, the eight cells, the
     # streamed pgd cell, the visualize path's PGD-20 and trajectory, the
     # two pgd-20 transfer cells, PGD-10 on the int8 ResNet-50, the three
     # transfer attacks, the mifgsm transfer cell and the two CLIs run with
-    # them; the conv's: the probe's entry point
+    # them, the white-box zoo's counted runs and its in-process suite and
+    # grid CLIs; the conv's: the probe's entry point
     detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
-    ta = record["transfer_attacks"]
+    ta, zoo = record["transfer_attacks"], record["zoo"]
     runs = [record["pgd"], record["cell"], *record["cells"].values(),
             *(record["detectors"][c] for c in detector_cells),
             record["stream"]["pgd_cell"], record["visualize"]["in_process"],
             record["transfer"]["cell"], record["transfer"]["ensemble"], record["int8"]["pgd"],
-            *ta["attacks"].values(), ta["cell"], ta["transferability_cli"], ta["grid_cli"]]
+            *ta["attacks"].values(), ta["cell"], ta["transferability_cli"], ta["grid_cli"],
+            *zoo["a"].values(), *zoo["b"].values(), *zoo["suite_inproc"].values(),
+            *zoo["suite_f32"].values(), zoo["grid_cli"]]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

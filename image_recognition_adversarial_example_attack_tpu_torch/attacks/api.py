@@ -87,11 +87,16 @@ def make_ensemble_logits_fn(logits_fns, weights=None) -> LogitsFn:
     return ensemble
 
 
+def per_sample_ce(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Softmax cross-entropy of each sample, [B]."""
+    logp = F.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, y[:, None].long())[:, 0]
+
+
 def cross_entropy_sum(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Softmax cross-entropy SUMMED over the batch (not averaged): the 1/B
     factor is invariant under sign() and keeps per-sample gradients apart."""
-    logp = F.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, y[:, None].long())[:, 0].sum()
+    return per_sample_ce(logits, y).sum()
 
 
 def input_grad(logits_fn: LogitsFn, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -106,8 +111,10 @@ def input_grad(logits_fn: LogitsFn, x: torch.Tensor, y: torch.Tensor) -> torch.T
 
 @dataclass(frozen=True)
 class AttackParams:
-    """The parameters that the ported attacks read (fgsm, pgd, cw and the
-    transfer family mifgsm, dim, tim)."""
+    """Every parameter ``run_attack`` plumbs, with the JAX dataclass's names,
+    defaults and order (``attacks/api.py::AttackParams``), the budgets of the
+    attacks not ported yet included, so that a CLI's
+    ``extended_attack_kwargs`` passes whole."""
 
     eps: float = DEFAULT_EPS
     alpha: float = DEFAULT_ALPHA
@@ -118,6 +125,52 @@ class AttackParams:
     cw_lr: float = DEFAULT_CW_LR
     random_start: bool = True
     mu: float = 1.0  # the momentum decay of mifgsm, dim and tim
+    # square is query-based: its budget is queries, not gradient steps
+    square_steps: int = 1000
+    deepfool_steps: int = 50
+    deepfool_classes: int = 10
+    deepfool_overshoot: float = 0.02
+    # nes / spsa probe pairs per step
+    est_samples: int = 32
+    nes_sigma: float = 1e-3
+    spsa_delta: float = 1e-2
+    # bandits-TD: 2 queries a step; the prior lattice is H/f x W/f
+    bandits_steps: int = 500
+    bandits_prior_factor: int = 8
+    bandits_fd_eta: float = 0.1
+    bandits_delta: float = 0.1
+    bandits_prior_lr: float = 1.0
+    hsja_steps: int = 10
+    hsja_probes: int = 32
+    # EAD's own c and lr: its raw-gradient FISTA steps need lr*c*|grad| to
+    # clear the beta threshold (attacks/ead.py); CW's Adam does not
+    ead_beta: float = 1e-3
+    ead_c: float = 50.0
+    ead_lr: float = 0.05
+    # apgd_t / fab restarts: the top-K runner-up classes of the clean logits
+    n_target_classes: int = 9
+    # stAdv's flow field (non-Lp: tau, not eps, bounds the distortion)
+    stadv_steps: int = 200
+    stadv_lr: float = 0.01
+    stadv_tau: float = 0.05
+    boundary_steps: int = 500
+    boundary_spherical_step: float = 0.01
+    boundary_source_step: float = 0.01
+    simba_steps: int = 1000
+    simba_eps: float = 0.2
+    simba_mode: str = "dct"
+    # jsma's L0 budget (features changed, one a step) and per-feature move
+    jsma_steps: int = 100
+    jsma_theta: float = 1.0
+    # pgd_l1 (SLIDE): the top-|grad| fraction of coordinates a step moves
+    l1_sparsity: float = 0.01
+    # spatial: worst-of-spatial_candidates random draws union a
+    # rot x trans x trans grid; zero either part to drop it
+    spatial_max_rot: float = 30.0
+    spatial_max_trans: float = 0.1
+    spatial_candidates: int = 10
+    spatial_grid_rot: int = 0
+    spatial_grid_trans: int = 0
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +251,124 @@ def _run_tim(logits_fn, x, y_true, params, generator, y_target):
                       steps=params.steps, mu=params.mu, y_target=y_target)
 
 
+@_register("apgd", "linf")
+def _run_apgd(logits_fn, x, y_true, params, generator, y_target):
+    from .apgd import apgd_ce_attack
+
+    if y_target is not None:
+        raise ValueError("apgd here is the untargeted CE variant")
+    return apgd_ce_attack(logits_fn, x, y_true, eps=params.eps, steps=params.steps,
+                          generator=generator)
+
+
+@_register("apgd_dlr", "linf")
+def _run_apgd_dlr(logits_fn, x, y_true, params, generator, y_target):
+    from .apgd import apgd_dlr_attack
+
+    if y_target is not None:
+        raise ValueError("apgd_dlr is the untargeted DLR variant")
+    return apgd_dlr_attack(logits_fn, x, y_true, eps=params.eps, steps=params.steps,
+                           generator=generator)
+
+
+@_register("apgd_t", "linf")
+def _run_apgd_t(logits_fn, x, y_true, params, generator, y_target):
+    from .apgd import apgd_targeted_attack
+
+    if y_target is not None:
+        raise ValueError("apgd_t picks its own top-K targets (n_target_classes)")
+    x_adv, _ = apgd_targeted_attack(logits_fn, x, y_true, eps=params.eps, steps=params.steps,
+                                    n_targets=params.n_target_classes, generator=generator)
+    return x_adv
+
+
+@_register("fab", "linf")
+def _run_fab(logits_fn, x, y_true, params, generator, y_target):
+    from .fab import fab_targeted_attack
+
+    if y_target is not None:
+        raise ValueError(
+            "fab is the targeted-restart minimal-norm variant; it picks "
+            "its own top-K targets (n_target_classes)")
+    x_fab = fab_targeted_attack(logits_fn, x, y_true, eps=params.eps, steps=params.steps,
+                                n_targets=params.n_target_classes, generator=generator)
+    # FAB minimizes the norm, so its best iterate may lie outside the eps
+    # ball; as in AutoAttack such a result does not count: those samples
+    # return the clean input
+    in_ball = torch.amax(torch.abs(x_fab - x), dim=(1, 2, 3)) <= params.eps + 1e-6
+    return torch.where(in_ball[:, None, None, None], x_fab, x)
+
+
+@_register("deepfool", "none")
+def _run_deepfool(logits_fn, x, y_true, params, generator, y_target):
+    from .deepfool import deepfool_attack
+
+    if y_target is not None:
+        raise ValueError("deepfool flips the model's own prediction; untargeted-only")
+    return deepfool_attack(logits_fn, x, y_true, steps=params.deepfool_steps,
+                           num_classes=params.deepfool_classes,
+                           overshoot=params.deepfool_overshoot)
+
+
+@_register("pgd_l1", "l1")
+def _run_pgd_l1(logits_fn, x, y_true, params, generator, y_target):
+    from .pgd import pgd_l1_attack
+
+    return pgd_l1_attack(logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
+                         steps=params.steps, generator=generator, sparsity=params.l1_sparsity,
+                         random_start=params.random_start, y_target=y_target)
+
+
+@_register("pgd_l2", "l2")
+def _run_pgd_l2(logits_fn, x, y_true, params, generator, y_target):
+    from .pgd import pgd_l2_attack
+
+    return pgd_l2_attack(logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
+                         steps=params.steps, generator=generator,
+                         random_start=params.random_start, y_target=y_target)
+
+
+@_register("ead", "none")
+def _run_ead(logits_fn, x, y_true, params, generator, y_target):
+    from .ead import ead_attack
+
+    res = ead_attack(logits_fn, x, y_true, c=params.ead_c, kappa=params.cw_kappa,
+                     beta=params.ead_beta, steps=params.cw_steps, lr=params.ead_lr,
+                     targeted=y_target is not None, y_target=y_target)
+    return res.x_adv
+
+
+@_register("jsma", "l0")
+def _run_jsma(logits_fn, x, y_true, params, generator, y_target):
+    from .jsma import jsma_attack
+
+    return jsma_attack(logits_fn, x, y_true, steps=params.jsma_steps, theta=params.jsma_theta,
+                       y_target=y_target)
+
+
+@_register("spatial", "none")
+def _run_spatial(logits_fn, x, y_true, params, generator, y_target):
+    from .spatial import spatial_attack
+
+    if y_target is not None:
+        raise ValueError("spatial is the untargeted worst-of-k search")
+    res = spatial_attack(logits_fn, x, y_true, max_rot=params.spatial_max_rot,
+                         max_trans=params.spatial_max_trans,
+                         candidates=params.spatial_candidates,
+                         grid_rot=params.spatial_grid_rot,
+                         grid_trans=params.spatial_grid_trans, generator=generator)
+    return res.x_adv
+
+
+@_register("stadv", "none")
+def _run_stadv(logits_fn, x, y_true, params, generator, y_target):
+    from .stadv import stadv_attack
+
+    res = stadv_attack(logits_fn, x, y_true, steps=params.stadv_steps, lr=params.stadv_lr,
+                       tau=params.stadv_tau, kappa=params.cw_kappa, y_target=y_target)
+    return res.x_adv
+
+
 ATTACK_NAMES: tuple[str, ...] = tuple(_DISPATCH)
 
 
@@ -205,9 +376,26 @@ def run_attack(attack_name: str, logits_fn: LogitsFn, x: torch.Tensor,
                y_true: torch.Tensor, params: AttackParams,
                generator: torch.Generator | None = None,
                y_target: torch.Tensor | None = None) -> torch.Tensor:
-    """'fgsm' | 'pgd' | 'cw' | 'mifgsm' | 'dim' | 'tim' -> x_adv in [0,1].
-    ``y_target`` selects the targeted mode. ``generator`` feeds the
-    randomness (pgd's random start, dim's transforms; default: seed 0)."""
+    """A registered name -> x_adv in [0,1]: 'fgsm' | 'pgd' | 'cw' | 'mifgsm' |
+    'dim' | 'tim' | 'apgd' | 'apgd_dlr' | 'apgd_t' | 'fab' | 'deepfool' |
+    'pgd_l1' | 'pgd_l2' | 'ead' | 'jsma' | 'spatial' | 'stadv'.
+
+    'apgd' / 'apgd_dlr' are Auto-PGD on CE / DLR; 'apgd_t' its targeted-DLR
+    restarts over the top ``n_target_classes`` runner-ups; 'fab' the
+    minimal-norm FAB-T, whose out-of-ball samples return the clean input;
+    'deepfool' flips the model's own prediction (minimal L2); 'pgd_l2' and
+    'pgd_l1' (SLIDE, ``l1_sparsity``) are PGD in those balls; 'ead' is the
+    elastic-net attack (``cw_steps`` and ``cw_kappa`` with its own ``ead_c``,
+    ``ead_lr``, ``ead_beta``); 'jsma' the L0 saliency attack (``jsma_steps``,
+    ``jsma_theta``); 'spatial' the worst-case rotation and translation;
+    'stadv' a smooth flow field (``stadv_*``).  eps does not apply to
+    deepfool, ead, jsma, spatial, stadv or cw.
+
+    ``y_target`` selects the targeted mode of fgsm, pgd, pgd_l1, pgd_l2,
+    cw, ead, jsma, stadv and the transfer family; apgd, apgd_dlr, apgd_t,
+    fab, deepfool and spatial are untargeted-only and raise ValueError on
+    one.  ``generator`` feeds the randomness (the random starts, dim's
+    transforms, spatial's draws; default: seed 0)."""
     handler = _DISPATCH.get(attack_name)
     if handler is None:
         raise ValueError(f"attack '{attack_name}' is not ported yet "

@@ -4,8 +4,9 @@
   ``w0 = atanh(2 * (x0*(1-2e-6)+1e-6) - 1)``;
 - margin loss ``f = max(real - other + kappa, 0)`` (untargeted; flipped when
   targeted), with ``other = max(logits - 1e4*onehot)``;
-- objective ``sum_b(||x_adv - x0||_2^2 + c * f)`` minimized by Adam on w,
-  written out in optax's order (b1 0.9, b2 0.999, eps 1e-8, bias correction);
+- objective ``sum_b(||x_adv - x0||_2^2 + c * f)`` minimized by Adam on w
+  (``attacks/adam.py``: optax's order, b1 0.9, b2 0.999, eps 1e-8, bias
+  correction);
 - per-sample best-(L2, success) tracking on each iterate BEFORE its Adam
   update, and one more check of the final iterate after the loop;
 - output: the best successful x_adv per sample, else the final iterate.
@@ -23,9 +24,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .adam import adam_update
 from .api import LogitsFn
 
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 TINY = 1e-6
 
 
@@ -92,12 +93,7 @@ def cw_l2_attack(
             loss, x_adv, l2, success = objective(wg)
             (grad,) = torch.autograd.grad(loss, wg)
         track(x_adv.detach(), l2.detach(), success)
-        # optax.adam: moments, bias correction, mu_hat / (sqrt(nu_hat) + eps)
-        m = ADAM_B1 * m + (1.0 - ADAM_B1) * grad
-        v = ADAM_B2 * v + (1.0 - ADAM_B2) * grad * grad
-        m_hat = m / (1.0 - ADAM_B1 ** t)
-        v_hat = v / (1.0 - ADAM_B2 ** t)
-        w = w + (-lr) * (m_hat / (torch.sqrt(v_hat) + ADAM_EPS))
+        w, m, v = adam_update(w, grad, m, v, t, lr)
 
     # the loop checks only pre-update iterates: one more forward checks the
     # final one, so a sample first fooled by the last step counts

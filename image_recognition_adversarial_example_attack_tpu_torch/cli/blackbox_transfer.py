@@ -14,10 +14,11 @@ first ``--visualize_n`` images under ``<image_dir>/blackbox_vis`` (or
 Image sets larger than ``--max_batch`` stream in chunks of that size
 (``utils.pipeline.EvalBatchPipeline``); each chunk's attack draws from
 ``core.rng.chunk_generator(seed, attack, step)``, the resident run's from
-``core.rng.cell_generator(seed, attack)``.  The JAX CLI's attack choices
-other than fgsm, pgd, cw, mifgsm, dim and tim are refused before any device
-work, and its ``--square_steps`` and extended-attack flags are not ported
-yet.
+``core.rng.cell_generator(seed, attack)``.  Every white-box attack of the
+zoo runs (fgsm, pgd, cw, mifgsm, dim, tim, apgd, apgd_dlr, apgd_t, fab,
+deepfool, ead, jsma, stadv, spatial, pgd_l1), with the JAX CLI's
+``--square_steps`` and extended-attack flags; its black-box choices are
+refused before any device work.
 """
 
 from __future__ import annotations
@@ -37,8 +38,9 @@ from ..core.device import resolve_device
 from ..core.images import list_images, load_image_batch
 from ..core.labels import load_imagenet_labels
 from ..core.rng import cell_generator, chunk_generator
-from .common import (ATTACK_CHOICES, add_model_args, load_bundle, make_fns,
-                     maybe_profile, refuse_unported_attacks)
+from .common import (ATTACK_CHOICES, add_extended_attack_args, add_model_args,
+                     extended_attack_kwargs, load_bundle, make_fns, maybe_profile,
+                     refuse_unported_attacks)
 
 TARGET_DISPLAY = {"vgg19": "VGG19", "vit_b_16": "ViT", "swin_t": "Swin"}
 
@@ -55,6 +57,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cw_c", type=float, default=DEFAULT_CW_C)
     parser.add_argument("--cw_kappa", type=float, default=DEFAULT_CW_KAPPA)
     parser.add_argument("--cw_steps", type=int, default=200)
+    parser.add_argument("--square_steps", type=int, default=1000,
+                        help="query budget for the square attack")
+    add_extended_attack_args(parser)
     parser.add_argument("--cw_lr", type=float, default=DEFAULT_CW_LR)
     parser.add_argument("--visualize_n", type=int, default=3)
     parser.add_argument("--max_batch", type=int, default=256,
@@ -104,7 +109,8 @@ def main(argv=None) -> int:
     target_fns = {name: make_fns(load_bundle(args, name=name))[0] for name in args.targets}
     labels = load_imagenet_labels()
     params = AttackParams(eps=args.eps, alpha=args.alpha, steps=args.steps, cw_c=args.cw_c,
-                          cw_kappa=args.cw_kappa, cw_steps=args.cw_steps, cw_lr=args.cw_lr)
+                          cw_kappa=args.cw_kappa, cw_steps=args.cw_steps, cw_lr=args.cw_lr,
+                          square_steps=int(args.square_steps), **extended_attack_kwargs(args))
 
     max_batch = int(args.max_batch)
     n_viz = min(int(args.visualize_n), len(paths))

@@ -1,12 +1,16 @@
 """Classify-and-attack CLI (port of ``cli/classify.py``, the ``ResNet.py``
-surface) for ``--attack {none,fgsm,pgd,cw,mifgsm,dim,tim}``.
+surface) for ``--attack none`` and every white-box attack of the zoo: fgsm,
+pgd, pgd_l2, pgd_l1, cw, mifgsm, dim, tim, apgd, apgd_dlr, apgd_t, fab,
+deepfool, ead, jsma, stadv and spatial, with the JAX CLI's
+``--square_steps`` and extended-attack flags.
 
     python -m image_recognition_adversarial_example_attack_tpu_torch.cli.classify \\
         image.jpg --attack pgd --save_adv adv.png [--device cpu]
 
 A directory input becomes one [B,224,224,3] batch; the attack runs once and
 the results print per image in the reference's format.  The JAX CLI's other
-``--attack`` choices are accepted and refused before any device work.
+``--attack`` choices (the black-box attacks) are accepted and refused before
+any device work.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ from ..core.constants import (DEFAULT_ALPHA, DEFAULT_CW_C, DEFAULT_CW_KAPPA, DEF
 from ..core.images import list_images, load_image_batch_tolerant, save_image_01
 from ..core.labels import load_imagenet_labels
 from ..core.rng import generator_from_seed
-from .common import (CLASSIFY_ATTACK_CHOICES, add_model_args, load_bundle, make_fns,
-                     maybe_profile, print_topk, refuse_unported_attacks, topk_host)
+from .common import (CLASSIFY_ATTACK_CHOICES, add_extended_attack_args, add_model_args,
+                     extended_attack_kwargs, load_bundle, make_fns, maybe_profile, print_topk,
+                     refuse_unported_attacks, topk_host)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -42,6 +47,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cw_c", type=float, default=DEFAULT_CW_C)
     parser.add_argument("--cw_kappa", type=float, default=DEFAULT_CW_KAPPA)
     parser.add_argument("--cw_steps", type=int, default=DEFAULT_CW_STEPS)
+    parser.add_argument("--square_steps", type=int, default=1000,
+                        help="query budget for the square attack")
+    add_extended_attack_args(parser)
     parser.add_argument("--cw_lr", type=float, default=DEFAULT_CW_LR)
     parser.add_argument("--target", type=int, default=None)
     parser.add_argument("--save_adv", type=str, default=None)
@@ -95,7 +103,9 @@ def main(argv=None) -> int:
                    if args.target is not None else None)
             params = AttackParams(eps=args.eps, alpha=args.alpha, steps=args.steps,
                                   cw_c=args.cw_c, cw_kappa=args.cw_kappa,
-                                  cw_steps=args.cw_steps, cw_lr=args.cw_lr)
+                                  cw_steps=args.cw_steps, cw_lr=args.cw_lr,
+                                  square_steps=int(args.square_steps),
+                                  **extended_attack_kwargs(args))
             x_adv = run_attack(args.attack, logits_fn, x, y_true, params,
                                generator_from_seed(args.seed), y_target=y_t)
             probs_adv = probs_of(x_adv)

@@ -1,6 +1,8 @@
 """Defense experiment CLI (port of ``cli/defense_experiments.py``, the
-``defense_experiments.py`` surface) for the attacks fgsm, pgd, cw, mifgsm, dim
-and tim.
+``defense_experiments.py`` surface) for the attacks fgsm, pgd, cw, the
+transfer family mifgsm, dim and tim, and the white-box zoo apgd, apgd_dlr,
+apgd_t, fab, deepfool, ead, jsma, stadv, spatial and pgd_l1, with the JAX
+CLI's ``--square_steps`` and extended-attack flags.
 
     python -m image_recognition_adversarial_example_attack_tpu_torch.cli.defense_experiments \\
         --image_dir imgs/ [--attacks fgsm pgd cw] [--eps_list ...] [--device cpu]
@@ -20,9 +22,11 @@ detector is calibrated (or given) on at most the first 100 images; after it
 come the summary lines, the sample figure (PGD at ``eps_list[1]``, alpha
 eps/4, 10 steps), the heatmaps and ``timings.json``.
 
-The JAX CLI's other ``--attacks`` choices are accepted and refused before any
-device work; its certified, CIFAR-10 and extended-attack options are not
-ported yet.
+The eps-independent attacks (cw, deepfool, ead, jsma, stadv, spatial)
+compute one cell and reuse it for every eps.  The JAX CLI's other
+``--attacks`` choices (the black-box attacks) are accepted and refused
+before any device work; its certified and CIFAR-10 options are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -45,11 +49,12 @@ from ..defenses.preprocess import DefenseConfig, defend_input
 from ..eval.defense_eval import (DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch,
                                  summary_line)
 from ..eval.streaming import make_placer, round_up, stream_defense_cell
-from .common import (ATTACK_CHOICES, EPS_INDEPENDENT_ATTACKS, add_imagenet_val_arg,
-                     add_model_args, apply_imagenet_val, cell_rng_id, check_label_range,
-                     config_fingerprint, labels_digest, load_bundle, make_fns, maybe_profile,
-                     n_classes_of, refuse_unported_attacks, resolve_image_inputs,
-                     resolve_labels, resolve_labels_sentinel)
+from .common import (ATTACK_CHOICES, EPS_INDEPENDENT_ATTACKS, add_extended_attack_args,
+                     add_imagenet_val_arg, add_model_args, apply_imagenet_val, cell_rng_id,
+                     check_label_range, config_fingerprint, extended_attack_kwargs,
+                     labels_digest, load_bundle, make_fns, maybe_profile, n_classes_of,
+                     refuse_unported_attacks, resolve_image_inputs, resolve_labels,
+                     resolve_labels_sentinel)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -70,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cw_c", type=float, default=DEFAULT_CW_C)
     parser.add_argument("--cw_kappa", type=float, default=DEFAULT_CW_KAPPA)
     parser.add_argument("--cw_steps", type=int, default=100)
+    parser.add_argument("--square_steps", type=int, default=1000,
+                        help="query budget for the square attack")
+    add_extended_attack_args(parser)
     parser.add_argument("--cw_lr", type=float, default=DEFAULT_CW_LR)
 
     parser.add_argument("--detector", type=str, default="feature",
@@ -320,6 +328,7 @@ def main(argv=None) -> int:
                 alpha=float(args.alpha), steps=int(args.steps),
                 cw_c=float(args.cw_c), cw_kappa=float(args.cw_kappa),
                 cw_steps=int(args.cw_steps), cw_lr=float(args.cw_lr),
+                square_steps=int(args.square_steps), **extended_attack_kwargs(args),
                 detector=str(args.detector), detector_params=detector_params,
                 defense=defense_cfg, adaptive=bool(args.adaptive),
                 detector_aware=bool(args.detector_aware),

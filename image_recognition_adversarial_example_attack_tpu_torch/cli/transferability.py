@@ -14,13 +14,13 @@ the target's own clean label (``--convention blackbox``).  Several
 ``transfer_results.json`` and a heatmap per attack.
 
 Each (attack, eps) cell draws from ``core.rng.cell_generator(seed, cell
-id)``; cw reads no eps, so it is computed once per sweep and reused.  Image
-sets larger than ``--max_batch`` stream in chunks of that size
+id)``; the eps-independent attacks (cw, deepfool, ead, jsma, stadv,
+spatial) are computed once per sweep and reused.  Image sets larger than
+``--max_batch`` stream in chunks of that size
 (``eval.streaming.stream_transfer_cell``).  Unknown models and models of
-mixed input sizes are refused with exit code 2; the JAX CLI's attack choices
-other than fgsm, pgd, cw, mifgsm, dim and tim are refused before any device
-work, and its ``--square_steps`` and extended-attack flags are not ported
-yet.
+mixed input sizes are refused with exit code 2.  Every white-box attack of
+the zoo runs, with the JAX CLI's ``--square_steps`` and extended-attack
+flags; its black-box choices are refused before any device work.
 """
 
 from __future__ import annotations
@@ -41,9 +41,9 @@ from ..core.device import resolve_device
 from ..core.images import load_image_batch, save_image_01
 from ..core.rng import cell_generator
 from ..eval.transfer import transfer_attack_batch
-from .common import (EPS_INDEPENDENT_ATTACKS, ATTACK_CHOICES, add_model_args,
-                     cell_rng_id, load_bundle, make_fns, maybe_profile,
-                     refuse_unported_attacks, resolve_image_inputs)
+from .common import (ATTACK_CHOICES, EPS_INDEPENDENT_ATTACKS, add_extended_attack_args,
+                     add_model_args, cell_rng_id, extended_attack_kwargs, load_bundle,
+                     make_fns, maybe_profile, refuse_unported_attacks, resolve_image_inputs)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,6 +64,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--cw_c", type=float, default=DEFAULT_CW_C)
     parser.add_argument("--cw_kappa", type=float, default=DEFAULT_CW_KAPPA)
     parser.add_argument("--cw_steps", type=int, default=100)
+    parser.add_argument("--square_steps", type=int, default=1000,
+                        help="query budget for the square attack")
+    add_extended_attack_args(parser)
     parser.add_argument("--cw_lr", type=float, default=DEFAULT_CW_LR)
     parser.add_argument("--convention", type=str, default="source-label",
                         choices=["source-label", "blackbox"],
@@ -149,7 +152,8 @@ def main(argv=None) -> int:
 
     base = AttackParams(alpha=float(args.alpha), steps=int(args.steps), cw_c=float(args.cw_c),
                         cw_kappa=float(args.cw_kappa), cw_steps=int(args.cw_steps),
-                        cw_lr=float(args.cw_lr))
+                        cw_lr=float(args.cw_lr), square_steps=int(args.square_steps),
+                        **extended_attack_kwargs(args))
 
     def cell_fn(xx: torch.Tensor, generator: torch.Generator, eps: float, attack_name: str):
         return transfer_attack_batch(src_fn, target_fns, xx, attack_name,

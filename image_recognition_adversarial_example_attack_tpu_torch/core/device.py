@@ -19,3 +19,10 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
             "CUDA is not available; pass device='cpu' (--device cpu on the "
             "command line) to run on the CPU")
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU): a host
+    clock that ends here measures the work, not its enqueueing."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

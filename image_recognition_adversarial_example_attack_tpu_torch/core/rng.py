@@ -54,3 +54,22 @@ def chunk_generator(seed: int, cell_id: str, step: int) -> torch.Generator:
     """
     digest = hashlib.sha256(f"{int(seed)}|{cell_id}|{int(step)}".encode()).digest()
     return generator_from_seed(int.from_bytes(digest[:8], "big") >> 1)
+
+
+def standard_normal(shape, generator: torch.Generator,
+                    device: torch.device | str) -> torch.Tensor:
+    """float32 N(0, 1) of ``shape`` on ``device``, from ``generator``.
+
+    Where the generator lives on another device (the port's generators
+    live on the CPU), a generator on ``device`` is seeded with a 63-bit draw
+    of ``generator``, so a full-size draw is made on the card instead of
+    being copied there.
+    """
+    device = torch.device(device)
+    if device.type == generator.device.type:
+        return torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
+                           device=device)
+    g = torch.Generator(device=device)
+    g.manual_seed(int(torch.randint(0, 2**63 - 1, (1,), generator=generator,
+                                    device=generator.device).item()))
+    return torch.randn(tuple(shape), generator=g, dtype=torch.float32, device=device)

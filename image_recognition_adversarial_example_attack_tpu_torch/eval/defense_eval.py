@@ -20,7 +20,7 @@ place, so it has no counterpart.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field, fields, replace
 from typing import Any
 
 import torch
@@ -44,7 +44,8 @@ STAT_KEYS = (
 
 @dataclass(frozen=True)
 class DefenseEvalConfig:
-    """Configuration of one grid cell: the fields the ported attacks read."""
+    """Configuration of one grid cell, with the JAX config's attack fields
+    (``cw_*``, ``square_steps`` and the extended attacks' budgets)."""
 
     attack_name: str
     eps: float
@@ -54,6 +55,40 @@ class DefenseEvalConfig:
     cw_kappa: float = DEFAULT_CW_KAPPA
     cw_steps: int = 100
     cw_lr: float = 0.01
+    square_steps: int = 1000
+    deepfool_steps: int = 50
+    deepfool_classes: int = 10
+    deepfool_overshoot: float = 0.02
+    est_samples: int = 32
+    nes_sigma: float = 1e-3
+    spsa_delta: float = 1e-2
+    bandits_steps: int = 500
+    bandits_prior_factor: int = 8
+    bandits_fd_eta: float = 0.1
+    bandits_delta: float = 0.1
+    bandits_prior_lr: float = 1.0
+    hsja_steps: int = 10
+    hsja_probes: int = 32
+    ead_beta: float = 1e-3
+    ead_c: float = 50.0
+    ead_lr: float = 0.05
+    stadv_steps: int = 200
+    stadv_lr: float = 0.01
+    stadv_tau: float = 0.05
+    boundary_steps: int = 500
+    boundary_spherical_step: float = 0.01
+    boundary_source_step: float = 0.01
+    simba_steps: int = 1000
+    simba_eps: float = 0.2
+    simba_mode: str = "dct"
+    jsma_steps: int = 100
+    jsma_theta: float = 1.0
+    l1_sparsity: float = 0.01
+    spatial_max_rot: float = 30.0
+    spatial_max_trans: float = 0.1
+    spatial_candidates: int = 10
+    spatial_grid_rot: int = 0
+    spatial_grid_trans: int = 0
     # 'feature' (stage-3 statistics) | 'squeezing' | 'mahalanobis'
     detector: str = "feature"
     # fitted state of a parametric detector (MahalanobisParams): tensors,
@@ -68,9 +103,16 @@ class DefenseEvalConfig:
     detector_margin: float = 0.9
 
     def attack_params(self) -> AttackParams:
+        """The cell's AttackParams: every attack field of the config (as the
+        JAX config's, ``n_target_classes`` and ``mu`` keep their defaults)."""
         return AttackParams(eps=self.eps, alpha=self.alpha, steps=self.steps,
-                            cw_c=self.cw_c, cw_kappa=self.cw_kappa,
-                            cw_steps=self.cw_steps, cw_lr=self.cw_lr)
+                            **{f: getattr(self, f) for f in _ATTACK_FIELDS})
+
+
+# the config's fields that AttackParams takes as they are
+_ATTACK_FIELDS = tuple(f.name for f in fields(DefenseEvalConfig)
+                       if f.name in AttackParams.__dataclass_fields__
+                       and f.name not in ("eps", "alpha", "steps"))
 
 
 def make_detector_score_fn(logits_fn: LogitsFn, features_fn: FeaturesFn,

@@ -1,7 +1,7 @@
 """Dataset-scale streaming evaluation: a grid cell over more images than fit
 one resident batch (port of ``round_up``, ``make_placer``,
-``stream_defense_cell``, ``stream_transfer_cell`` and their helpers of
-``eval/streaming.py``).
+``stream_defense_cell``, ``stream_transfer_cell``, ``stream_suite_attack``
+and their helpers of ``eval/streaming.py``).
 
 - Fixed-shape chunks come from ``utils.pipeline.EvalBatchPipeline``
   (background decode, a bounded queue: constant host memory).
@@ -14,7 +14,7 @@ one resident batch (port of ``round_up``, ``make_placer``,
   for the card, so the decode of chunk t+1 runs while the card works on
   chunk t.
 
-Deterministic attacks (fgsm, cw) give the one-batch counters.  A random
+Deterministic attacks (fgsm, cw, deepfool, ...) give the one-batch counters.  A random
 attack (pgd's random start) draws each chunk's noise from
 ``core.rng.chunk_generator(seed, cell id, step)``: the same distribution
 as a whole-batch draw, other numbers.
@@ -26,12 +26,14 @@ call them.
 from __future__ import annotations
 
 import os
+import time
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from ..core.constants import IMAGE_SIZE
+from ..core.device import synchronize
 from ..core.rng import chunk_generator
 from ..utils.pipeline import EvalBatchPipeline
 from .defense_eval import STAT_KEYS, DefenseEvalConfig, evaluate_defenses_batch
@@ -210,3 +212,76 @@ def stream_transfer_cell(
         "source_success": np.concatenate(src_parts).tolist(),
         "transfer_success": {n: np.concatenate(p).tolist() for n, p in tgt_parts.items()},
     }
+
+
+def stream_suite_attack(
+    attack_fn: Callable[[torch.Tensor, torch.Tensor, torch.Generator], torch.Tensor],
+    metrics_fn: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], dict],
+    clean_fn: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]],
+    paths: Sequence,
+    *,
+    seed: int,
+    cell_id: str,
+    chunk_size: int,
+    place: Placer,
+    size: int = IMAGE_SIZE,
+    labels: Sequence[int] | None = None,
+    clean_cache: dict | None = None,
+) -> dict:
+    """One attack row of the zoo-comparison table (cli/attack_suite.py) over
+    any number of images.
+
+    ``attack_fn(x, y, generator) -> x_adv`` is the attack; ``metrics_fn(x,
+    x_adv, y)`` returns per-sample vectors (``succ``, ``linf``, ``l2``,
+    ``changed``, ``ssim``, ``sq_sum``, ``conf``) whose means, maxima and sums
+    on the host give the one-batch row (PSNR from the summed squared error,
+    ECE from the confidence and correctness vectors); ``clean_fn(x) ->
+    (pred, conf)`` is the clean forward, for the pseudo-labels and the clean
+    calibration.  ``clean_cache`` carries the per-chunk clean results over
+    the CLI's attacks, so the clean forward runs once per chunk for the
+    whole table.  Chunk ``step`` draws from ``chunk_generator(seed,
+    cell_id, step)``.
+
+    ``compile_run_s`` is the first chunk's attack call and ``steady_s`` the
+    mean of the later chunks' (None with one chunk): host clock around the
+    call, ending in a synchronisation of the card.
+    """
+    _check_cache_sig(clean_cache, paths, chunk_size, size)
+    acc: dict[str, list[np.ndarray]] = {
+        k: [] for k in ("succ", "linf", "l2", "changed", "ssim", "sq_sum", "conf",
+                        "clean_conf", "clean_correct")}
+    chunk_times: list[float] = []
+    count = 0
+    pipe = EvalBatchPipeline(paths, chunk_size, labels=labels, size=size)
+    for step, x_np, y_np, n_valid in pipe:
+        x = place(x_np)
+        if clean_cache is not None and step in clean_cache:
+            pred, conf_clean = clean_cache[step]
+        else:
+            with torch.no_grad():
+                pred, conf_clean = clean_fn(x)
+            if clean_cache is not None:
+                clean_cache[step] = (pred, conf_clean)
+        y = _merge_labels(y_np, pred)
+        synchronize(x.device)
+        t0 = time.perf_counter()
+        x_adv = attack_fn(x, y, chunk_generator(seed, cell_id, step))
+        synchronize(x.device)
+        chunk_times.append(time.perf_counter() - t0)
+        with torch.no_grad():
+            m = metrics_fn(x, x_adv, y)
+        # the chunk's one read from the card: the per-sample vectors
+        host = {k: v.cpu().numpy() for k, v in {**m, "clean_conf": conf_clean,
+                                                   "clean_correct": pred == y}.items()}
+        for k, v in host.items():
+            acc[k].append(v[:n_valid])
+        count += int(n_valid)
+    if count == 0:
+        raise SystemExit("no loadable images")
+    out: dict = {k: np.concatenate(v) for k, v in acc.items()}
+    out["clean_correct"] = out["clean_correct"].astype(np.float32)
+    out["count"] = count
+    out["compile_run_s"] = chunk_times[0]
+    out["steady_s"] = float(np.mean(chunk_times[1:])) if len(chunk_times) > 1 else None
+    out["chunk_times_s"] = [float(t) for t in chunk_times]
+    return out

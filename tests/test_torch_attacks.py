@@ -103,8 +103,10 @@ def test_pgd_random_start_is_seeded_and_in_the_ball(setup):
 
 
 def test_unported_attacks_raise():
-    assert ATTACK_NAMES == ("fgsm", "pgd", "cw", "mifgsm", "dim", "tim")
-    for name in ("deepfool", "square", "apgd"):
+    assert ATTACK_NAMES == ("fgsm", "pgd", "cw", "mifgsm", "dim", "tim", "apgd", "apgd_dlr",
+                            "apgd_t", "fab", "deepfool", "pgd_l1", "pgd_l2", "ead", "jsma",
+                            "spatial", "stadv")
+    for name in ("square", "nes", "boundary"):
         assert name in jax_api.ATTACK_NAMES
         with pytest.raises(ValueError, match="not ported yet"):
             run_attack(name, lambda x: x, torch.zeros(1, 2, 2, 3),

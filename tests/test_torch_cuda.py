@@ -516,3 +516,91 @@ def test_transfer_attacks_launch_one_pgd_step_per_step(cuda, name):
     assert ew.launch_counts() == {"pgd_step": 3, "quantize": 0, "uniform_noise": 0}
     assert float((x_adv - x).abs().max()) <= EPS + 1e-6
     assert float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# the white-box zoo: the noise kernel draws every L∞ random start (apgd's,
+# fab's jitter, pgd_l1's at a = 1); pgd_multi_restart runs pgd_step
+# ---------------------------------------------------------------------------
+
+# name -> noise launches at steps 3 and 2 targets
+ZOO_LAUNCHES = {"apgd": 1, "apgd_dlr": 1, "apgd_t": 2, "fab": 2, "pgd_l2": 0, "pgd_l1": 1,
+                "deepfool": 0, "ead": 0, "jsma": 0, "stadv": 0, "spatial": 0}
+
+
+@pytest.mark.parametrize("name", sorted(ZOO_LAUNCHES))
+def test_white_box_zoo_on_the_card(cuda, name):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        ATTACK_THREAT, AttackParams, make_logits_fn, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    b = load_model("resnet_tiny", device=cuda)
+    lf = make_logits_fn(b.model, b.mean, b.std)
+    x = torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(3)).to(cuda)
+    y = lf(x).argmax(-1)
+    eps = {"pgd_l2": 0.5, "pgd_l1": 4.0}.get(name, EPS)
+    params = AttackParams(eps=eps, steps=3, n_target_classes=2, cw_steps=3, deepfool_steps=3,
+                          jsma_steps=3, stadv_steps=3, spatial_candidates=2)
+    ew.reset_launches()
+    x_adv = run_attack(name, lf, x, y, params, generator_from_seed(0))
+    torch.cuda.synchronize()
+    assert ew.launch_counts() == {"pgd_step": 0, "quantize": 0,
+                                  "uniform_noise": ZOO_LAUNCHES[name]}
+    again = run_attack(name, lf, x, y, params, generator_from_seed(0))
+    assert torch.equal(x_adv, again)
+    assert x_adv.is_cuda and bool(torch.isfinite(x_adv).all())
+    assert float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0
+    d = (x_adv - x).reshape(4, -1)
+    threat = ATTACK_THREAT[name]
+    if threat == "linf":
+        assert float(d.abs().max()) <= eps + 1e-6
+    elif threat == "l2":
+        assert float(d.norm(dim=1).max()) <= eps + 1e-4
+    elif threat == "l1":
+        assert float(d.abs().sum(dim=1).max()) <= eps + 1e-4
+    elif threat == "l0":
+        assert int((d.reshape(4, -1, 3) != 0).any(-1).sum(-1).max()) <= 2 * params.jsma_steps
+
+
+@pytest.mark.parametrize("norm", ["linf", "l2"])
+def test_apgd_and_fab_l2_draw_on_the_card(cuda, norm):
+    """The L2 starts are normal draws made on the card (no noise launch)."""
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        apgd_attack, fab_targeted_attack, make_logits_fn)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    b = load_model("resnet_tiny", device=cuda)
+    lf = make_logits_fn(b.model, b.mean, b.std)
+    x = torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(4)).to(cuda)
+    y = lf(x).argmax(-1)
+    eps = EPS if norm == "linf" else 0.5
+    ew.reset_launches()
+    a = apgd_attack(lf, x, y, eps=eps, steps=3, generator=generator_from_seed(0), norm=norm)
+    f = fab_targeted_attack(lf, x, y, eps=eps, steps=2, n_targets=2,
+                            generator=generator_from_seed(0), norm=norm)
+    torch.cuda.synchronize()
+    assert ew.LAUNCHES["uniform_noise"] == (3 if norm == "linf" else 0)
+    d = (a - x).reshape(4, -1)
+    size = d.abs().max(dim=1).values if norm == "linf" else d.norm(dim=1)
+    assert float(size.max()) <= eps + 1e-5
+    assert bool(torch.isfinite(f).all()) and float(f.min()) >= 0.0 and float(f.max()) <= 1.0
+
+
+def test_pgd_multi_restart_launches(cuda):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        make_logits_fn, pgd_multi_restart)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    b = load_model("resnet_tiny", device=cuda)
+    lf = make_logits_fn(b.model, b.mean, b.std)
+    x = torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(5)).to(cuda)
+    y = lf(x).argmax(-1)
+    ew.reset_launches()
+    x_adv = pgd_multi_restart(lf, x, y, eps=EPS, alpha=ALPHA, steps=3,
+                              generator=generator_from_seed(0), restarts=3)
+    torch.cuda.synchronize()
+    assert ew.launch_counts() == {"pgd_step": 9, "quantize": 0, "uniform_noise": 3}
+    assert float((x_adv - x).abs().max()) <= EPS + 1e-6

@@ -14,6 +14,7 @@ from _torch_cli_helpers import val_tree, write_images
 from image_recognition_adversarial_example_attack_tpu.cli import common as jax_common
 from image_recognition_adversarial_example_attack_tpu.core import datasets as jax_datasets
 from image_recognition_adversarial_example_attack_tpu.utils import profiling as jax_profiling
+from image_recognition_adversarial_example_attack_tpu_torch.attacks import ATTACK_NAMES
 from image_recognition_adversarial_example_attack_tpu_torch.cli import common
 from image_recognition_adversarial_example_attack_tpu_torch.cli.defense_experiments import build_parser
 from image_recognition_adversarial_example_attack_tpu_torch.core import datasets, rng
@@ -32,10 +33,17 @@ def test_cell_rng_id_and_generator():
     for name in ("fgsm", "pgd", "cw"):
         assert common.cell_rng_id(name, 0.0313725) == jax_common.cell_rng_id(name, 0.0313725)
     assert common.cell_rng_id("pgd", 0.01) != common.cell_rng_id("pgd", 0.1)
-    assert common.EPS_INDEPENDENT_ATTACKS == ("cw",)
+    assert common.EPS_INDEPENDENT_ATTACKS == ("cw", "deepfool", "ead", "stadv", "jsma",
+                                              "spatial")
     assert set(common.EPS_INDEPENDENT_ATTACKS) <= set(jax_common.EPS_INDEPENDENT_ATTACKS)
+    for name in common.EPS_INDEPENDENT_ATTACKS:
+        assert common.cell_rng_id(name, 0.5) == jax_common.cell_rng_id(name, 0.5)
     for name, knobs in common.ATTACK_KNOB_ARGS.items():
         assert knobs == jax_common.ATTACK_KNOB_ARGS[name]
+    # every ported attack has its knobs; the flags of the others are left out
+    # of every ported cell's fingerprint, as in JAX
+    assert set(common.ATTACK_KNOB_ARGS) == set(ATTACK_NAMES)
+    assert common._ALL_KNOB_ARGS == jax_common._ALL_KNOB_ARGS
 
     def draw(seed, cell):
         return torch.rand(4, generator=rng.cell_generator(seed, cell))

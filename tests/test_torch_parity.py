@@ -284,25 +284,9 @@ def test_vgg_flatten_ordering_matches_torch():
     np.testing.assert_allclose(ours, theirs, atol=1e-10)
 
 
-def test_deepfool_cross_framework(data):
-    """DeepFool is deterministic, so an independent torch implementation of
-    the same linearization (per-class backward loop, the shape reference
-    -style code uses) must produce the SAME adversarial examples as the
-    fused vjp/scan program (attacks/deepfool.py)."""
-    from image_recognition_adversarial_example_attack_tpu.attacks import (
-        deepfool_attack,
-    )
-
-    x, _ = data
-    x_jax = jnp.asarray(x)
-    steps, k, overshoot, eta = 12, 4, 0.02, 1e-4
-
-    got = np.asarray(
-        deepfool_attack(logits_jax, x_jax, steps=steps, num_classes=k,
-                        overshoot=overshoot, eta=eta)
-    )
-
-    # independent torch reference
+def _deepfool_oracle(x, steps, k, overshoot, eta):
+    """An independent torch DeepFool on ``logits_torch``: the per-class
+    backward loop of reference-style code.  NHWC numpy in and out."""
     x0 = _to_torch(x)
     with torch.no_grad():
         logits0 = logits_torch(x0)
@@ -335,6 +319,38 @@ def test_deepfool_cross_framework(data):
             / wn_l.clamp_min(1e-12).view(-1, 1, 1, 1) ** 2
         r_tot = torch.where(fooled.view(-1, 1, 1, 1), r_tot,
                             (r_tot + step_v).detach())
-    expected = (x0 + (1.0 + overshoot) * r_tot).clamp(0, 1)
+    return _to_nhwc((x0 + (1.0 + overshoot) * r_tot).clamp(0, 1))
 
-    np.testing.assert_allclose(got, _to_nhwc(expected), atol=1e-9)
+
+def test_deepfool_cross_framework(data):
+    """DeepFool is deterministic, so an independent torch implementation of
+    the same linearization (per-class backward loop, the shape reference
+    -style code uses) must produce the SAME adversarial examples as the
+    fused vjp/scan program (attacks/deepfool.py)."""
+    from image_recognition_adversarial_example_attack_tpu.attacks import (
+        deepfool_attack,
+    )
+
+    x, _ = data
+    x_jax = jnp.asarray(x)
+    steps, k, overshoot, eta = 12, 4, 0.02, 1e-4
+
+    got = np.asarray(
+        deepfool_attack(logits_jax, x_jax, steps=steps, num_classes=k,
+                        overshoot=overshoot, eta=eta)
+    )
+    expected = _deepfool_oracle(x, steps, k, overshoot, eta)
+    np.testing.assert_allclose(got, expected, atol=1e-9)
+
+
+def test_port_deepfool_equals_the_torch_oracle(data):
+    """The port's DeepFool (attacks/deepfool.py of the PyTorch package) on
+    the same model agrees with the oracle above, and so with JAX's."""
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.deepfool import (
+        deepfool_attack as port_deepfool)
+
+    x, _ = data
+    steps, k, overshoot, eta = 12, 4, 0.02, 1e-4
+    got = port_deepfool(lambda z: logits_torch(z.permute(0, 3, 1, 2)), torch.tensor(x),
+                        steps=steps, num_classes=k, overshoot=overshoot, eta=eta).numpy()
+    np.testing.assert_allclose(got, _deepfool_oracle(x, steps, k, overshoot, eta), atol=1e-9)

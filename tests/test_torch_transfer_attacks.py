@@ -233,8 +233,8 @@ def test_other_jax_attacks_are_refused_before_any_device_work(cli, cli_images):
 
     cuda = ["--device", "cuda"]
     if cli == "classify":
-        argv, main, flag = [str(cli_images / "img_0.jpg"), "--attack", "apgd", *cuda], \
-            classify.main, "--attack apgd"
+        argv, main, flag = [str(cli_images / "img_0.jpg"), "--attack", "square", *cuda], \
+            classify.main, "--attack square"
     else:
         main = {"grid": defense_experiments.main, "blackbox": blackbox_transfer.main,
                 "transferability": transferability.main}[cli]

@@ -183,9 +183,9 @@ def test_unported_attacks_are_refused_before_any_device_work(setup, cli):
     """Asked for the card (absent here), an unported attack is refused
     before the device is resolved."""
     main = bb.main if cli == "blackbox" else tr.main
-    with pytest.raises(SystemExit, match="apgd square: not ported to this package yet"):
+    with pytest.raises(SystemExit, match="square nes: not ported to this package yet"):
         main(["--image_dir", str(setup["images"]), "--attacks", "fgsm", "mifgsm", "apgd",
-              "square", "--device", "cuda"])
+              "square", "nes", "--device", "cuda"])
 
 
 def _rows(out: str) -> dict[str, tuple]:

@@ -4,7 +4,8 @@
 One sweep over every name in the port's ``ATTACK_THREAT`` through
 ``run_attack`` on resnet_tiny (CPU, float32): the shape and dtype, the
 [0,1] range, the threat model's bound (``|x_adv - x|_inf <= eps + 1e-6``
-for ``linf``) and determinism under the same generator.  The
+for ``linf``, the L2 and L1 norms of the delta for ``l2`` and ``l1``, the
+changed-pixel count for ``l0``) and determinism under the same generator.  The
 parametrization is the registry itself, so an attack cannot land in the
 dispatch without a threat model and without passing here.
 """
@@ -21,8 +22,13 @@ from image_recognition_adversarial_example_attack_tpu_torch.core.rng import gene
 from image_recognition_adversarial_example_attack_tpu_torch.models import zoo
 
 EPS = 8 / 255
-# the sweep checks invariants, not strength: a few steps each
-SWEEP_PARAMS = AttackParams(eps=EPS, alpha=2 / 255, steps=3, cw_steps=5)
+# the sweep checks invariants, not strength: the JAX sweep's tiny budgets
+# (tests/test_zoo_invariants.py), a few steps each
+SWEEP_PARAMS = AttackParams(
+    eps=EPS, alpha=2 / 255, steps=3, cw_steps=5, square_steps=8, deepfool_steps=3,
+    deepfool_classes=4, est_samples=4, bandits_steps=6, bandits_prior_factor=4, hsja_steps=2,
+    hsja_probes=4, n_target_classes=3, stadv_steps=4, boundary_steps=8, simba_steps=8,
+    jsma_steps=5, spatial_candidates=3)
 
 
 @pytest.fixture(scope="module")
@@ -51,7 +57,16 @@ def test_zoo_member_invariants(name, sweep_inputs):
     assert float(a.min()) >= 0.0 and float(a.max()) <= 1.0
     assert torch.equal(a, b), "not deterministic under the same generator"
     threat = ATTACK_THREAT[name]
+    delta = (a - x).reshape(x.shape[0], -1)
     if threat == "linf":
-        assert float((a - x).abs().max()) <= EPS + 1e-6
+        assert float(delta.abs().max()) <= EPS + 1e-6
+    elif threat == "l2":
+        assert float(delta.norm(dim=1).max()) <= EPS + 1e-4
+    elif threat == "l1":
+        assert float(delta.abs().sum(dim=1).max()) <= EPS + 1e-4
+    elif threat == "l0":
+        # jsma moves at most one feature a step: at most jsma_steps pixels
+        changed = (delta.reshape(x.shape[0], -1, 3) != 0).any(dim=-1).sum(dim=-1)
+        assert int(changed.max()) <= SWEEP_PARAMS.jsma_steps
     else:
         assert threat == "none"
