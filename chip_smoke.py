@@ -167,6 +167,32 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    ``--steps 5 --deepfool_steps 10``, printed): eight summary lines
    (deepfool's cell computed once), one quantize launch a computed cell,
    and the noise of apgd, fab and pgd_l1.
+19. black-box -- ResNet-50 bf16, random weights, pseudo-labels: (a) at
+   batch 128, square (500 steps), square_l2 (500 steps, eps 3), simba in the
+   dct and the pixel basis (300 steps) and bandits (100 steps); (b) at batch
+   32, nes and spsa (10 steps of 32 probe pairs), hsja at its defaults and
+   boundary (200 steps): each in its threat model (the L∞ or L2 ball, or
+   [0,1] alone for simba, hsja and boundary), ex/s and queries/s, exactly
+   ``steps`` pgd_step launches for nes, spsa and bandits and none else,
+   rerun from the same generator bit-equal; the EOT wrapper's host read
+   (wrapped calls against the same calls with no read); (c) the robust_eval
+   CLI in three subprocesses started together, ``--protocol lite``,
+   ``standard`` and ``rand`` at two eps on 32 PNGs, budgets cut to
+   ``--apgd_steps 10 --square_steps 200 --fab_steps 10 --n_target_classes 3
+   --deepfool_steps 10 --eot_samples 4`` (printed): the console lines, the
+   JSON and the ``--plot`` figure; then in this process
+   ``stream_robust_cell`` over 64 PNGs in chunks of 32 (the standard
+   protocol) equal to one resident run a chunk under its generator, with
+   exactly 1 + 2 x 3 noise launches a chunk; (d) the query_curves CLI in
+   this process with the six curve attacks at ``--max_queries 500`` on 32
+   PNGs, one batch then streamed in chunks of 16 (264 pgd_step launches a
+   pass over the images), the streamed curves equal to the curves assembled
+   from resident runs of each chunk; (e) the grid CLI on 128 PNGs and the
+   attack_suite CLI on 32, in this process, with ``--attacks square simba
+   hsja`` at cut budgets (printed): six summary lines, simba's cell
+   computed once, one quantize launch a computed cell, no other launch;
+   then the group's 14 cuda tests (``tests/test_torch_cuda.py``) in a
+   subprocess, every one passed.
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -2226,7 +2252,7 @@ def _check_threat(name: str, threat: str, x_adv, x, eps: float, jsma_steps: int)
 
 
 def _zoo_run(name: str, fn, x, y, lf, want: dict, threat: str, eps: float,
-             jsma_steps: int = 100) -> tuple[dict, object]:
+             jsma_steps: int = 100, tag: str = "zoo") -> tuple[dict, object]:
     """One counted run of an attack (launches reset before, read after,
     host clock ending in a synchronisation), its threat model, then the
     same call again from a fresh generator of the same seed: bit-equal."""
@@ -2254,7 +2280,7 @@ def _zoo_run(name: str, fn, x, y, lf, want: dict, threat: str, eps: float,
     batch = x.shape[0]
     rec = {"launches": counts, "seconds": seconds, "ex_per_s": batch / seconds,
            "threat": threat, "size": size, "flipped": flipped, "rerun_bit_equal": True}
-    log(f"[zoo] {name} batch {batch}: {seconds:.3f} s ({batch / seconds:.1f} ex/s); launches "
+    log(f"[{tag}] {name} batch {batch}: {seconds:.3f} s ({batch / seconds:.1f} ex/s); launches "
         f"{counts}; {threat} size {size:.6g}; flipped {flipped:.3f}; rerun bit-equal")
     return rec, x_adv
 
@@ -2489,6 +2515,368 @@ def phase_white_box_zoo(state: dict, pngs: list[Path]) -> dict:
             log(f"[zoo]   {ln}")
     return res
 
+# phase 19: the black-box group.  (a) at batch 128: name -> (AttackParams
+# fields, eps, pgd_step launches, queries a sample); (b) at batch 32, the
+# decision-based and gradient-estimating ones
+BB_A = {
+    "square": ({"square_steps": 500}, EPS, 0, 502),
+    "square_l2": ({"square_steps": 500, "eps": 3.0}, 3.0, 0, 502),
+    "simba": ({"simba_steps": 300}, EPS, 0, 601),
+    "simba_pixel": ({"simba_steps": 300, "simba_mode": "pixel"}, EPS, 0, 601),
+    "bandits": ({"bandits_steps": 100}, EPS, 100, 200),
+}
+BB_B = {
+    "nes": ({"steps": 10, "est_samples": 32}, 10, 640),
+    "spsa": ({"steps": 10, "est_samples": 32}, 10, 640),
+    "hsja": ({}, 0, 12 + 10 * (10 + 32 + 10 + 1)),  # its defaults: 10 steps, 32 probes
+    "boundary": ({"boundary_steps": 200}, 0, 12 + 2 * 200),
+}
+BB_B_BATCH, RE_N, RE_STREAM_N, RE_CHUNK, QC_N, QC_CHUNK = 32, 32, 64, 32, 32, 16
+RE_EPS = ("0.0157", "0.0314")
+# robust_eval's budgets, cut (printed) to keep the phase near two minutes;
+# AutoAttack's defaults are 100 / 5000 / 100 / 9 (30 deepfool steps, 20 EOT
+# draws)
+RE_CUT = ("--apgd_steps", "10", "--square_steps", "200", "--fab_steps", "10",
+          "--n_target_classes", "3", "--deepfool_steps", "10", "--eot_samples", "4")
+RE_ARMS = {"lite": ("apgd", "square", "deepfool"),
+           "standard": ("apgd_ce", "apgd_t", "fab", "square"),
+           "rand": ("apgd_ce_eot", "apgd_dlr_eot", "square")}
+RE_KEYS = {"protocol", "norm", "eot_samples", "eot_sigma", "apgd_steps", "square_steps",
+           "deepfool_steps", "fab_steps", "n_target_classes", "results"}
+RE_LINE = r"^eps=\d\.\d{5}: robust_acc=\d\.\d{3} \((\w+ \d+/\d+ ?)+\)  \[\d+\.\ds\]$"
+QC_QUERIES = 500
+# the cuda tests of the black-box group (tests/test_torch_cuda.py), run by
+# phase 19 in a subprocess; tests/conftest.py configures jax, so it is left out
+BB_CUDA_TESTS = ("test_black_box_attacks_on_the_card or test_black_box_draws_are_made_on_the_card"
+                 " or test_eot_mix_on_the_card or test_robust_eval_protocols_on_the_card"
+                 " or test_query_curve_on_the_card")
+BB_CUDA_TEST_COUNT = 14
+BB_GRID_CUT = ("--square_steps", "50", "--simba_steps", "50", "--hsja_steps", "2")
+BB_SUITE_CUT = ("--square_steps", "100", "--simba_steps", "100", "--hsja_steps", "2")
+
+
+def _eot_read_cost(lf, x) -> dict:
+    """The EOT wrapper's one host read a call (the input's mix seeds its
+    generator): ten wrapped calls, then the same ten with the generator
+    fixed and no read, one synchronisation at the end of each series; and
+    the read alone on an idle queue."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import eot
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+
+    n, calls = 4, 10
+    wrapped = eot.make_eot_logits_fn(lf, generator_from_seed(0), n_samples=n)
+    transform = eot.gaussian_noise_transform(0.25)
+    g = eot.call_generator(1, 0, x.device)
+
+    def unread(x01):
+        stacked = torch.cat([transform(g, x01) for _ in range(n)], dim=0)
+        probs = torch.softmax(lf(stacked), dim=-1).reshape(n, x01.shape[0], -1).mean(dim=0)
+        return torch.log(torch.clamp_min(probs, 1e-12))
+
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("wrapped", wrapped), ("no_read", unread)):
+            fn(x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(calls):
+                fn(x + i * 1e-3)
+            torch.cuda.synchronize()
+            out[f"{name}_ms"] = (time.perf_counter() - t0) / calls * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            int(eot.input_mix(x))
+        out["read_idle_ms"] = (time.perf_counter() - t0) / calls * 1e3
+    out["read_cost_ms"] = out["wrapped_ms"] - out["no_read_ms"]
+    log(f"[black-box] EOT wrapper at batch {x.shape[0]} x {n} draws: {out['wrapped_ms']:.2f} ms a "
+        f"call with its host read, {out['no_read_ms']:.2f} ms with a fixed generator and no "
+        f"read ({out['read_cost_ms']:+.2f} ms); the mix and its read alone on an idle queue "
+        f"{out['read_idle_ms']:.3f} ms")
+    return out
+
+
+def _robust_eval_clis(img32: Path, tmp: Path) -> dict:
+    """The robust_eval CLI in three subprocesses started together, one per
+    protocol, at two eps: the console lines, the JSON and the figure."""
+    import re
+
+    from PIL import Image
+
+    procs = {}
+    for protocol in RE_ARMS:
+        cmd = [sys.executable, "-m", f"{PKG}.cli.robust_eval", "--image_dir", str(img32),
+               "--protocol", protocol, "--eps_list", *RE_EPS, *RE_CUT,
+               "--output", str(tmp / f"re_{protocol}.json"),
+               "--plot", str(tmp / f"re_{protocol}.png")]
+        procs[protocol] = (subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True),
+                           time.perf_counter())
+    res = {}
+    for protocol, (proc, t0) in procs.items():
+        out, err = proc.communicate(timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or "Using device: cuda" not in out:
+            raise AssertionError(f"robust_eval --protocol {protocol} exit {proc.returncode}:\n"
+                                 f"{out[-3000:]}\n{err[-4000:]}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("eps=")]
+        data = json.loads((tmp / f"re_{protocol}.json").read_text())
+        row_keys = {"eps", "robust_accuracy", "count",
+                    *(f"success_{a}" for a in RE_ARMS[protocol])}
+        if (len(lines) != len(RE_EPS) or not all(re.match(RE_LINE, ln) for ln in lines)
+                or set(data) != RE_KEYS or data["protocol"] != protocol
+                or any(set(r) != row_keys or r["count"] != RE_N for r in data["results"])):
+            raise AssertionError(f"robust_eval --protocol {protocol}: lines {lines}, JSON {data}")
+        with Image.open(tmp / f"re_{protocol}.png") as im:
+            size = im.size
+        res[protocol] = {"seconds": seconds, "lines": lines, "results": data["results"],
+                         "plot_size": size}
+        log(f"[black-box] robust_eval --protocol {protocol} (subprocess, {RE_N} PNGs, eps "
+            f"{' '.join(RE_EPS)}): exit 0 in {seconds:.1f} s, the three started together; "
+            f"--plot {size[0]}x{size[1]}")
+        for ln in lines:
+            log(f"[black-box]   {ln}")
+    return res
+
+
+def _robust_stream_vs_resident(lf, pngs: list[Path], dev) -> dict:
+    """stream_robust_cell over 64 PNGs in chunks of 32 (the standard
+    protocol, cut budgets) against one resident run a chunk under that
+    chunk's generator: equal vectors; the noise launches of the streamed
+    run exactly those of the APGD-CE, APGD-T and FAB-T starts."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import predict_labels
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import attack_suite, robust_eval
+    from image_recognition_adversarial_example_attack_tpu_torch.core.images import load_image_batch
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import chunk_generator
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.streaming import (
+        make_placer, stream_robust_cell)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    args = robust_eval.build_parser().parse_args(["--protocol", "standard", *RE_CUT])
+    _, _, run = robust_eval._protocol(args, lf, False)
+    paths, cell_id, eps = pngs[:RE_STREAM_N], "standard:0.031373", EPS
+    targets = int(args.n_target_classes)
+    with attack_suite._deterministic_cudnn():
+        ew.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = stream_robust_cell(run, paths, seed=0, cell_id=cell_id, eps=eps,
+                                 chunk_size=RE_CHUNK, place=make_placer(dev),
+                                 pseudo_label_fn=lambda xx: predict_labels(lf, xx))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ew.launch_counts()
+        chunks = RE_STREAM_N // RE_CHUNK
+        want = {"pgd_step": 0, "quantize": 0, "uniform_noise": chunks * (1 + 2 * targets)}
+        if counts != want:
+            raise AssertionError(f"stream_robust_cell standard: launches {counts}, want {want}")
+        for step in range(chunks):
+            x = torch.from_numpy(load_image_batch(paths[step * RE_CHUNK:(step + 1) * RE_CHUNK])
+                                 ).to(dev)
+            outs = run(x, predict_labels(lf, x), chunk_generator(0, cell_id, step), eps)
+            for i, v in enumerate(outs):
+                part = got[f"arm{i}"][step * RE_CHUNK:(step + 1) * RE_CHUNK]
+                if not np.array_equal(part, v.cpu().numpy()):
+                    raise AssertionError(f"stream_robust_cell arm{i} chunk {step} differs from "
+                                         "the resident run")
+    rec = {"seconds": seconds, "launches": counts,
+           "success": int(got["arm0"].sum()), "arms": {
+               a: int(got[f"arm{i + 1}"].sum()) for i, a in enumerate(RE_ARMS["standard"])}}
+    log(f"[black-box] stream_robust_cell standard, {RE_STREAM_N} PNGs in chunks of {RE_CHUNK}: "
+        f"{seconds:.1f} s; launches {counts} (1 + 2 x {targets} noise a chunk); every arm's "
+        f"vector equal to the resident runs'; success {rec['success']}/{RE_STREAM_N}, arms "
+        f"{rec['arms']}")
+    return rec
+
+
+def _query_curves(lf, img32: Path, pngs: list[Path], tmp: Path, dev) -> dict:
+    """The query_curves CLI in this process with the six curve attacks,
+    one batch then streamed in chunks of 16; the streamed curves against
+    the ones assembled from resident runs of each chunk."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import predict_labels
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import query_curves
+    from image_recognition_adversarial_example_attack_tpu_torch.core.images import load_image_batch
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import chunk_generator
+    from image_recognition_adversarial_example_attack_tpu_torch.eval import query_curves as qc
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    steps = {a: qc.budget_to_steps(a, QC_QUERIES) for a in qc.CURVE_ATTACKS}
+    per_run = steps["nes"] + steps["spsa"] + steps["bandits"]  # one pgd_step a step
+    res = {}
+    for mode, extra, runs in (("one batch", [], 1), ("streamed", ["--max_batch", str(QC_CHUNK)],
+                                                       QC_N // QC_CHUNK)):
+        path = tmp / f"qc_{mode[0]}.json"
+        out, seconds, counts = _in_process_cli(query_curves.main, [
+            "--image_dir", str(img32), "--attacks", *qc.CURVE_ATTACKS, "--max_queries",
+            str(QC_QUERIES), "--output", str(path), *extra])
+        want = {"pgd_step": runs * per_run, "quantize": 0, "uniform_noise": 0}
+        data = json.loads(path.read_text())
+        header = query_curves.table_header([100, 500, 1000, 2000])
+        keys = {"count", "eps", "max_queries", "labels", "curves"} | (
+            {"streamed", "max_batch"} if extra else set())
+        if counts != want or header not in out or set(data) != keys or data["count"] != QC_N:
+            raise AssertionError(f"query_curves {mode}: launches {counts} (want {want}), "
+                                 f"keys {sorted(data)}:\n{out[-2000:]}")
+        rows = out.splitlines()[out.splitlines().index(header) + 2:][:len(qc.CURVE_ATTACKS)]
+        res[mode] = {"seconds": seconds, "launches": counts, "rows": rows,
+                     "curves": data["curves"]}
+        log(f"[black-box] query_curves CLI {mode} (six attacks, {QC_N} PNGs, "
+            f"{QC_QUERIES} queries): {seconds:.1f} s in process; launches {counts}")
+        for ln in rows:
+            log(f"[black-box]   {ln}")
+
+    # the streamed curves from resident runs of each chunk, same generators
+    paths = pngs[:QC_N]
+    ew.reset_launches()
+    for curve in res["streamed"]["curves"]:
+        name = curve["attack"]
+        fn, per_step, init_q = qc._runner(name, lf, eps=EPS, steps=steps[name], est_samples=32,
+                                          nes_sigma=1e-3, spsa_delta=1e-2, alpha=ALPHA,
+                                          simba_eps=0.2, simba_mode="dct")
+        ever, firsts = np.zeros(steps[name], np.int64), []
+        for step in range(QC_N // QC_CHUNK):
+            x = torch.from_numpy(load_image_batch(paths[step * QC_CHUNK:(step + 1) * QC_CHUNK])
+                                 ).to(dev)
+            _, hist = fn(x, predict_labels(lf, x), chunk_generator(0, name, step))
+            count, first = qc.history_stats(hist.cpu().numpy())
+            ever += count
+            firsts.append(first)
+        want = qc.assemble_curve(name, ever, QC_N, np.concatenate(firsts), per_step=per_step,
+                                 init_q=init_q, steps=steps[name])
+        if want != curve:
+            raise AssertionError(f"query_curves streamed {name}: the curve differs from the "
+                                 "per-chunk resident runs'")
+    torch.cuda.synchronize()
+    res["resident_chunks"] = {"launches": ew.launch_counts()}
+    log(f"[black-box] query_curves streamed = per-chunk resident runs for all six; launches of "
+        f"the resident runs {res['resident_chunks']['launches']}")
+    return res
+
+
+def _black_box_cuda_tests() -> dict:
+    """The black-box group's cuda tests in a subprocess: every one passes."""
+    import re
+
+    cmd = [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py", "-m", "cuda",
+           "--noconftest", "-q", "-p", "no:cacheprovider", "-k", BB_CUDA_TESTS]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    passed = re.search(r"(\d+) passed", tail)
+    if (proc.returncode != 0 or passed is None or int(passed[1]) != BB_CUDA_TEST_COUNT
+            or re.search(r"failed|skipped|error", tail)):
+        raise AssertionError(f"the black-box cuda tests: exit {proc.returncode}, {tail}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
+    log(f"[black-box] cuda tests (subprocess): {tail} in {seconds:.1f} s")
+    return {"seconds": seconds, "summary": tail}
+
+
+def phase_black_box(state: dict, pngs: list[Path]) -> dict:
+    """Phase 19: the black-box attacks at batch 128 and 32 with their
+    threat models, queries/s, pgd_step launches and bit-equal reruns; the
+    EOT wrapper's host read; the robust_eval CLI (three protocols, a
+    subprocess each; streamed against resident in process); the
+    query_curves CLI one batch and streamed; the grid and attack_suite
+    CLIs with square, simba and hsja."""
+    import re
+
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        ATTACK_THREAT, AttackParams, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import (
+        attack_suite, defense_experiments)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+
+    x, y, dev = state["x"], state["y"], state["x"].device
+    lf = make_fns(state["bundle"])[0]
+    res: dict = {"a": {}, "b": {}}
+    zero = {"pgd_step": 0, "quantize": 0, "uniform_noise": 0}
+
+    def run_one(group, name, fields, eps, pgd, queries, xx, yy):
+        attack = name.split("_pixel")[0]
+        params = AttackParams(**{"eps": eps, **fields})
+        rec, _ = _zoo_run(name, lambda g: run_attack(attack, lf, xx, yy, params, g), xx, yy, lf,
+                          {**zero, "pgd_step": pgd}, ATTACK_THREAT[attack], eps,
+                          tag="black-box")
+        rec["queries_per_sample"] = queries
+        rec["queries_per_s"] = xx.shape[0] * queries / rec["seconds"]
+        log(f"[black-box]   {name}: {queries} queries a sample, "
+            f"{rec['queries_per_s']:.0f} queries/s")
+        res[group][name] = rec
+
+    # (a) batch 128
+    for name, (fields, eps, pgd, queries) in BB_A.items():
+        run_one("a", name, fields, eps, pgd, queries, x, y)
+    # (b) batch 32
+    xb, yb = x[:BB_B_BATCH].contiguous(), y[:BB_B_BATCH]
+    for name, (fields, pgd, queries) in BB_B.items():
+        run_one("b", name, fields, EPS, pgd, queries, xb, yb)
+    res["eot"] = _eot_read_cost(lf, xb)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        img32 = _linked(pngs[:RE_N], tmp / "png32")
+        # (c) the robust_eval CLI, then streamed against resident in process
+        log(f"[black-box] cut: robust_eval runs {' '.join(RE_CUT)} (defaults 100, 1000, 100, 9, "
+            "30, 20)")
+        res["robust_eval_cli"] = _robust_eval_clis(img32, tmp)
+        res["robust_stream"] = _robust_stream_vs_resident(lf, pngs, dev)
+        # (d) the query_curves CLI
+        res["query_curves"] = _query_curves(lf, img32, pngs, tmp, dev)
+
+        # (e) the grid and suite CLIs with three of them, budgets cut
+        img128 = _linked(pngs[:SHAPE[0]], tmp / "png128")
+        log(f"[black-box] cut: the grid runs {' '.join(BB_GRID_CUT)}, the suite "
+            f"{' '.join(BB_SUITE_CUT)} (defaults 1000, 1000, 10)")
+        out, seconds, counts = _in_process_cli(defense_experiments.main, [
+            "--image_dir", str(img128), "--attacks", "square", "simba", "hsja",
+            "--eps_list", *GRID_EPS, *BB_GRID_CUT, "--viz_samples", "0",
+            "--output_dir", str(tmp / "grid")])
+        summary = re.compile(
+            r"^attack=(square|simba|hsja), eps=(\d\.\d{5}), attack_success=\d\.\d{3}, "
+            r"preproc_defense_acc=\d\.\d{3}, detector_clean_pass_rate=\d\.\d{3}, "
+            r"detector_adv_flag_rate=\d\.\d{3}, detector_attack_success=\d\.\d{3}$")
+        lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
+        computed = 2 * len(GRID_EPS) + 1  # simba: one cell for both eps
+        want = {**zero, "quantize": computed}
+        reused = out.count("(simba is eps-independent: reusing the computed cell)")
+        if (len(lines) != 3 * len(GRID_EPS) or not all(summary.match(ln) for ln in lines)
+                or counts != want or reused != 1):
+            raise AssertionError(f"grid --attacks square simba hsja: lines {lines}, launches "
+                                 f"{counts} (want {want}), simba reused {reused}")
+        res["grid_cli"] = {"seconds": seconds, "launches": counts, "lines": lines,
+                           "cell_s": _cells_s(tmp / "grid")}
+        log(f"[black-box] grid CLI --attacks square simba hsja on {SHAPE[0]} PNGs: "
+            f"{seconds:.1f} s in process; launches {counts} (simba's cell computed once); "
+            "cells " + ", ".join(f"{k} {v:.2f} s" for k, v in res["grid_cli"]["cell_s"].items()))
+        for ln in lines:
+            log(f"[black-box]   {ln}")
+        three = ("square", "simba", "hsja")
+        out, seconds, counts = _in_process_cli(attack_suite.main, [
+            "--image_dir", str(img32), "--attacks", *three, *BB_SUITE_CUT,
+            "--output", str(tmp / "suite.json")])
+        if counts != zero:
+            raise AssertionError(f"attack_suite square simba hsja: launches {counts}")
+        rows = list(_suite_rows(out, three).values())
+        res["suite_cli"] = {"seconds": seconds, "launches": counts, "rows": rows,
+                            "results": json.loads((tmp / "suite.json").read_text())["results"]}
+        log(f"[black-box] attack_suite CLI square simba hsja ({RE_N} PNGs): {seconds:.1f} s in "
+            f"process, every rerun bit-equal; launches {counts}")
+        for ln in rows:
+            log(f"[black-box]   {ln}")
+    res["cuda_tests"] = _black_box_cuda_tests()
+    return res
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2555,22 +2943,28 @@ def main(argv=None) -> int:
                              {n: record["families"][n]["bf16_forward_ms"] for n in FAMILIES})
         record["transfer_attacks"] = run("transfer_attacks", phase_transfer_attacks, state, pngs)
         record["zoo"] = run("zoo", phase_white_box_zoo, state, pngs)
+        record["black_box"] = run("black_box", phase_black_box, state, pngs)
 
     # the elementwise kernels' main path: PGD-10, the eight cells, the
     # streamed pgd cell, the visualize path's PGD-20 and trajectory, the
     # two pgd-20 transfer cells, PGD-10 on the int8 ResNet-50, the three
     # transfer attacks, the mifgsm transfer cell and the two CLIs run with
     # them, the white-box zoo's counted runs and its in-process suite and
-    # grid CLIs; the conv's: the probe's entry point
+    # grid CLIs, the black-box group's counted runs, its streamed robust
+    # cell, query_curves CLIs (and their per-chunk resident runs) and grid
+    # and suite CLIs; the conv's: the probe's entry point
     detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
-    ta, zoo = record["transfer_attacks"], record["zoo"]
+    ta, zoo, bb = record["transfer_attacks"], record["zoo"], record["black_box"]
     runs = [record["pgd"], record["cell"], *record["cells"].values(),
             *(record["detectors"][c] for c in detector_cells),
             record["stream"]["pgd_cell"], record["visualize"]["in_process"],
             record["transfer"]["cell"], record["transfer"]["ensemble"], record["int8"]["pgd"],
             *ta["attacks"].values(), ta["cell"], ta["transferability_cli"], ta["grid_cli"],
             *zoo["a"].values(), *zoo["b"].values(), *zoo["suite_inproc"].values(),
-            *zoo["suite_f32"].values(), zoo["grid_cli"]]
+            *zoo["suite_f32"].values(), zoo["grid_cli"],
+            *bb["a"].values(), *bb["b"].values(), bb["robust_stream"],
+            bb["query_curves"]["one batch"], bb["query_curves"]["streamed"],
+            bb["query_curves"]["resident_chunks"], bb["grid_cli"], bb["suite_cli"]]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

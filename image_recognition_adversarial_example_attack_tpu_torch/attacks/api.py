@@ -99,6 +99,14 @@ def cross_entropy_sum(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return per_sample_ce(logits, y).sum()
 
 
+def success_history(hist: list, x: torch.Tensor) -> torch.Tensor:
+    """The query attacks' per-step masks stacked into [steps, B] bool
+    ([0, B] for no step)."""
+    if not hist:
+        return torch.zeros((0, x.shape[0]), dtype=torch.bool, device=x.device)
+    return torch.stack(hist)
+
+
 def input_grad(logits_fn: LogitsFn, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """d(CE)/dx only. With the model's parameters frozen, autograd records
     only the input-gradient chain."""
@@ -112,8 +120,7 @@ def input_grad(logits_fn: LogitsFn, x: torch.Tensor, y: torch.Tensor) -> torch.T
 @dataclass(frozen=True)
 class AttackParams:
     """Every parameter ``run_attack`` plumbs, with the JAX dataclass's names,
-    defaults and order (``attacks/api.py::AttackParams``), the budgets of the
-    attacks not ported yet included, so that a CLI's
+    defaults and order (``attacks/api.py::AttackParams``), so that a CLI's
     ``extended_attack_kwargs`` passes whole."""
 
     eps: float = DEFAULT_EPS
@@ -205,27 +212,6 @@ def _run_fgsm(logits_fn, x, y_true, params, generator, y_target):
     return fgsm_attack(logits_fn, x, y_true, eps=params.eps, y_target=y_target)
 
 
-@_register("pgd", "linf")
-def _run_pgd(logits_fn, x, y_true, params, generator, y_target):
-    from .pgd import pgd_linf_attack
-
-    return pgd_linf_attack(
-        logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
-        steps=params.steps, generator=generator,
-        random_start=params.random_start, y_target=y_target)
-
-
-@_register("cw", "none")
-def _run_cw(logits_fn, x, y_true, params, generator, y_target):
-    from .cw import cw_l2_attack
-
-    res = cw_l2_attack(
-        logits_fn, x, y_true, c=params.cw_c, kappa=params.cw_kappa,
-        steps=params.cw_steps, lr=params.cw_lr, targeted=y_target is not None,
-        y_target=y_target)
-    return res.x_adv
-
-
 @_register("mifgsm", "linf")
 def _run_mifgsm(logits_fn, x, y_true, params, generator, y_target):
     from .mifgsm import mifgsm_attack
@@ -299,6 +285,20 @@ def _run_fab(logits_fn, x, y_true, params, generator, y_target):
     return torch.where(in_ball[:, None, None, None], x_fab, x)
 
 
+def _run_square_family(logits_fn, x, y_true, params, generator, y_target, *, l2):
+    from .square import square_attack, square_l2_attack
+
+    if y_target is not None:
+        raise ValueError("square is the untargeted margin-loss variant")
+    fn = square_l2_attack if l2 else square_attack
+    return fn(logits_fn, x, y_true, eps=params.eps, steps=params.square_steps,
+              generator=generator)
+
+
+_register("square", "linf")(lambda *a: _run_square_family(*a, l2=False))
+_register("square_l2", "l2")(lambda *a: _run_square_family(*a, l2=True))
+
+
 @_register("deepfool", "none")
 def _run_deepfool(logits_fn, x, y_true, params, generator, y_target):
     from .deepfool import deepfool_attack
@@ -310,6 +310,45 @@ def _run_deepfool(logits_fn, x, y_true, params, generator, y_target):
                            overshoot=params.deepfool_overshoot)
 
 
+@_register("bandits", "linf")
+def _run_bandits(logits_fn, x, y_true, params, generator, y_target):
+    from .bandits import bandits_attack
+
+    return bandits_attack(logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
+                          steps=params.bandits_steps, generator=generator,
+                          prior_factor=params.bandits_prior_factor,
+                          fd_eta=params.bandits_fd_eta, delta=params.bandits_delta,
+                          prior_lr=params.bandits_prior_lr, y_target=y_target)
+
+
+@_register("nes", "linf")
+def _run_nes(logits_fn, x, y_true, params, generator, y_target):
+    from .grad_est import nes_attack
+
+    return nes_attack(logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
+                      steps=params.steps, generator=generator, n_samples=params.est_samples,
+                      sigma=params.nes_sigma, y_target=y_target)
+
+
+@_register("spsa", "linf")
+def _run_spsa(logits_fn, x, y_true, params, generator, y_target):
+    from .grad_est import spsa_attack
+
+    return spsa_attack(logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
+                       steps=params.steps, generator=generator, n_samples=params.est_samples,
+                       delta=params.spsa_delta, y_target=y_target)
+
+
+@_register("hsja", "none")
+def _run_hsja(logits_fn, x, y_true, params, generator, y_target):
+    from .hsja import hsja_attack
+
+    if y_target is not None:
+        raise ValueError("hsja here is the untargeted decision-based variant")
+    return hsja_attack(logits_fn, x, y_true, steps=params.hsja_steps,
+                       n_probes=params.hsja_probes, generator=generator)
+
+
 @_register("pgd_l1", "l1")
 def _run_pgd_l1(logits_fn, x, y_true, params, generator, y_target):
     from .pgd import pgd_l1_attack
@@ -317,6 +356,16 @@ def _run_pgd_l1(logits_fn, x, y_true, params, generator, y_target):
     return pgd_l1_attack(logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
                          steps=params.steps, generator=generator, sparsity=params.l1_sparsity,
                          random_start=params.random_start, y_target=y_target)
+
+
+@_register("pgd", "linf")
+def _run_pgd(logits_fn, x, y_true, params, generator, y_target):
+    from .pgd import pgd_linf_attack
+
+    return pgd_linf_attack(
+        logits_fn, x, y_true, eps=params.eps, alpha=params.alpha,
+        steps=params.steps, generator=generator,
+        random_start=params.random_start, y_target=y_target)
 
 
 @_register("pgd_l2", "l2")
@@ -336,6 +385,27 @@ def _run_ead(logits_fn, x, y_true, params, generator, y_target):
                      beta=params.ead_beta, steps=params.cw_steps, lr=params.ead_lr,
                      targeted=y_target is not None, y_target=y_target)
     return res.x_adv
+
+
+@_register("boundary", "none")
+def _run_boundary(logits_fn, x, y_true, params, generator, y_target):
+    from .boundary import boundary_attack
+
+    if y_target is not None:
+        raise ValueError("boundary here is the untargeted walk")
+    return boundary_attack(logits_fn, x, y_true, steps=params.boundary_steps,
+                           spherical_step=params.boundary_spherical_step,
+                           source_step=params.boundary_source_step, generator=generator)
+
+
+@_register("simba", "none")
+def _run_simba(logits_fn, x, y_true, params, generator, y_target):
+    from .simba import simba_attack
+
+    if y_target is not None:
+        raise ValueError("simba descends the true-class probability; untargeted-only")
+    return simba_attack(logits_fn, x, y_true, steps=params.simba_steps, eps=params.simba_eps,
+                        mode=params.simba_mode, generator=generator)
 
 
 @_register("jsma", "l0")
@@ -369,6 +439,17 @@ def _run_stadv(logits_fn, x, y_true, params, generator, y_target):
     return res.x_adv
 
 
+@_register("cw", "none")
+def _run_cw(logits_fn, x, y_true, params, generator, y_target):
+    from .cw import cw_l2_attack
+
+    res = cw_l2_attack(
+        logits_fn, x, y_true, c=params.cw_c, kappa=params.cw_kappa,
+        steps=params.cw_steps, lr=params.cw_lr, targeted=y_target is not None,
+        y_target=y_target)
+    return res.x_adv
+
+
 ATTACK_NAMES: tuple[str, ...] = tuple(_DISPATCH)
 
 
@@ -376,30 +457,35 @@ def run_attack(attack_name: str, logits_fn: LogitsFn, x: torch.Tensor,
                y_true: torch.Tensor, params: AttackParams,
                generator: torch.Generator | None = None,
                y_target: torch.Tensor | None = None) -> torch.Tensor:
-    """A registered name -> x_adv in [0,1]: 'fgsm' | 'pgd' | 'cw' | 'mifgsm' |
-    'dim' | 'tim' | 'apgd' | 'apgd_dlr' | 'apgd_t' | 'fab' | 'deepfool' |
-    'pgd_l1' | 'pgd_l2' | 'ead' | 'jsma' | 'spatial' | 'stadv'.
+    """A registered name (``ATTACK_NAMES``, the JAX package's 25) -> x_adv in
+    [0,1].
 
-    'apgd' / 'apgd_dlr' are Auto-PGD on CE / DLR; 'apgd_t' its targeted-DLR
-    restarts over the top ``n_target_classes`` runner-ups; 'fab' the
-    minimal-norm FAB-T, whose out-of-ball samples return the clean input;
-    'deepfool' flips the model's own prediction (minimal L2); 'pgd_l2' and
-    'pgd_l1' (SLIDE, ``l1_sparsity``) are PGD in those balls; 'ead' is the
-    elastic-net attack (``cw_steps`` and ``cw_kappa`` with its own ``ead_c``,
-    ``ead_lr``, ``ead_beta``); 'jsma' the L0 saliency attack (``jsma_steps``,
-    ``jsma_theta``); 'spatial' the worst-case rotation and translation;
-    'stadv' a smooth flow field (``stadv_*``).  eps does not apply to
-    deepfool, ead, jsma, spatial, stadv or cw.
+    White-box: 'fgsm', 'pgd', 'pgd_l2', 'pgd_l1' (SLIDE, ``l1_sparsity``),
+    'cw', the transfer family 'mifgsm' / 'dim' / 'tim', 'apgd' / 'apgd_dlr'
+    (Auto-PGD on CE / DLR), 'apgd_t' (targeted-DLR restarts over the top
+    ``n_target_classes`` runner-ups), 'fab' (minimal-norm FAB-T; its
+    out-of-ball samples return the clean input), 'deepfool' (flips the
+    model's own prediction), 'ead' (elastic-net: ``cw_steps``/``cw_kappa``
+    with its own ``ead_c``, ``ead_lr``, ``ead_beta``), 'jsma' (L0 saliency,
+    ``jsma_steps``/``jsma_theta``), 'spatial' (worst-case rotation and
+    translation), 'stadv' (a smooth flow field, ``stadv_*``).
 
-    ``y_target`` selects the targeted mode of fgsm, pgd, pgd_l1, pgd_l2,
-    cw, ead, jsma, stadv and the transfer family; apgd, apgd_dlr, apgd_t,
-    fab, deepfool and spatial are untargeted-only and raise ValueError on
-    one.  ``generator`` feeds the randomness (the random starts, dim's
-    transforms, spatial's draws; default: seed 0)."""
+    Black-box, through the forward pass only: 'square' / 'square_l2' (random
+    search, ``square_steps`` queries), 'nes' / 'spsa' (gradient estimation,
+    ``est_samples`` probe pairs a step), 'bandits' (time and data priors,
+    ``bandits_*``), 'simba' (coordinate descent on p_y, ``simba_*``), and the
+    decision-based 'hsja' (``hsja_steps``, ``hsja_probes``) and 'boundary'
+    (``boundary_*``).  eps does not apply to deepfool, ead, jsma, spatial,
+    stadv, cw, boundary, simba or hsja.
+
+    ``y_target`` selects the targeted mode of fgsm, pgd, pgd_l1, pgd_l2, cw,
+    ead, jsma, stadv, nes, spsa, bandits and the transfer family; apgd,
+    apgd_dlr, apgd_t, fab, deepfool, spatial, square, square_l2, hsja,
+    boundary and simba are untargeted-only and raise ValueError on one.
+    ``generator`` feeds the randomness (default: seed 0)."""
     handler = _DISPATCH.get(attack_name)
     if handler is None:
-        raise ValueError(f"attack '{attack_name}' is not ported yet "
-                         f"(ported: {', '.join(ATTACK_NAMES)})")
+        raise ValueError(f"unknown attack '{attack_name}'")
     if generator is None:
         generator = generator_from_seed(0)
     return handler(logits_fn, x, y_true, params, generator, y_target)

@@ -18,9 +18,8 @@ than ``--max_batch`` stream in chunks of that size
 (``eval.streaming.stream_suite_attack``): the first chunk's time, then the
 mean of the others.
 
-``--attacks all`` expands to the JAX CLI's whole zoo (``ALL_ATTACKS``); the
-names not ported yet (the black-box attacks) are refused before any device
-work.
+``--attacks all`` expands to the JAX CLI's whole zoo (``ALL_ATTACKS``), the
+25 names of ``run_attack``.
 """
 
 from __future__ import annotations
@@ -45,7 +44,7 @@ from ..eval.metrics import (ece_from_conf_correct, expected_calibration_error, p
                             ssim_per_sample)
 from .common import (add_extended_attack_args, add_imagenet_val_arg, add_model_args,
                      check_label_range, extended_attack_kwargs, load_bundle, make_fns,
-                     maybe_profile, n_classes_of, refuse_unported_attacks, resolve_eval_inputs,
+                     maybe_profile, n_classes_of, resolve_eval_inputs,
                      resolve_labels, resolve_labels_sentinel)
 
 ALL_ATTACKS = ("fgsm", "pgd", "pgd_l2", "mifgsm", "dim", "tim", "apgd",
@@ -125,7 +124,6 @@ def _deterministic_cudnn():
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     attacks = list(ALL_ATTACKS) if "all" in args.attacks else args.attacks
-    refuse_unported_attacks(attacks)
 
     paths = resolve_eval_inputs(args)
     with _deterministic_cudnn():

@@ -14,11 +14,9 @@ first ``--visualize_n`` images under ``<image_dir>/blackbox_vis`` (or
 Image sets larger than ``--max_batch`` stream in chunks of that size
 (``utils.pipeline.EvalBatchPipeline``); each chunk's attack draws from
 ``core.rng.chunk_generator(seed, attack, step)``, the resident run's from
-``core.rng.cell_generator(seed, attack)``.  Every white-box attack of the
-zoo runs (fgsm, pgd, cw, mifgsm, dim, tim, apgd, apgd_dlr, apgd_t, fab,
-deepfool, ead, jsma, stadv, spatial, pgd_l1), with the JAX CLI's
-``--square_steps`` and extended-attack flags; its black-box choices are
-refused before any device work.
+``core.rng.cell_generator(seed, attack)``.  Every ``--attacks`` choice of
+the JAX CLI runs, the black-box attacks on the source model included, with
+its ``--square_steps`` and extended-attack flags.
 """
 
 from __future__ import annotations
@@ -39,8 +37,7 @@ from ..core.images import list_images, load_image_batch
 from ..core.labels import load_imagenet_labels
 from ..core.rng import cell_generator, chunk_generator
 from .common import (ATTACK_CHOICES, add_extended_attack_args, add_model_args,
-                     extended_attack_kwargs, load_bundle, make_fns, maybe_profile,
-                     refuse_unported_attacks)
+                     extended_attack_kwargs, load_bundle, make_fns, maybe_profile)
 
 TARGET_DISPLAY = {"vgg19": "VGG19", "vit_b_16": "ViT", "swin_t": "Swin"}
 
@@ -92,7 +89,6 @@ def _vis_dir(image_dir: Path) -> Path:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_unported_attacks(args.attacks)
 
     image_dir = Path(args.image_dir)
     if not image_dir.is_dir():

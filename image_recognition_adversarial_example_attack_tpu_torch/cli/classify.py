@@ -8,9 +8,8 @@ deepfool, ead, jsma, stadv and spatial, with the JAX CLI's
         image.jpg --attack pgd --save_adv adv.png [--device cpu]
 
 A directory input becomes one [B,224,224,3] batch; the attack runs once and
-the results print per image in the reference's format.  The JAX CLI's other
-``--attack`` choices (the black-box attacks) are accepted and refused before
-any device work.
+the results print per image in the reference's format.  Every ``--attack``
+choice of the JAX CLI runs.
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ from ..core.labels import load_imagenet_labels
 from ..core.rng import generator_from_seed
 from .common import (CLASSIFY_ATTACK_CHOICES, add_extended_attack_args, add_model_args,
                      extended_attack_kwargs, load_bundle, make_fns, maybe_profile, print_topk,
-                     refuse_unported_attacks, topk_host)
+                     topk_host)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,8 +58,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.attack != "none":
-        refuse_unported_attacks([args.attack], flag="--attack")
 
     image_path = Path(args.image)
     if image_path.is_dir():

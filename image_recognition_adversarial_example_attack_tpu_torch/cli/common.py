@@ -49,8 +49,7 @@ def add_model_args(parser: argparse.ArgumentParser, default_model: str = "resnet
 
 def add_extended_attack_args(parser: argparse.ArgumentParser) -> None:
     """The JAX CLIs' flags of the extended attack families, with their
-    defaults (AttackParams') and help texts: every flag is accepted; an
-    attack not ported yet is refused by ``refuse_unported_attacks``."""
+    defaults (AttackParams') and help texts."""
     parser.add_argument("--deepfool_steps", type=int, default=50,
                         help="deepfool max iterations")
     parser.add_argument("--deepfool_classes", type=int, default=10,
@@ -292,8 +291,7 @@ def n_classes_of(model: nn.Module) -> int:
 # The --attacks choices of the JAX grid and transfer CLIs
 # (cli/defense_experiments.py, cli/blackbox_transfer.py, cli/transferability.py)
 # and the --attack choices of its classify CLI (the same, with pgd_l2, after
-# "none"): all are accepted, and the ones not ported yet are refused before
-# any device work (refuse_unported_attacks).
+# "none").
 ATTACK_CHOICES = (
     "fgsm", "pgd", "cw", "mifgsm", "dim", "tim", "apgd", "square", "deepfool", "nes", "spsa",
     "bandits", "hsja", "ead", "apgd_dlr", "apgd_t", "fab", "stadv", "boundary", "simba",
@@ -301,19 +299,9 @@ ATTACK_CHOICES = (
 CLASSIFY_ATTACK_CHOICES = ("none", "fgsm", "pgd", "pgd_l2", *ATTACK_CHOICES[2:])
 
 
-def refuse_unported_attacks(attacks, flag: str = "--attacks") -> None:
-    """SystemExit naming the requested attacks this package has not ported."""
-    from ..attacks.api import ATTACK_NAMES
-
-    missing = [a for a in attacks if a not in ATTACK_NAMES]
-    if missing:
-        raise SystemExit(f"{flag} {' '.join(missing)}: not ported to this package yet "
-                         f"(ported: {', '.join(ATTACK_NAMES)}); run without them")
-
-
-# The CLI args each ported attack reads (the run_attack dispatch,
-# attacks/api.py).  They scope the resume fingerprint per grid cell:
-# changing --cw_steps must not invalidate an fgsm cell.
+# The CLI args each attack reads (the run_attack dispatch, attacks/api.py).
+# They scope the resume fingerprint per grid cell: changing --cw_steps must
+# not invalidate an fgsm cell.
 ATTACK_KNOB_ARGS: dict[str, frozenset] = {
     "fgsm": frozenset(),
     "pgd": frozenset({"steps", "alpha"}),
@@ -325,27 +313,33 @@ ATTACK_KNOB_ARGS: dict[str, frozenset] = {
     "apgd_dlr": frozenset({"steps"}),
     "apgd_t": frozenset({"steps", "n_target_classes"}),
     "fab": frozenset({"steps", "n_target_classes"}),
+    "square": frozenset({"square_steps"}),
+    "square_l2": frozenset({"square_steps"}),
     "deepfool": frozenset({"deepfool_steps", "deepfool_classes", "deepfool_overshoot"}),
+    "nes": frozenset({"steps", "alpha", "est_samples", "nes_sigma"}),
+    "spsa": frozenset({"steps", "alpha", "est_samples", "spsa_delta"}),
+    "bandits": frozenset({"alpha", "bandits_steps", "bandits_prior_factor", "bandits_fd_eta",
+                          "bandits_delta", "bandits_prior_lr"}),
+    "hsja": frozenset({"hsja_steps", "hsja_probes"}),
     "ead": frozenset({"cw_steps", "cw_kappa", "ead_beta", "ead_c", "ead_lr"}),
     "cw": frozenset({"cw_c", "cw_kappa", "cw_steps", "cw_lr"}),
     "stadv": frozenset({"stadv_steps", "stadv_lr", "stadv_tau", "cw_kappa"}),
+    "boundary": frozenset({"boundary_steps", "boundary_spherical_step",
+                           "boundary_source_step"}),
+    "simba": frozenset({"simba_steps", "simba_eps", "simba_mode"}),
     "jsma": frozenset({"jsma_steps", "jsma_theta"}),
     "pgd_l1": frozenset({"steps", "alpha", "l1_sparsity"}),
     "spatial": frozenset({"spatial_max_rot", "spatial_max_trans", "spatial_candidates",
                          "spatial_grid_rot", "spatial_grid_trans"}),
 }
-# the extended flags of the attacks not ported yet: no ported cell reads them
-_UNPORTED_KNOB_ARGS = frozenset({
-    "square_steps", "est_samples", "nes_sigma", "spsa_delta", "bandits_steps",
-    "bandits_prior_factor", "bandits_fd_eta", "bandits_delta", "bandits_prior_lr",
-    "hsja_steps", "hsja_probes", "boundary_steps", "boundary_spherical_step",
-    "boundary_source_step", "simba_steps", "simba_eps", "simba_mode"})
-_ALL_KNOB_ARGS: frozenset = frozenset().union(*ATTACK_KNOB_ARGS.values(), _UNPORTED_KNOB_ARGS)
+_ALL_KNOB_ARGS: frozenset = frozenset().union(*ATTACK_KNOB_ARGS.values())
 
 # Attacks that never read eps: their grid cells are identical across the eps
 # sweep, so the grid computes one and reuses it, and their randomness comes
-# from an eps-free cell id.
-EPS_INDEPENDENT_ATTACKS = ("cw", "deepfool", "ead", "stadv", "jsma", "spatial")
+# from an eps-free cell id.  hsja does not read eps either, but as in the
+# JAX package its cell id (with eps) seeds its generator and keys --resume.
+EPS_INDEPENDENT_ATTACKS = ("cw", "deepfool", "ead", "stadv", "boundary", "simba", "jsma",
+                           "spatial")
 
 
 def cell_rng_id(attack_name: str, eps: float) -> str:

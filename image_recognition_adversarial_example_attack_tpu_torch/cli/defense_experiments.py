@@ -22,11 +22,10 @@ detector is calibrated (or given) on at most the first 100 images; after it
 come the summary lines, the sample figure (PGD at ``eps_list[1]``, alpha
 eps/4, 10 steps), the heatmaps and ``timings.json``.
 
-The eps-independent attacks (cw, deepfool, ead, jsma, stadv, spatial)
-compute one cell and reuse it for every eps.  The JAX CLI's other
-``--attacks`` choices (the black-box attacks) are accepted and refused
-before any device work; its certified and CIFAR-10 options are not ported
-yet.
+The eps-independent attacks (cw, deepfool, ead, stadv, boundary, simba,
+jsma, spatial) compute one cell and reuse it for every eps.  Every
+``--attacks`` choice of the JAX CLI runs; its certified and CIFAR-10 options
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -53,7 +52,7 @@ from .common import (ATTACK_CHOICES, EPS_INDEPENDENT_ATTACKS, add_extended_attac
                      add_imagenet_val_arg, add_model_args, apply_imagenet_val, cell_rng_id,
                      check_label_range, config_fingerprint, extended_attack_kwargs,
                      labels_digest, load_bundle, make_fns, maybe_profile, n_classes_of,
-                     refuse_unported_attacks, resolve_image_inputs, resolve_labels,
+                     resolve_image_inputs, resolve_labels,
                      resolve_labels_sentinel)
 
 
@@ -183,7 +182,6 @@ def _calibrate(args, logits_fn, features_fn, x_clean, n, pseudo_fn, n_classes):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_unported_attacks(args.attacks)
 
     if args.detector_aware:
         bad = [a for a in args.attacks if a not in ("fgsm", "pgd")]

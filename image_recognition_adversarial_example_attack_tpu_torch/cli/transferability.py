@@ -18,9 +18,8 @@ id)``; the eps-independent attacks (cw, deepfool, ead, jsma, stadv,
 spatial) are computed once per sweep and reused.  Image sets larger than
 ``--max_batch`` stream in chunks of that size
 (``eval.streaming.stream_transfer_cell``).  Unknown models and models of
-mixed input sizes are refused with exit code 2.  Every white-box attack of
-the zoo runs, with the JAX CLI's ``--square_steps`` and extended-attack
-flags; its black-box choices are refused before any device work.
+mixed input sizes are refused with exit code 2.  Every ``--attacks`` choice
+of the JAX CLI runs, with its ``--square_steps`` and extended-attack flags.
 """
 
 from __future__ import annotations
@@ -43,7 +42,7 @@ from ..core.rng import cell_generator
 from ..eval.transfer import transfer_attack_batch
 from .common import (ATTACK_CHOICES, EPS_INDEPENDENT_ATTACKS, add_extended_attack_args,
                      add_model_args, cell_rng_id, extended_attack_kwargs, load_bundle,
-                     make_fns, maybe_profile, refuse_unported_attacks, resolve_image_inputs)
+                     make_fns, maybe_profile, resolve_image_inputs)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -84,7 +83,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_unported_attacks(args.attacks)
 
     from ..models.zoo import list_models, model_meta
 

@@ -1,7 +1,8 @@
 """Dataset-scale streaming evaluation: a grid cell over more images than fit
 one resident batch (port of ``round_up``, ``make_placer``,
-``stream_defense_cell``, ``stream_transfer_cell``, ``stream_suite_attack``
-and their helpers of ``eval/streaming.py``).
+``stream_defense_cell``, ``stream_transfer_cell``, ``stream_suite_attack``,
+``stream_query_curve_hist``, ``stream_robust_cell`` and their helpers of
+``eval/streaming.py``).
 
 - Fixed-shape chunks come from ``utils.pipeline.EvalBatchPipeline``
   (background decode, a bounded queue: constant host memory).
@@ -284,4 +285,107 @@ def stream_suite_attack(
     out["compile_run_s"] = chunk_times[0]
     out["steady_s"] = float(np.mean(chunk_times[1:])) if len(chunk_times) > 1 else None
     out["chunk_times_s"] = [float(t) for t in chunk_times]
+    return out
+
+
+def _chunk_labels(x: torch.Tensor, step: int, y_np, pseudo_label_fn,
+                  clean_cache: dict | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(pseudo-labels, labels) of one chunk: the clean forward's labels, kept
+    in ``clean_cache`` under the chunk's step, and the ground truth with its
+    ``-1`` entries replaced by them."""
+    if clean_cache is not None and step in clean_cache:
+        pseudo = clean_cache[step]
+    else:
+        with torch.no_grad():
+            pseudo = pseudo_label_fn(x)
+        if clean_cache is not None:
+            clean_cache[step] = pseudo
+    return pseudo, _merge_labels(y_np, pseudo)
+
+
+def stream_query_curve_hist(
+    run_fn: Callable[[torch.Tensor, torch.Tensor, torch.Generator], tuple],
+    n_steps: int,
+    paths: Sequence,
+    *,
+    seed: int,
+    cell_id: str,
+    chunk_size: int,
+    place: Placer,
+    pseudo_label_fn: Callable[[torch.Tensor], torch.Tensor],
+    size: int = IMAGE_SIZE,
+    labels: Sequence[int] | None = None,
+    clean_cache: dict | None = None,
+) -> dict:
+    """One attack's ASR-vs-queries statistics over any number of images.
+
+    ``run_fn(x, y, generator) -> (x_adv, succ_hist [steps, B])`` is the
+    history-emitting attack (``eval.query_curves._runner``).  The curve needs
+    two reductions over samples, both streamable
+    (``eval.query_curves.history_stats``): the per-step count of samples that
+    ever succeeded and each sample's first-success step.  One chunk's history
+    is read, reduced and dropped.  ``clean_cache`` carries the per-chunk
+    pseudo-labels over the CLI's attacks, so the clean forward runs once per
+    chunk for the whole table.  Chunk ``step`` draws from
+    ``chunk_generator(seed, cell_id, step)``.
+    """
+    from .query_curves import history_stats
+
+    _check_cache_sig(clean_cache, paths, chunk_size, size)
+    ever_count = np.zeros((int(n_steps),), np.int64)
+    firsts: list[np.ndarray] = []
+    count = 0
+    pipe = EvalBatchPipeline(paths, chunk_size, labels=labels, size=size)
+    for step, x_np, y_np, n_valid in pipe:
+        x = place(x_np)
+        _, y = _chunk_labels(x, step, y_np, pseudo_label_fn, clean_cache)
+        _, hist = run_fn(x, y, chunk_generator(seed, cell_id, step))
+        # the chunk's one read from the card: its [steps, B] history
+        chunk_ever, first = history_stats(hist.cpu().numpy()[:, :n_valid])
+        ever_count += chunk_ever
+        firsts.append(first)
+        count += int(n_valid)
+    if count == 0:
+        raise SystemExit("no loadable images")
+    return {"ever_count": ever_count, "first": np.concatenate(firsts), "count": count}
+
+
+def stream_robust_cell(
+    run_fn: Callable[[torch.Tensor, torch.Tensor, torch.Generator, float], tuple],
+    paths: Sequence,
+    *,
+    seed: int,
+    cell_id: str,
+    eps: float,
+    chunk_size: int,
+    place: Placer,
+    pseudo_label_fn: Callable[[torch.Tensor], torch.Tensor],
+    size: int = IMAGE_SIZE,
+    labels: Sequence[int] | None = None,
+    clean_cache: dict | None = None,
+) -> dict[str, np.ndarray]:
+    """One eps of an AutoAttack protocol over any number of images.
+
+    ``run_fn(x, y, generator, eps) -> (success, per-arm successes...)`` is
+    the protocol (``cli/robust_eval.py``); ``labels`` are ground-truth ids
+    with ``-1`` for "use the pseudo-label".  Returns the concatenated
+    vectors ``arm0..armK`` (the protocol's outputs, in order) and
+    ``clean_correct``.  ``clean_cache`` carries the per-chunk pseudo-labels
+    over the CLI's eps loop.  Chunk ``step`` draws from
+    ``chunk_generator(seed, cell_id, step)``.
+    """
+    _check_cache_sig(clean_cache, paths, chunk_size, size)
+    parts: list[np.ndarray] = []
+    pipe = EvalBatchPipeline(paths, chunk_size, labels=labels, size=size)
+    for step, x_np, y_np, n_valid in pipe:
+        x = place(x_np)
+        pseudo, y = _chunk_labels(x, step, y_np, pseudo_label_fn, clean_cache)
+        outs = run_fn(x, y, chunk_generator(seed, cell_id, step), float(eps))
+        # the chunk's one read from the card: the arms and clean_correct
+        parts.append(torch.stack([*outs, pseudo == y]).cpu().numpy()[:, :n_valid])
+    if not parts:
+        return {}
+    vecs = np.concatenate(parts, axis=1)
+    out = {f"arm{i}": vecs[i] for i in range(vecs.shape[0] - 1)}
+    out["clean_correct"] = vecs[-1]
     return out

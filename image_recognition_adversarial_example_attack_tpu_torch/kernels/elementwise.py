@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.rng import seed_draw
 from .build import load_library
 
 LAUNCHES: dict[str, int] = {"pgd_step": 0, "quantize": 0, "uniform_noise": 0}
@@ -137,8 +138,7 @@ def uniform_noise(shape, eps: float, generator: torch.Generator,
     device = torch.device(device)
     if device.type == "cpu":
         return uniform_noise_plain(shape, eps, generator)
-    seed = int(torch.randint(0, 2**63 - 1, (1,), generator=generator,
-                             device=generator.device).item())
+    seed = seed_draw(generator)
     out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     code = load_library().uniform_noise_launch(
         out.data_ptr(), out.numel(), seed, float(eps), _stream(device))

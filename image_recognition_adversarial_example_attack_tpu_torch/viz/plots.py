@@ -2,8 +2,8 @@
 (port of ``plot_defense_heatmaps``, ``plot_attack_samples``,
 ``plot_attack_grid``, ``plot_attack_trajectory``,
 ``plot_perturbation_analysis``, ``plot_gradcam_panel``,
-``plot_loss_landscape``, ``plot_transfer_heatmap`` and
-``plot_blackbox_pair`` of ``viz/plots.py``), drawn with PIL alone.
+``plot_loss_landscape``, ``plot_transfer_heatmap``, ``plot_blackbox_pair``
+and ``plot_robust_accuracy`` of ``viz/plots.py``), drawn with PIL alone.
 
 The contract with the JAX package is the file names and the plotted values,
 not the styling:
@@ -31,7 +31,10 @@ not the styling:
 - the transferability CLI's ``transfer_heatmap_<attack>.png`` (eps rows x
   target columns of the transfer success rate, orange ramp, annotated to 3
   decimals) and the blackbox CLI's ``<image>_<attack>.png`` (clean and
-  adversarial side by side, each model's label under its panel).
+  adversarial side by side, each model's label under its panel);
+- the robust_eval CLI's ``--plot`` figure: robust accuracy against eps
+  (dark ink) with each arm's success rate present in the rows
+  (``robust_series``).
 
 PIL, because the CUDA machines the port runs on need not have matplotlib;
 Pillow is there already for the image pipeline.  Nothing here touches the
@@ -666,4 +669,95 @@ def plot_blackbox_pair(img_clean: np.ndarray, img_adv: np.ndarray, clean_text: s
         _text(draw, (x0 + tile / 2, top - 30), head, f_head)
         img.paste(_tile(x, tile), (x0, top))
         _text(draw, (x0 + tile / 2, top + tile + 20 + 15 * lines), text, f_text)
+    img.save(out_path)
+
+
+# the robust-accuracy figure's arm series: key suffix -> (color, dash in px;
+# 0 = solid), over both AutoAttack protocols and the rand one; an arm absent
+# from the rows is skipped
+ROBUST_ARMS = {"apgd": ("#2a78d6", 0), "apgd_ce": ("#2a78d6", 0), "apgd_t": ("#2a78d6", 14),
+               "fab": ("#1baf7a", 8), "square": ("#eb6834", 10), "deepfool": ("#8c2981", 4),
+               "apgd_ce_eot": ("#2a78d6", 0), "apgd_dlr_eot": ("#5fa3e8", 14)}
+
+
+def robust_series(rows: Sequence[Mapping]) -> tuple[list[float], list[float], dict]:
+    """The plotted values of ``plot_robust_accuracy``, by ascending eps:
+    (eps, robust accuracy, {arm: success rate}) for each arm of
+    ``ROBUST_ARMS`` present in the rows (its ``success_<arm>`` over
+    ``count``)."""
+    rows = sorted(rows, key=lambda r: float(r["eps"]))
+    eps = [float(r["eps"]) for r in rows]
+    acc = [float(r["robust_accuracy"]) for r in rows]
+    arms = {arm: [float(r[f"success_{arm}"]) / max(1, int(r["count"])) for r in rows]
+            for arm in ROBUST_ARMS if f"success_{arm}" in rows[0]}
+    return eps, acc, arms
+
+
+def _dashed(draw: ImageDraw.ImageDraw, pts, color, width: int, dash: int) -> None:
+    """A polyline, solid for ``dash == 0``, else in dashes of ``dash`` px."""
+    if dash == 0:
+        draw.line(pts, fill=color, width=width, joint="curve")
+        return
+    for (xa, ya), (xb, yb) in zip(pts, pts[1:]):
+        length = float(np.hypot(xb - xa, yb - ya))
+        n = max(1, int(length // dash))
+        for k in range(0, n, 2):
+            t0, t1 = k / n, min(1.0, (k + 1) / n)
+            draw.line((xa + (xb - xa) * t0, ya + (yb - ya) * t0,
+                       xa + (xb - xa) * t1, ya + (yb - ya) * t1), fill=color, width=width)
+
+
+def plot_robust_accuracy(rows: Sequence[Mapping], out_path) -> None:
+    """Worst-case robust accuracy against eps (the robust_eval CLI): one
+    axis, the robust accuracy in dark ink with markers, and each arm's
+    success rate present in the rows as a dashed context series
+    (``robust_series``)."""
+    if not rows:
+        raise ValueError("plot_robust_accuracy: empty rows")
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    eps, acc, arms = robust_series(rows)
+    w, h = 1400, 900
+    x0, y0, x1, y1 = 130, 90, w - 330, h - 120
+    img = Image.new("RGB", (w, h), _WHITE)
+    draw = ImageDraw.Draw(img)
+    f_title, f_label, f_tick = _font(30), _font(22), _font(18)
+    lo, hi = eps[0], eps[-1]
+    pad = (hi - lo) * 0.05 if hi > lo else max(abs(lo) * 0.5, 1e-3)
+    lo, hi = lo - pad, hi + pad
+
+    def px(e: float) -> float:
+        return x0 + (e - lo) / (hi - lo) * (x1 - x0)
+
+    def py(v: float) -> float:
+        return y1 - (v + 0.02) / 1.04 * (y1 - y0)
+
+    for i in range(6):
+        v = i / 5
+        draw.line((x0, py(v), x1, py(v)), fill=_GRID, width=1)
+        _text(draw, (x0 - 12, py(v)), f"{v:.1f}", f_tick, align="right")
+    for e in eps:
+        draw.line((px(e), y0, px(e), y1), fill=_GRID, width=1)
+        _text(draw, (px(e), y1 + 22), f"{e:.4f}", f_tick)
+    draw.rectangle((x0, y0, x1, y1), outline=_INK, width=2)
+
+    legend = []
+    for arm, rates in arms.items():
+        hex_color, dash = ROBUST_ARMS[arm]
+        color = _hex(hex_color)
+        _dashed(draw, [(px(e), py(r)) for e, r in zip(eps, rates)], color, 3, dash)
+        legend.append((f"{arm} success", color, dash))
+    pts = [(px(e), py(a)) for e, a in zip(eps, acc)]
+    if len(pts) > 1:
+        draw.line(pts, fill=_INK, width=5, joint="curve")
+    for x, y in pts:
+        _marker(draw, x, y, "o", _INK)
+    for k, (label, color, dash) in enumerate([("robust accuracy", _INK, 0)] + legend):
+        ly = y0 + 20 + 40 * k
+        _dashed(draw, [(x1 + 25, ly), (x1 + 85, ly)], color, 5 if k == 0 else 3, dash)
+        _text(draw, (x1 + 100, ly), label, f_label, align="left")
+    _text(draw, ((x0 + x1) / 2, 40), "Worst-case robust accuracy (attack ensemble)", f_title)
+    # the default font has no "∞" glyph
+    _text(draw, ((x0 + x1) / 2, h - 45), "eps (L-inf)", f_label)
+    _vertical_text(img, (40, (y0 + y1) / 2), "rate", f_label)
     img.save(out_path)

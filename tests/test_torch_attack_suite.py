@@ -118,14 +118,27 @@ def test_streamed_rows_equal_the_one_batch_rows(setup):
             assert row_s[k] == pytest.approx(row_1[k], rel=1e-5, abs=1e-6), k
 
 
-def test_all_refuses_the_black_box_names_before_any_device_work(setup):
-    """``all`` is the JAX tuple; asked for the card (absent here), the
-    unported names exit before the device is resolved."""
+def test_all_runs_the_25_names(setup):
+    """``all`` is the JAX tuple, every name of ``run_attack``: at tiny
+    budgets the table has its 25 rows, each attack's two calls bit-equal
+    (the CLI refuses them otherwise)."""
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import ATTACK_NAMES
+
     assert attack_suite.ALL_ATTACKS == jax_suite.ALL_ATTACKS
-    with pytest.raises(SystemExit, match="--attacks square square_l2 nes spsa bandits hsja "
-                                         "boundary simba: not ported to this package yet"):
-        attack_suite.main(["--image_dir", str(setup["images"]), "--attacks", "all",
-                           "--device", "cuda"])
+    assert set(attack_suite.ALL_ATTACKS) == set(ATTACK_NAMES) and len(ATTACK_NAMES) == 25
+    tiny = ["--steps", "1", "--cw_steps", "2", "--square_steps", "3", "--deepfool_steps", "1",
+            "--deepfool_classes", "2", "--est_samples", "1", "--bandits_steps", "2",
+            "--hsja_steps", "1", "--hsja_probes", "2", "--boundary_steps", "2",
+            "--simba_steps", "2", "--jsma_steps", "2", "--stadv_steps", "2",
+            "--spatial_candidates", "2", "--n_target_classes", "2"]
+    path = setup["root"] / "all.json"
+    text = _run(attack_suite.main, [*setup["base"], *tiny, "--attacks", "all", "--device",
+                                    "cpu", "--output", str(path)])
+    _, rows = _table(text)
+    assert list(rows) == list(attack_suite.ALL_ATTACKS)
+    results = json.loads(path.read_text())["results"]
+    assert [r["attack"] for r in results] == list(attack_suite.ALL_ATTACKS)
+    assert all(set(r) == ROW_KEYS and 0.0 <= r["asr"] <= 1.0 for r in results)
 
 
 def test_reruns_that_differ_are_refused(setup, monkeypatch):

@@ -103,11 +103,12 @@ def test_pgd_random_start_is_seeded_and_in_the_ball(setup):
 
 
 def test_unported_attacks_raise():
-    assert ATTACK_NAMES == ("fgsm", "pgd", "cw", "mifgsm", "dim", "tim", "apgd", "apgd_dlr",
-                            "apgd_t", "fab", "deepfool", "pgd_l1", "pgd_l2", "ead", "jsma",
-                            "spatial", "stadv")
-    for name in ("square", "nes", "boundary"):
-        assert name in jax_api.ATTACK_NAMES
-        with pytest.raises(ValueError, match="not ported yet"):
-            run_attack(name, lambda x: x, torch.zeros(1, 2, 2, 3),
-                       torch.zeros(1, dtype=torch.long), AttackParams())
+    """The registry is the JAX package's, all 25 names in its order; a name
+    outside it (``uap``, a module not ported yet) raises JAX's error."""
+    assert ATTACK_NAMES == jax_api.ATTACK_NAMES and len(ATTACK_NAMES) == 25
+    assert "uap" not in jax_api.ATTACK_NAMES
+    with pytest.raises(ValueError, match="unknown attack 'uap'"):
+        run_attack("uap", lambda x: x, torch.zeros(1, 2, 2, 3),
+                   torch.zeros(1, dtype=torch.long), AttackParams())
+    with pytest.raises(ValueError, match="unknown attack 'uap'"):
+        jax_api.run_attack("uap", lambda x: x, None, None, jax_api.AttackParams())

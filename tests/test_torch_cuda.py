@@ -604,3 +604,122 @@ def test_pgd_multi_restart_launches(cuda):
     torch.cuda.synchronize()
     assert ew.launch_counts() == {"pgd_step": 9, "quantize": 0, "uniform_noise": 3}
     assert float((x_adv - x).abs().max()) <= EPS + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the black-box group: nes, spsa and bandits take the pgd_step kernel once a
+# step; the others launch nothing of the port's; every draw is made on the card
+# ---------------------------------------------------------------------------
+
+# name -> pgd_step launches at steps 2 and bandits_steps 3
+BLACK_BOX_LAUNCHES = {"square": 0, "square_l2": 0, "nes": 2, "spsa": 2, "bandits": 3,
+                      "hsja": 0, "boundary": 0, "simba": 0}
+
+
+def _tiny_on(cuda, seed):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import make_logits_fn
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    b = load_model("resnet_tiny", device=cuda)
+    lf = make_logits_fn(b.model, b.mean, b.std)
+    x = torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(seed)).to(cuda)
+    with torch.no_grad():
+        return lf, x, lf(x).argmax(-1)
+
+
+@pytest.mark.parametrize("name", sorted(BLACK_BOX_LAUNCHES))
+def test_black_box_attacks_on_the_card(cuda, name):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        ATTACK_THREAT, AttackParams, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+
+    lf, x, y = _tiny_on(cuda, 6)
+    eps = 0.5 if name == "square_l2" else EPS
+    params = AttackParams(eps=eps, steps=2, est_samples=2, square_steps=5, bandits_steps=3,
+                          bandits_prior_factor=4, hsja_steps=1, hsja_probes=3,
+                          boundary_steps=4, simba_steps=4)
+    ew.reset_launches()
+    x_adv = run_attack(name, lf, x, y, params, generator_from_seed(0))
+    torch.cuda.synchronize()
+    assert ew.launch_counts() == {"pgd_step": BLACK_BOX_LAUNCHES[name], "quantize": 0,
+                                  "uniform_noise": 0}
+    assert torch.equal(x_adv, run_attack(name, lf, x, y, params, generator_from_seed(0)))
+    assert x_adv.is_cuda and bool(torch.isfinite(x_adv).all())
+    assert float(x_adv.min()) >= 0.0 and float(x_adv.max()) <= 1.0
+    d = (x_adv - x).reshape(4, -1)
+    if ATTACK_THREAT[name] == "linf":
+        assert float(d.abs().max()) <= eps + 1e-6
+    elif ATTACK_THREAT[name] == "l2":
+        assert float(d.norm(dim=1).max()) <= eps + 1e-4
+
+
+def test_black_box_draws_are_made_on_the_card(cuda):
+    import numpy as np
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        bandits, grad_est, simba, square)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+
+    sides = square.square_schedule(6, 16, 16)
+    for t in square.draw_square(6, 3, 16, 16, 3, sides, generator_from_seed(0), cuda):
+        assert t.is_cuda
+    for t in simba.draw_simba(6, 3, 4, 4, 3, generator_from_seed(0), cuda):
+        assert t.is_cuda and int(t.max()) < 4
+    g = torch.Generator(device=cuda)
+    g.manual_seed(1)
+    assert grad_est.draw_probe((2, 8), "rademacher", g, cuda).is_cuda
+    assert bandits.draw_latent((2, 4), g, cuda).is_cuda
+    r0 = square.draw_square(6, 4000, 16, 16, 3, sides, generator_from_seed(0), cuda)[1]
+    assert int(r0.min()) == 0 and (r0.cpu().numpy() <= 16 - sides[:, None]).all()
+    assert np.unique(r0[0].cpu().numpy()).size == 16 - int(sides[0]) + 1
+
+
+def test_eot_mix_on_the_card_equals_the_cpu(cuda):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import eot
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+
+    x = torch.rand((8, 224, 224, 3), generator=torch.Generator().manual_seed(2))
+    assert int(eot.input_mix(x.to(cuda))) == int(eot.input_mix(x))
+    lf, xs, _ = _tiny_on(cuda, 7)
+    fn = eot.make_eot_logits_fn(lf, generator_from_seed(0), n_samples=3)
+    out = fn(xs)
+    assert out.is_cuda and torch.equal(out, fn(xs))
+    assert torch.allclose(out.exp().sum(-1), torch.ones(4, device=cuda), atol=1e-5)
+
+
+@pytest.mark.parametrize("protocol", ["lite", "standard", "rand"])
+def test_robust_eval_protocols_on_the_card(cuda, protocol):
+    """The L∞ random starts of APGD-CE/DLR, APGD-T and FAB-T are noise
+    launches: 1 (lite), 1 + 2 + 2 (standard, 2 targets), 2 (rand)."""
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.eval import robust_eval
+
+    lf, x, y = _tiny_on(cuda, 8)
+    fn = {"lite": robust_eval.autoattack_lite, "standard": robust_eval.autoattack,
+          "rand": robust_eval.autoattack_rand}[protocol]
+    kw, want = {"lite": (dict(apgd_steps=2, square_steps=4, deepfool_steps=2), 1),
+                "standard": (dict(apgd_steps=2, apgd_t_steps=2, apgd_t_targets=2, fab_steps=2,
+                                  fab_targets=2, square_steps=4), 5),
+                "rand": (dict(eot_samples=2, apgd_steps=2, square_steps=4), 2)}[protocol]
+    ew.reset_launches()
+    res = fn(lf, x, y, eps=EPS, generator=generator_from_seed(0), **kw)
+    torch.cuda.synchronize()
+    assert ew.launch_counts() == {"pgd_step": 0, "quantize": 0, "uniform_noise": want}
+    assert res.x_adv.is_cuda and float((res.x_adv - x).abs().max()) <= EPS + 1e-6
+    again = fn(lf, x, y, eps=EPS, generator=generator_from_seed(0), **kw)
+    assert torch.equal(res.success, again.success) and torch.equal(res.x_adv, again.x_adv)
+
+
+def test_query_curve_on_the_card(cuda):
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.eval import query_curves as qc
+
+    lf, x, y = _tiny_on(cuda, 9)
+    for attack in qc.CURVE_ATTACKS:
+        ew.reset_launches()
+        curve = qc.query_curve(attack, lf, x, y, eps=EPS, max_queries=20, est_samples=2,
+                               generator=generator_from_seed(0))
+        steps = qc.budget_to_steps(attack, 20, 2)
+        assert len(curve["asr"]) == steps and 0.0 <= curve["final_asr"] <= 1.0
+        pgd = steps if attack in ("nes", "spsa", "bandits") else 0
+        assert ew.LAUNCHES["pgd_step"] == pgd

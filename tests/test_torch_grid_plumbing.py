@@ -33,15 +33,15 @@ def test_cell_rng_id_and_generator():
     for name in ("fgsm", "pgd", "cw"):
         assert common.cell_rng_id(name, 0.0313725) == jax_common.cell_rng_id(name, 0.0313725)
     assert common.cell_rng_id("pgd", 0.01) != common.cell_rng_id("pgd", 0.1)
-    assert common.EPS_INDEPENDENT_ATTACKS == ("cw", "deepfool", "ead", "stadv", "jsma",
-                                              "spatial")
-    assert set(common.EPS_INDEPENDENT_ATTACKS) <= set(jax_common.EPS_INDEPENDENT_ATTACKS)
-    for name in common.EPS_INDEPENDENT_ATTACKS:
+    assert common.EPS_INDEPENDENT_ATTACKS == jax_common.EPS_INDEPENDENT_ATTACKS == (
+        "cw", "deepfool", "ead", "stadv", "boundary", "simba", "jsma", "spatial")
+    # hsja reads no eps, but its cell id (with eps) seeds it, as in JAX
+    assert common.cell_rng_id("hsja", 0.5) == jax_common.cell_rng_id("hsja", 0.5) != \
+        common.cell_rng_id("hsja", 0.25)
+    for name in ATTACK_NAMES:
         assert common.cell_rng_id(name, 0.5) == jax_common.cell_rng_id(name, 0.5)
-    for name, knobs in common.ATTACK_KNOB_ARGS.items():
-        assert knobs == jax_common.ATTACK_KNOB_ARGS[name]
-    # every ported attack has its knobs; the flags of the others are left out
-    # of every ported cell's fingerprint, as in JAX
+    # the knob map is JAX's, every attack of the registry in it
+    assert common.ATTACK_KNOB_ARGS == jax_common.ATTACK_KNOB_ARGS
     assert set(common.ATTACK_KNOB_ARGS) == set(ATTACK_NAMES)
     assert common._ALL_KNOB_ARGS == jax_common._ALL_KNOB_ARGS
 

@@ -225,20 +225,25 @@ def test_grid_and_transfer_clis_run_the_transfer_family(cli_images, tmp_path, ca
 
 
 @pytest.mark.parametrize("cli", ["classify", "grid", "blackbox", "transferability"])
-def test_other_jax_attacks_are_refused_before_any_device_work(cli, cli_images):
-    """Asked for the card (absent here), an unported choice of the JAX CLIs
-    exits before the device is resolved."""
+def test_every_jax_attack_choice_reaches_the_device(cli, cli_images, capsys):
+    """Asked for the card (absent here), every attack choice of the JAX CLIs
+    gets past the arguments to the device rule (nothing refuses an attack
+    before it); on the CPU classify runs a black-box one."""
     from image_recognition_adversarial_example_attack_tpu_torch.cli import (
         blackbox_transfer, classify, defense_experiments, transferability)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import (
+        ATTACK_CHOICES, CLASSIFY_ATTACK_CHOICES)
 
     cuda = ["--device", "cuda"]
     if cli == "classify":
-        argv, main, flag = [str(cli_images / "img_0.jpg"), "--attack", "square", *cuda], \
-            classify.main, "--attack square"
-    else:
-        main = {"grid": defense_experiments.main, "blackbox": blackbox_transfer.main,
-                "transferability": transferability.main}[cli]
-        argv, flag = ["--image_dir", str(cli_images), "--attacks", "tim", "square", *cuda], \
-            "--attacks square"
-    with pytest.raises(SystemExit, match=f"{flag}: not ported to this package yet"):
-        main(argv)
+        for name in CLASSIFY_ATTACK_CHOICES[1:]:
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                classify.main([str(cli_images / "img_0.jpg"), "--attack", name, *cuda])
+        assert classify.main([str(cli_images / "img_0.jpg"), "--attack", "square",
+                              "--square_steps", "3", "--model", "resnet_tiny", *SMALL]) == 0
+        assert "square" in capsys.readouterr().out.lower()
+        return
+    main = {"grid": defense_experiments.main, "blackbox": blackbox_transfer.main,
+            "transferability": transferability.main}[cli]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--image_dir", str(cli_images), "--attacks", *ATTACK_CHOICES, *cuda])

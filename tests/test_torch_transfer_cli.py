@@ -179,13 +179,18 @@ def test_model_refusals_exit_2(setup, monkeypatch, capsys, case):
 
 
 @pytest.mark.parametrize("cli", ["blackbox", "transferability"])
-def test_unported_attacks_are_refused_before_any_device_work(setup, cli):
-    """Asked for the card (absent here), an unported attack is refused
-    before the device is resolved."""
+def test_black_box_attacks_reach_the_device(setup, cli):
+    """Asked for the card (absent here), every ``--attacks`` choice of the
+    JAX CLI, the black-box ones included, gets past the arguments to the
+    device rule: nothing refuses an attack before it."""
     main = bb.main if cli == "blackbox" else tr.main
-    with pytest.raises(SystemExit, match="square nes: not ported to this package yet"):
-        main(["--image_dir", str(setup["images"]), "--attacks", "fgsm", "mifgsm", "apgd",
-              "square", "nes", "--device", "cuda"])
+    choices = next(a.choices for a in (bb if cli == "blackbox" else tr).build_parser()._actions
+                   if a.dest == "attacks")
+    theirs = next(a.choices for a in (jax_bb if cli == "blackbox" else jax_tr).build_parser()
+                  ._actions if a.dest == "attacks")
+    assert list(choices) == list(theirs)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--image_dir", str(setup["images"]), "--attacks", *choices, "--device", "cuda"])
 
 
 def _rows(out: str) -> dict[str, tuple]:
