@@ -184,15 +184,40 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    ``stream_robust_cell`` over 64 PNGs in chunks of 32 (the standard
    protocol) equal to one resident run a chunk under its generator, with
    exactly 1 + 2 x 3 noise launches a chunk; (d) the query_curves CLI in
-   this process with the six curve attacks at ``--max_queries 500`` on 32
-   PNGs, one batch then streamed in chunks of 16 (264 pgd_step launches a
-   pass over the images), the streamed curves equal to the curves assembled
+   this process with the six curve attacks at ``--max_queries 250`` on 32
+   PNGs (cut from 500 to keep the script's time; printed), one batch then
+   streamed in chunks of 16 (131 pgd_step launches a pass over the images),
+   the streamed curves equal to the curves assembled
    from resident runs of each chunk; (e) the grid CLI on 128 PNGs and the
    attack_suite CLI on 32, in this process, with ``--attacks square simba
    hsja`` at cut budgets (printed): six summary lines, simba's cell
    computed once, one quantize launch a computed cell, no other launch;
    then the group's 14 cuda tests (``tests/test_torch_cuda.py``) in a
    subprocess, every one passed.
+20. certified -- universal threat models and certification at full width:
+   (a) ``uap_attack`` on ResNet-50 bf16, 128 images in batches of 32, 4
+   epochs, eps 10/255: |delta|inf <= eps, the fooling rate in [0,1], s per
+   epoch, no kernel launched (the update is plain torch); (b)
+   ``patch_attack``, 32 images, a 50-px patch, 50 steps, targeted: the
+   patch in [0,1], the pasted pixels equal to the rotated patch, s per
+   step; (c) ``make_eot_logits_fn`` over ``resize_pad_transform`` and over
+   ``tv_transform``, n_samples 1 and 8, driving PGD-10 at batch 32 (10
+   pgd_step and 1 noise launches each), and ``resize_pad`` on the card
+   against the CPU on two images within 1e-5; (d)
+   ``SmoothedClassifier.certify`` on ResNet-50 bf16 at its defaults (32 x 4
+   = one 128-image forward a chunk) over 32 images, the votes summing to
+   n_chunks x chunk, the device and host seconds, then a 3-sigma sweep
+   through one counts function; (e) ``ibp_cnn7`` in float32 at 32x32,
+   batch 128, IBP and CROWN-IBP at eps 2/255 and 8/255: CROWN >= IBP,
+   PGD-20 on the margin never below the certified bound, four images'
+   margins within 1e-6 (of the margins' scale) of the CPU's float64 while
+   the same margins with TF32 allowed (the guard bypassed) differ by more,
+   and the guard refusing TF32; (f) the uap CLI in both modes, the certify
+   CLI with ``--method smoothing --plot`` and ``--method crown-ibp --model
+   ibp_cnn7``, four subprocesses started together on 32 PNGs, then the grid
+   CLI in this process, ``--model ibp_cnn7 --model-dtype float32 --attacks
+   fgsm pgd --certified crown-ibp`` on 128 PNGs resident and streamed in
+   chunks of 48: equal certified rows, exact launches.
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -2544,7 +2569,9 @@ RE_ARMS = {"lite": ("apgd", "square", "deepfool"),
 RE_KEYS = {"protocol", "norm", "eot_samples", "eot_sigma", "apgd_steps", "square_steps",
            "deepfool_steps", "fab_steps", "n_target_classes", "results"}
 RE_LINE = r"^eps=\d\.\d{5}: robust_acc=\d\.\d{3} \((\w+ \d+/\d+ ?)+\)  \[\d+\.\ds\]$"
-QC_QUERIES = 500
+# the curves' query budget, cut from 500 to keep the script well
+# inside its time limit once phase 20 was added
+QC_QUERIES = 250
 # the cuda tests of the black-box group (tests/test_torch_cuda.py), run by
 # phase 19 in a subprocess; tests/conftest.py configures jax, so it is left out
 BB_CUDA_TESTS = ("test_black_box_attacks_on_the_card or test_black_box_draws_are_made_on_the_card"
@@ -2729,7 +2756,7 @@ def _query_curves(lf, img32: Path, pngs: list[Path], tmp: Path, dev) -> dict:
         res[mode] = {"seconds": seconds, "launches": counts, "rows": rows,
                      "curves": data["curves"]}
         log(f"[black-box] query_curves CLI {mode} (six attacks, {QC_N} PNGs, "
-            f"{QC_QUERIES} queries): {seconds:.1f} s in process; launches {counts}")
+            f"{QC_QUERIES} queries, cut from 500): {seconds:.1f} s in process; launches {counts}")
         for ln in rows:
             log(f"[black-box]   {ln}")
 
@@ -2878,6 +2905,555 @@ def phase_black_box(state: dict, pngs: list[Path]) -> dict:
     return res
 
 
+# phase 20: (a) UAP, (b) patch, (c) EOT-PGD, (d) smoothing, (e) IBP nets
+UAP_N, UAP_BATCH, UAP_EPOCHS, UAP_EPS = 128, 32, 4, 10 / 255
+PATCH_N, PATCH_SIZE, PATCH_STEPS, PATCH_TARGET = 32, 50, 50, 859
+EOT_BATCH, CERT_N, SIGMAS = 32, 32, (0.12, 0.25, 0.5)
+# The card's float32 CROWN margins against the CPU's float64, relative to the
+# margins' scale: a sound float32 reading is ~1e-7, TF32 convolutions and
+# products move them by ~5e-5 of it (so a limit of 1e-4 would not tell them
+# apart); the limit lies between
+IBP_BATCH, IBP_EPS, IBP_REL_TOL = 128, (2 / 255, 8 / 255), 1e-6
+# PGD-20 can only catch a bound that is too tight where the bound is close to
+# the margin's true minimum.  On the random nets that takes balls so small
+# that no IBP-propagated box straddles a ReLU (up to ~1e-11 here); a float32
+# pixel cannot move by that much, so this check runs the same bound code in
+# float64.  Soundness allows 64 float64 ulps of the logit scale for the
+# rounding of two forwards; "tight" is a gap of at most 1e-3 of the drop the
+# bound allows, on at least half the images
+IBP_TIGHT_EPS, IBP_TIGHT_GAP, IBP_TIGHT_SHARE = (1e-12, 1e-11), 1e-3, 0.5
+CERT_GRID_EPS = ("0.000000001", "0.00784", "0.03137")
+CERT_GRID_CHUNK = 48
+
+
+def _counted(fn):
+    """``fn()`` with the launches reset before and read after, its seconds
+    on the host clock ending in a synchronisation."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    ew.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, ew.launch_counts()
+
+
+def _uap_and_patch(lf, x, y) -> dict:
+    """Phase 20 (a) and (b)."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import patch, uap
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+
+    zero = {"pgd_step": 0, "quantize": 0, "uniform_noise": 0}
+    res = {}
+    xa, ya = x[:UAP_N], y[:UAP_N]
+    out, seconds, counts = _counted(lambda: uap.uap_attack(
+        lf, xa, ya, eps=UAP_EPS, epochs=UAP_EPOCHS, batch_size=UAP_BATCH,
+        generator=generator_from_seed(0)))
+    linf = float(out.delta.abs().max())
+    rate = float(uap.uap_fooling_rate(lf, xa, out.delta))
+    if (linf > UAP_EPS + 1e-6 or not 0.0 <= rate <= 1.0 or counts != zero
+            or out.delta.shape != x.shape[1:] or not torch.isfinite(out.loss_per_epoch).all()):
+        raise AssertionError(f"uap: |delta| {linf}, fooling rate {rate}, launches {counts}")
+    res["uap"] = {"seconds": seconds, "s_per_epoch": seconds / UAP_EPOCHS, "linf": linf,
+                  "fooling_rate": rate, "loss_per_epoch": out.loss_per_epoch.tolist(),
+                  "launches": counts}
+    log(f"[certified] uap_attack ResNet-50 bf16, {UAP_N} images in batches of {UAP_BATCH}, "
+        f"{UAP_EPOCHS} epochs, eps 10/255: {seconds:.2f} s ({seconds / UAP_EPOCHS:.3f} s an "
+        f"epoch); |delta|inf {linf:.6f}; fooling rate {rate:.3f}; launches {counts}")
+
+    xb, yb = x[:PATCH_N].contiguous(), y[:PATCH_N]
+    out, seconds, counts = _counted(lambda: patch.patch_attack(
+        lf, xb, yb, patch_size=PATCH_SIZE, steps=PATCH_STEPS, generator=generator_from_seed(0),
+        y_target=PATCH_TARGET))
+    p = out.patch
+    rows = torch.arange(PATCH_N, device=x.device) * 5 % (224 - PATCH_SIZE + 1)
+    cols = torch.arange(PATCH_N, device=x.device) * 7 % (224 - PATCH_SIZE + 1)
+    rots = torch.arange(PATCH_N, device=x.device) % 4
+    pasted = patch.apply_patch(xb, p, rows=rows, cols=cols, rots=rots)
+    for i in range(PATCH_N):
+        r, c, k = int(rows[i]), int(cols[i]), int(rots[i])
+        if not torch.equal(pasted[i, r:r + PATCH_SIZE, c:c + PATCH_SIZE],
+                           torch.rot90(p, k, dims=(0, 1))):
+            raise AssertionError(f"patch: image {i}'s pasted pixels are not the rotated patch")
+    rate = float(patch.patch_success_rate(lf, xb, p, generator=generator_from_seed(1),
+                                          y_target=PATCH_TARGET))
+    if float(p.min()) < 0.0 or float(p.max()) > 1.0 or counts != zero:
+        raise AssertionError(f"patch: range [{float(p.min())}, {float(p.max())}], "
+                             f"launches {counts}")
+    res["patch"] = {"seconds": seconds, "s_per_step": seconds / PATCH_STEPS,
+                    "targeted_success_rate": rate, "launches": counts,
+                    "loss_first_last": [float(out.loss_per_step[0]), float(out.loss_per_step[-1])]}
+    log(f"[certified] patch_attack ResNet-50 bf16, {PATCH_N} images, {PATCH_SIZE}-px patch, "
+        f"{PATCH_STEPS} steps, target {PATCH_TARGET}: {seconds:.2f} s "
+        f"({seconds / PATCH_STEPS * 1e3:.1f} ms a step); patch in [0,1]; pasted pixels equal "
+        f"the rotated patch in all {PATCH_N}; targeted success {rate:.3f}; loss "
+        f"{res['patch']['loss_first_last'][0]:.4f} -> {res['patch']['loss_first_last'][1]:.4f}")
+    return res
+
+
+def _eot_pgd(lf, x, y) -> dict:
+    """Phase 20 (c)."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        make_eot_logits_fn, pgd_linf_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import (
+        randomization, tv)
+
+    xb, yb = x[:EOT_BATCH].contiguous(), y[:EOT_BATCH]
+    res = {}
+    want = {"pgd_step": STEPS, "quantize": 0, "uniform_noise": 1}
+    for name, transform in (("resize_pad", randomization.resize_pad_transform()),
+                            ("tv", tv.tv_transform())):
+        for n in (1, 8):
+            fn = make_eot_logits_fn(lf, generator_from_seed(0), n_samples=n, transform=transform)
+            x_adv, seconds, counts = _counted(lambda: pgd_linf_attack(
+                fn, xb, yb, eps=EPS, alpha=ALPHA, steps=STEPS, generator=generator_from_seed(0)))
+            size = _check_ball(x_adv, xb, EPS, f"EOT-PGD {name} n={n}")
+            if counts != want:
+                raise AssertionError(f"EOT-PGD {name} n={n}: launches {counts}, want {want}")
+            res[f"{name}_n{n}"] = {"seconds": seconds, "ex_per_s": EOT_BATCH / seconds,
+                                   "launches": counts, "linf": size}
+            log(f"[certified] PGD-10 on EOT({name}, n_samples {n}) at batch {EOT_BATCH}: "
+                f"{seconds:.2f} s ({EOT_BATCH / seconds:.1f} ex/s, {n * EOT_BATCH}-image "
+                f"forwards); launches {counts}")
+    g = torch.Generator().manual_seed(3)
+    x2 = torch.rand((2, 224, 224, 3), generator=g)
+    s = torch.tensor([0.72, 0.91])
+    oy, ox = torch.tensor([10.37, 3.5]), torch.tensor([0.25, 17.81])
+    cpu = randomization.resize_pad(x2, s, oy, ox)
+    card = randomization.resize_pad(x2.cuda(), s.cuda(), oy.cuda(), ox.cuda()).cpu()
+    err = float((card - cpu).abs().max())
+    if err > 1e-5:
+        raise AssertionError(f"resize_pad card vs CPU: {err:.3e}")
+    res["resize_pad_card_vs_cpu"] = err
+    log(f"[certified] resize_pad card vs CPU, 2 images at 224x224: max|diff| {err:.3e} "
+        "(limit 1e-5)")
+    return res
+
+
+def _smoothing(lf, x) -> dict:
+    """Phase 20 (d)."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
+        generator_from_seed, split_generators)
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import smoothing
+
+    xc = x[:CERT_N].contiguous()
+    cfg = smoothing.SmoothingConfig()
+    clf = smoothing.SmoothedClassifier(lf, cfg)
+    g = generator_from_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    counts0 = clf._sample(xc, g, cfg.n0)
+    counts = clf._sample(xc, g, cfg.n)
+    device_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clf.certify_counts(counts0, counts)  # the first call imports scipy.stats
+    first_host_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    classes, radii = clf.certify_counts(counts0, counts)
+    host_s = time.perf_counter() - t0
+    n_total = smoothing._n_chunks(cfg.n, cfg.chunk) * cfg.chunk
+    if (counts.shape[0] != CERT_N or not (counts.sum(axis=1) == n_total).all()
+            or not (counts0.sum(axis=1) == cfg.n0).all()):
+        raise AssertionError(f"smoothing votes: {counts.sum(axis=1)}, want {n_total}")
+    forwards = (smoothing._n_chunks(cfg.n0, cfg.chunk) + smoothing._n_chunks(cfg.n, cfg.chunk)) \
+        * -(-CERT_N // cfg.max_batch)
+    res = {"device_s": device_s, "host_s": host_s, "first_host_s": first_host_s,
+           "forwards": forwards,
+           "images_per_forward": cfg.chunk * cfg.max_batch,
+           "abstained": int((classes == smoothing.ABSTAIN).sum()),
+           "mean_radius": float(np.mean(radii))}
+    log(f"[certified] certify ResNet-50 bf16 at its defaults (sigma {cfg.sigma}, n0 {cfg.n0}, "
+        f"n {cfg.n}, chunk {cfg.chunk} x max_batch {cfg.max_batch}) over {CERT_N} images: "
+        f"{forwards} forwards of {cfg.chunk * cfg.max_batch} images in {device_s:.2f} s, host "
+        f"statistics {host_s * 1e3:.1f} ms ({first_host_s * 1e3:.1f} ms the first time, "
+        f"importing scipy.stats); votes sum to {n_total}; {res['abstained']} "
+        f"abstained, mean radius {res['mean_radius']:.4f}")
+    counts_fn = smoothing.make_counts_fn(lf, cfg.chunk)
+    sweep = {}
+    t0 = time.perf_counter()
+    for sigma, gen in zip(SIGMAS, split_generators(generator_from_seed(1), len(SIGMAS))):
+        c = smoothing.SmoothedClassifier(lf, smoothing.SmoothingConfig(sigma=sigma),
+                                         counts_fn=counts_fn)
+        cls, rad = c.certify(xc, gen)
+        sweep[str(sigma)] = {"abstained": int((cls == smoothing.ABSTAIN).sum()),
+                             "mean_radius": float(np.mean(rad))}
+    res["sweep_s"] = time.perf_counter() - t0
+    res["sweep"] = sweep
+    log(f"[certified] 3-sigma sweep through one counts function: {res['sweep_s']:.2f} s; "
+        + ", ".join(f"sigma {k}: {v['abstained']} abstained, mean radius "
+                    f"{v['mean_radius']:.4f}" for k, v in sweep.items()))
+    return res
+
+
+def _ibp_nets() -> dict:
+    """Phase 20 (e)."""
+    from unittest import mock
+
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import make_logits_fn
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import crown_ibp, ibp
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.models.ibp import ibp_params
+
+    b = load_model("ibp_cnn7", dtype=torch.float32, device="cuda")
+    p, spec, mean, std = ibp_params(b.model), b.model.spec, b.mean, b.std
+    lf = make_logits_fn(b.model, mean, std)
+    x = torch.rand((IBP_BATCH, 32, 32, 3), generator=generator_from_seed(7, "cuda"),
+                   device="cuda")
+    with torch.no_grad():
+        y = lf(x).argmax(-1)
+    cpu = load_model("ibp_cnn7", dtype=torch.float32, device="cpu").model.double()
+    p_cpu = ibp_params(cpu)
+    onehot = torch.nn.functional.one_hot(y, 10).bool()
+
+    def margin_of(z):
+        logits = lf(z)
+        return logits[onehot] - logits.masked_fill(onehot, -torch.inf).max(-1).values
+
+    res = {}
+    for eps in IBP_EPS:
+        def run_ibp():
+            lo, hi = ibp.logit_bounds(p, spec, x, eps, mean, std)
+            return ibp.verified_margin(lo, hi, y)
+
+        def run_crown():
+            return crown_ibp.crown_ibp_margin(p, spec, x, y, eps, mean, std)
+
+        with torch.no_grad():
+            m_ibp, ibp_s, _ = _counted(run_ibp)
+            m_crown, crown_s, _ = _counted(run_crown)
+            ibp_ms = time_ms(run_ibp, iters=5, warmup=1)
+            crown_ms = time_ms(run_crown, iters=5, warmup=1)
+            crown_raw = _spec_min(crown_ibp.margin_spec_bounds(p, spec, x, y, eps, mean, std)[0],
+                                  onehot)
+        # the CROWN bound alone (crown_ibp_margin takes the larger of the two)
+        if not bool((crown_raw >= m_ibp).all()):
+            raise AssertionError(f"eps {eps}: a CROWN margin below the IBP margin")
+        # soundness: PGD-20 on the margin stays above the certified bound
+        z, lowest = x.clone(), None
+        for _ in range(20):
+            z.requires_grad_(True)
+            with torch.enable_grad():
+                m = margin_of(z)
+                (g,) = torch.autograd.grad(m.sum(), z)
+            m = m.detach()
+            lowest = m if lowest is None else torch.minimum(lowest, m)
+            z = torch.clamp(torch.clamp(z.detach() - eps / 4 * g.sign(), x - eps, x + eps), 0, 1)
+        with torch.no_grad():
+            lowest = torch.minimum(lowest, margin_of(z))
+        if not bool((lowest >= m_crown).all()):
+            raise AssertionError(f"eps {eps}: PGD found a margin below the certified bound")
+        # four images: the card's float32 against the CPU's float64, then TF32
+        want = crown_ibp.crown_ibp_margin(p_cpu, spec, x[:4].cpu().double(), y[:4].cpu(), eps,
+                                          mean, std)
+        scale = float(want.abs().max())
+        err = float((m_crown[:4].cpu().double() - want).abs().max()) / scale
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            try:
+                crown_ibp.crown_ibp_margin(p, spec, x[:4], y[:4], eps, mean, std)
+                raise AssertionError("the TF32 guard let a bound run with TF32 allowed")
+            except RuntimeError as e:
+                if "full float32" not in str(e):
+                    raise
+            with mock.patch.object(ibp, "require_full_float32", lambda t: None), \
+                    torch.no_grad():
+                tf32 = crown_ibp.crown_ibp_margin(p, spec, x[:4], y[:4], eps, mean, std)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        tf32_err = float((tf32.cpu().double() - want).abs().max()) / scale
+        if not err <= IBP_REL_TOL < tf32_err:
+            raise AssertionError(f"eps {eps}: CROWN margins card vs CPU float64 {err:.3e} "
+                                 f"relative, with TF32 {tf32_err:.3e}; the limit "
+                                 f"{IBP_REL_TOL:.0e} must lie between them")
+        res[f"{eps:.5f}"] = {
+            "ibp_ms": ibp_ms, "crown_ms": crown_ms, "ibp_first_s": ibp_s, "crown_first_s": crown_s,
+            "verified_ibp": float((m_ibp > 0).float().mean()),
+            "verified_crown": float((m_crown > 0).float().mean()),
+            "crown_raw_minus_ibp_min": float((crown_raw - m_ibp).min()),
+            "crown_minus_ibp_mean": float((m_crown - m_ibp).mean()),
+            "pgd_lowest_minus_bound_min": float((lowest - m_crown).min()),
+            "card_vs_cpu_f64_rel": err, "tf32_vs_cpu_f64_rel": tf32_err, "margin_scale": scale}
+        log(f"[certified] ibp_cnn7 float32 batch {IBP_BATCH}, eps {eps:.5f}: IBP {ibp_ms:.2f} ms, "
+            f"CROWN-IBP {crown_ms:.2f} ms (CUDA events); the CROWN bound alone >= IBP "
+            f"everywhere (least gain {res[f'{eps:.5f}']['crown_raw_minus_ibp_min']:.4g}, mean "
+            f"gain {res[f'{eps:.5f}']['crown_minus_ibp_mean']:.4g}); PGD-20 on the margin stays "
+            f">= the bound (least gap {res[f'{eps:.5f}']['pgd_lowest_minus_bound_min']:.4g}); "
+            f"4 images card vs CPU float64 {err:.3e} of {scale:.4g}, with TF32 {tf32_err:.3e} "
+            f"(limit {IBP_REL_TOL:.0e}); the guard refuses TF32")
+    res["tight"] = _ibp_tight_soundness(b.model, mean, std, x)
+    return res
+
+
+def _spec_min(bounds, onehot):
+    """[B] least per-spec bound over the classes j != y."""
+    import torch
+
+    return bounds.masked_fill(onehot, torch.inf).min(-1).values
+
+
+def _ibp_tight_soundness(model, mean, std, x) -> dict:
+    """Phase 20 (e), float64: PGD-20 on the margin against the CROWN-IBP
+    bound at balls where the bound is close to the true minimum, so that a
+    bound too tight by more than the gap would be caught."""
+    import copy
+
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.normalize import (
+        normalize_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import crown_ibp, ibp
+    from image_recognition_adversarial_example_attack_tpu_torch.models.ibp import ibp_params
+
+    p = ibp_params(copy.deepcopy(model).double())
+    spec = model.spec
+    x = x.double()
+
+    def logits_of(z):
+        return ibp.spec_forward(p, spec, normalize_batch(z, mean, std))
+
+    with torch.no_grad():
+        clean_logits = logits_of(x)
+    y = clean_logits.argmax(-1)
+    onehot = torch.nn.functional.one_hot(y, clean_logits.shape[-1]).bool()
+    tol = 64 * torch.finfo(torch.float64).eps * float(clean_logits.abs().max())
+
+    def margin_of(z):
+        logits = logits_of(z)
+        return logits[onehot] - logits.masked_fill(onehot, -torch.inf).max(-1).values
+
+    clean = margin_of(x).detach()
+    res = {"rounding_allowance": tol}
+    for eps in IBP_TIGHT_EPS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            bound = crown_ibp.crown_ibp_margin(p, spec, x, y, eps, mean, std)
+        z, lowest = x.clone(), clean
+        for _ in range(20):
+            z.requires_grad_(True)
+            with torch.enable_grad():
+                (g,) = torch.autograd.grad(margin_of(z).sum(), z)
+            z = torch.clamp(torch.clamp(z.detach() - eps / 4 * g.sign(), x - eps, x + eps), 0, 1)
+            with torch.no_grad():
+                lowest = torch.minimum(lowest, margin_of(z))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        drop, gap = clean - bound, lowest - bound
+        tight = gap <= IBP_TIGHT_GAP * drop
+        share = float(tight.float().mean())
+        if not bool((gap >= -tol).all()) or not bool((drop > 0).all()):
+            raise AssertionError(f"eps {eps:.0e}: PGD-20 in float64 found a margin "
+                                 f"{float(gap.min()):.3e} below the certified bound "
+                                 f"(allowance {tol:.3e})")
+        if share < IBP_TIGHT_SHARE:
+            raise AssertionError(f"eps {eps:.0e}: the bound is within {IBP_TIGHT_GAP:.0e} of the "
+                                 f"drop of PGD's margin on {share:.3f} of the images, want "
+                                 f">= {IBP_TIGHT_SHARE}")
+        rel = (gap / drop)[tight]
+        res[f"{eps:.0e}"] = {"seconds": seconds, "tight_share": share,
+                             "gap_over_drop_max_tight": float(rel.max()),
+                             "gap_min": float(gap.min()), "drop_median": float(drop.median())}
+        log(f"[certified] ibp_cnn7 float64 batch {x.shape[0]}, eps {eps:.0e}: CROWN-IBP bound "
+            f"and PGD-20 on the margin in {seconds:.2f} s; PGD stays >= the bound on every "
+            f"image (least gap {float(gap.min()):.3e}, allowance {tol:.3e}); on {share:.3f} of "
+            f"the images the gap is <= {IBP_TIGHT_GAP:.0e} of the bound's drop "
+            f"(median drop {float(drop.median()):.3e}; largest gap/drop there "
+            f"{float(rel.max()):.3e})")
+    return res
+
+
+def _grid_kernels() -> dict:
+    """The three kernels against their plain versions at the shapes the
+    --certified grid on ibp_cnn7 gives them: 128 images resident, chunks of
+    CERT_GRID_CHUNK and their tail streamed."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    n = SHAPE[0]
+    res = {}
+    for b in (n, CERT_GRID_CHUNK, n % CERT_GRID_CHUNK):
+        shape = (b, 32, 32, 3)
+        gen = generator_from_seed(11 + b, "cuda")
+        x = torch.rand(shape, generator=gen, device="cuda")
+        x0 = torch.rand(shape, generator=gen, device="cuda")
+        grad = torch.randn(shape, generator=gen, device="cuda")
+        grad.view(-1)[::7] = 0.0  # sign(0) = 0 must hold
+        # pgd_step at each of the grid's eps, untargeted and targeted: bit-exact
+        for eps in map(float, CERT_GRID_EPS):
+            for a in (ALPHA, -ALPHA):
+                k = ew.pgd_step(x, grad, x0, eps, a)
+                p = ew.pgd_step_plain(x, grad if a > 0 else -grad, x0, eps, abs(a))
+                if not torch.equal(k, p):
+                    raise AssertionError(f"pgd_step at {list(shape)}, eps {eps}, alpha {a}: "
+                                         f"max|diff| {float((k - p).abs().max())}")
+        # quantize: bit-exact, with values outside [0,1] and exact .5 ties
+        xq = x * 1.2 - 0.1
+        ties = (torch.arange(xq.numel() // 11, device="cuda") % (LEVELS - 1)).float()
+        xq.view(-1)[::11][:ties.numel()] = (ties + 0.5) / (LEVELS - 1)
+        kq, pq = ew.quantize(xq, LEVELS), ew.quantize_plain(xq, LEVELS)
+        if not torch.equal(kq, pq):
+            raise AssertionError(f"quantize at {list(shape)}: max|diff| "
+                                 f"{float((kq - pq).abs().max())}")
+        # noise: the range, mean and variance checks of the batch-1 shape
+        noise = ew.uniform_noise(shape, EPS, generator_from_seed(12 + b), "cuda").double()
+        eps32 = float(np.float32(EPS))
+        mean, var = float(noise.mean()), float(noise.var())
+        if not (float(noise.min()) >= -eps32 and float(noise.max()) <= eps32
+                and abs(mean) < 1e-2 * EPS and abs(var / (EPS ** 2 / 3) - 1) < 2e-2):
+            raise AssertionError(f"noise at {list(shape)}: range [{float(noise.min())}, "
+                                 f"{float(noise.max())}], mean {mean}, var {var}")
+        rec = {"pgd_step": "bit-exact", "quantize": "bit-exact",
+               "noise_mean": mean, "noise_var_ratio": var / (EPS ** 2 / 3)}
+        if b == n:
+            # calls issued one by one, as phase 2 times them (outside the counted runs)
+            numel, g3 = x.numel(), generator_from_seed(13)
+            rec.update({
+                "pgd_step_ms": time_ms(lambda: ew.pgd_step(x, grad, x0, EPS, ALPHA)),
+                "pgd_step_bound_ms": bound_ms("pgd_step", numel),
+                "quantize_ms": time_ms(lambda: ew.quantize(xq, LEVELS)),
+                "quantize_bound_ms": bound_ms("quantize", numel),
+                "uniform_noise_ms": time_ms(lambda: ew.uniform_noise(shape, EPS, g3, "cuda")),
+                "uniform_noise_bound_ms": bound_ms("uniform_noise", numel)})
+        res[str(list(shape))] = rec
+        log(f"[certified] kernels at {list(shape)}: pgd_step bit-exact at eps "
+            f"{', '.join(CERT_GRID_EPS)} (alpha +-2/255), quantize bit-exact with ties, noise in "
+            f"range, mean {mean:.2e}, var/(eps^2/3) {var / (EPS ** 2 / 3):.4f}"
+            + ("" if b != n else
+               f"; pgd_step {rec['pgd_step_ms']:.4f} ms (bound {rec['pgd_step_bound_ms']:.5f}), "
+               f"quantize {rec['quantize_ms']:.4f} ms (bound {rec['quantize_bound_ms']:.5f}), "
+               f"noise {rec['uniform_noise_ms']:.4f} ms (bound "
+               f"{rec['uniform_noise_bound_ms']:.5f})"))
+    return res
+
+
+def _certified_clis(pngs: list[Path], tmp: Path) -> dict:
+    """Phase 20 (f): four CLI subprocesses started together, then the grid
+    CLI with --certified in this process, resident and streamed."""
+    import re
+
+    from PIL import Image
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import defense_experiments
+
+    img32 = _linked(pngs[:CERT_N], tmp / "cert32")
+    runs = {
+        "uap": ("uap", "--epochs", "4", "--batch_size", "16", "--output", str(tmp / "uap")),
+        "patch": ("uap", "--mode", "patch", "--steps", "20", "--patch_size", "50",
+                  "--target", str(PATCH_TARGET), "--output", str(tmp / "patch"),
+                  "--save_adv_dir", str(tmp / "patch_adv")),
+        "smoothing": ("certify", "--plot", str(tmp / "cert.png"), "--sigmas", "0.25", "0.5",
+                      "--output", str(tmp / "cert.json")),
+        "crown-ibp": ("certify", "--method", "crown-ibp", "--model", "ibp_cnn7",
+                      "--output", str(tmp / "crown.json")),
+    }
+    procs = {}
+    for name, (module, *args) in runs.items():
+        cmd = [sys.executable, "-m", f"{PKG}.cli.{module}", "--image_dir", str(img32), *args]
+        procs[name] = (subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True), time.perf_counter())
+    res = {}
+    for name, (proc, t0) in procs.items():
+        out, err = proc.communicate(timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or "Using device: cuda" not in out:
+            raise AssertionError(f"{name} CLI exit {proc.returncode}:\n{out[-3000:]}\n"
+                                 f"{err[-4000:]}")
+        res[name] = {"seconds": seconds}
+    uap_json = json.loads((tmp / "uap.json").read_text())
+    patch_json = json.loads((tmp / "patch.json").read_text())
+    cert = json.loads((tmp / "cert.json").read_text())
+    crown = json.loads((tmp / "crown.json").read_text())
+    if (uap_json["linf"] > 10 / 255 + 1e-6 or len(uap_json["per_image"]) != CERT_N
+            or "targeted_success_rate" not in patch_json
+            or len(list((tmp / "patch_adv").iterdir())) != CERT_N
+            or set(cert) != {"n0", "n", "alpha", "sweeps"} or len(cert["sweeps"]) != 2
+            or any(len(s["results"]) != CERT_N for s in cert["sweeps"])
+            or crown["method"] != "crown-ibp" or len(crown["sweeps"]) != 2
+            or any(len(s["results"]) != CERT_N for s in crown["sweeps"])):
+        raise AssertionError(f"the uap/certify CLIs' JSON: {uap_json.keys()} {patch_json.keys()} "
+                             f"{cert.keys()} {crown.keys()}")
+    with Image.open(tmp / "cert.png") as im:
+        res["smoothing"]["plot_size"] = im.size
+    res["uap"]["fooling_rate"] = uap_json["fooling_rate"]
+    res["patch"]["targeted_success_rate"] = patch_json["targeted_success_rate"]
+    res["crown-ibp"]["verified_accuracy"] = [s["verified_accuracy"] for s in crown["sweeps"]]
+    log("[certified] CLIs in four subprocesses started together, 32 PNGs: "
+        + "; ".join(f"{k} exit 0 in {v['seconds']:.1f} s" for k, v in res.items())
+        + f"; uap fooling rate {uap_json['fooling_rate']:.3f}, patch targeted success "
+        f"{patch_json['targeted_success_rate']:.3f}, crown-ibp verified "
+        f"{res['crown-ibp']['verified_accuracy']}")
+
+    img128 = _linked(pngs[:SHAPE[0]], tmp / "cert128")
+    grid = ["--image_dir", str(img128), "--model", "ibp_cnn7", "--model-dtype", "float32",
+            "--attacks", "fgsm", "pgd", "--eps_list", *CERT_GRID_EPS, "--steps", str(STEPS),
+            "--certified", "crown-ibp", "--viz_samples", "0"]
+    line = re.compile(r"^certified\(crown-ibp\), eps=\d\.\d{5}: verified_acc=\d\.\d{4}, "
+                      r"clean_acc=\d\.\d{4} \(128 images\)$")
+    n_eps, chunks = len(CERT_GRID_EPS), -(-SHAPE[0] // CERT_GRID_CHUNK)
+    rows = {}
+    for name, extra, k in (("resident", [], 1),
+                           ("streamed", ["--max_batch", str(CERT_GRID_CHUNK)], chunks)):
+        out_dir = tmp / f"grid_{name}"
+        out, seconds, counts = _in_process_cli(defense_experiments.main,
+                                               [*grid, *extra, "--output_dir", str(out_dir)])
+        want = {"pgd_step": k * n_eps * STEPS, "quantize": k * 2 * n_eps,
+                "uniform_noise": k * n_eps}
+        lines = [ln for ln in out.splitlines() if ln.startswith("certified(")]
+        data = json.loads((out_dir / "certified_accuracy.json").read_text())
+        if counts != want or len(lines) != n_eps or not all(line.match(ln) for ln in lines):
+            raise AssertionError(f"grid --certified ({name}): launches {counts} (want {want}), "
+                                 f"lines {lines}")
+        rows[name] = data["rows"]
+        res[f"grid_{name}"] = {"seconds": seconds, "launches": counts, "lines": lines,
+                               "rows": data["rows"], "cell_s": _cells_s(out_dir)}
+        log(f"[certified] grid CLI --model ibp_cnn7 --attacks fgsm pgd --certified crown-ibp, "
+            f"{SHAPE[0]} PNGs {name}: {seconds:.1f} s in process; launches {counts}")
+        for ln in lines:
+            log(f"[certified]   {ln}")
+    if rows["resident"] != rows["streamed"]:
+        raise AssertionError(f"certified rows differ: {rows}")
+    log(f"[certified] the streamed grid's certified rows (chunks of {CERT_GRID_CHUNK}) equal "
+        "the resident grid's")
+    return res
+
+
+def phase_certified(state: dict, pngs: list[Path]) -> dict:
+    """Phase 20: universal perturbations and patches, the EOT transforms of
+    the randomized defenses, randomized smoothing, the IBP nets' bounds, and
+    the uap, certify and grid --certified CLIs."""
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+
+    x, y = state["x"], state["y"]
+    lf = make_fns(state["bundle"])[0]
+    res = _uap_and_patch(lf, x, y)
+    res["eot"] = _eot_pgd(lf, x, y)
+    res["smoothing"] = _smoothing(lf, x)
+    res["ibp"] = _ibp_nets()
+    res["grid_kernels"] = _grid_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        res["cli"] = _certified_clis(pngs, Path(tmp))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=str, default=None,
@@ -2944,6 +3520,7 @@ def main(argv=None) -> int:
         record["transfer_attacks"] = run("transfer_attacks", phase_transfer_attacks, state, pngs)
         record["zoo"] = run("zoo", phase_white_box_zoo, state, pngs)
         record["black_box"] = run("black_box", phase_black_box, state, pngs)
+        record["certified"] = run("certified", phase_certified, state, pngs)
 
     # the elementwise kernels' main path: PGD-10, the eight cells, the
     # streamed pgd cell, the visualize path's PGD-20 and trajectory, the
@@ -2952,9 +3529,11 @@ def main(argv=None) -> int:
     # them, the white-box zoo's counted runs and its in-process suite and
     # grid CLIs, the black-box group's counted runs, its streamed robust
     # cell, query_curves CLIs (and their per-chunk resident runs) and grid
-    # and suite CLIs; the conv's: the probe's entry point
+    # and suite CLIs, phase 20's EOT-PGD runs and its two grid CLIs with
+    # --certified; the conv's: the probe's entry point
     detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
     ta, zoo, bb = record["transfer_attacks"], record["zoo"], record["black_box"]
+    cert = record["certified"]
     runs = [record["pgd"], record["cell"], *record["cells"].values(),
             *(record["detectors"][c] for c in detector_cells),
             record["stream"]["pgd_cell"], record["visualize"]["in_process"],
@@ -2964,7 +3543,10 @@ def main(argv=None) -> int:
             *zoo["suite_f32"].values(), zoo["grid_cli"],
             *bb["a"].values(), *bb["b"].values(), bb["robust_stream"],
             bb["query_curves"]["one batch"], bb["query_curves"]["streamed"],
-            bb["query_curves"]["resident_chunks"], bb["grid_cli"], bb["suite_cli"]]
+            bb["query_curves"]["resident_chunks"], bb["grid_cli"], bb["suite_cli"],
+            cert["uap"], cert["patch"],
+            *(v for v in cert["eot"].values() if isinstance(v, dict)),
+            cert["cli"]["grid_resident"], cert["cli"]["grid_streamed"]]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

@@ -16,8 +16,9 @@ generator on the input's device is seeded from (seed, mix) (``input_mix``,
 ``call_generator``), which reads ``mix`` from the card: one host read per
 wrapped call, the only one.
 
-``universal_perturbation`` belongs with ``attacks/uap.py`` and is not ported
-yet.
+``universal_perturbation`` is one shared [H,W,C] delta maximizing the mean
+cross-entropy over a batch: the full-batch form of ``attacks/uap.py``'s
+trainer, ``steps`` epochs of one batch each.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import torch
 
 from ..core.rng import seed_draw, standard_normal
 from .api import LogitsFn
+from .uap import uap_attack
 
 # transform: (generator, x [B,H,W,C]) -> x' [B,H,W,C]
 TransformFn = Callable[[torch.Generator, torch.Tensor], torch.Tensor]
@@ -87,3 +89,14 @@ def make_eot_logits_fn(logits_fn: LogitsFn, generator: torch.Generator, n_sample
         return torch.log(torch.clamp_min(probs, 1e-12))
 
     return eot_fn
+
+
+def universal_perturbation(logits_fn: LogitsFn, x: torch.Tensor, y_true: torch.Tensor, *,
+                           eps: float, alpha: float, steps: int, generator: torch.Generator,
+                           random_start: bool = True) -> torch.Tensor:
+    """One L∞-bounded delta [H,W,C] fooling as much of the batch as it can:
+    sign-gradient ascent on the batch-mean cross-entropy of ``x + delta``.
+    Returns the delta (add it to any [0,1] image and clip); ``steps``
+    full-batch updates are ``steps`` one-batch epochs of ``uap_attack``."""
+    return uap_attack(logits_fn, x, y_true, eps=eps, alpha=alpha, epochs=steps,
+                      generator=generator, random_start=random_start).delta

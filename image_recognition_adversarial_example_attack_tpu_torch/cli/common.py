@@ -201,6 +201,15 @@ def load_bundle(args: argparse.Namespace, name: str | None = None):
                       weights=weights, device=device, int8=bool(getattr(args, "int8", False)))
 
 
+def model_input_size(args: argparse.Namespace) -> int:
+    """The ``--model``'s native input size (224, or 32 for the IBP nets)
+    without building the model: for the CLIs that decode images before the
+    bundle exists."""
+    from ..models.zoo import model_meta
+
+    return int(model_meta(getattr(args, "model", "resnet50"))["input_size"])
+
+
 def input_dtype_of(bundle):
     """The input-cast dtype of a bundle's closures: its compute dtype, or
     None for float32 (the one place of the policy, so the logits, feature
@@ -235,17 +244,18 @@ def print_topk(title: str, prob_row: np.ndarray, idx_row: np.ndarray, labels) ->
         print(f"Top {rank}: {label} (class {idx}), prob = {p:.4f}")
 
 
-def resolve_image_inputs(image_dir: str | None, image: str) -> list:
+def resolve_image_inputs(image_dir: str | None, image: str, skip_bmp: bool = True) -> list:
     """--image_dir / --image: a directory gives its sorted image list (BMP
-    files left out, as the reference does), else the single file; missing
-    inputs fail before any device work."""
+    files left out, as the reference does, unless ``skip_bmp`` is False),
+    else the single file; missing inputs fail before any device work."""
     from ..core.images import list_images
 
     if image_dir is not None:
         d = Path(image_dir)
         if not d.is_dir():
             raise SystemExit(f"image_dir not found: {d}")
-        paths = [p for p in list_images(d) if p.suffix.lower() != ".bmp"]
+        paths = [p for p in list_images(d)
+                 if not (skip_bmp and p.suffix.lower() == ".bmp")]
         if not paths:
             raise SystemExit(f"no images found in {d}")
         return paths
@@ -357,8 +367,9 @@ def labels_digest(labels_json: str | None) -> str | None:
     return hashlib.sha256(Path(labels_json).read_bytes()).hexdigest()
 
 
-# CLI args that change no result
-_NOT_FINGERPRINTED = frozenset({"output_dir", "resume", "viz_samples", "profile_dir"})
+# CLI args that change no grid cell (--certified adds rows after the grid)
+_NOT_FINGERPRINTED = frozenset({"output_dir", "resume", "viz_samples", "profile_dir",
+                                "certified"})
 
 
 def config_fingerprint(args, attack_name: str | None = None,
@@ -444,14 +455,15 @@ def apply_imagenet_val(args) -> list | None:
     return paths
 
 
-def resolve_eval_inputs(args) -> list:
+def resolve_eval_inputs(args, *, skip_bmp: bool = True) -> list:
     """The input plane of the eval CLIs: --imagenet_val_dir (its ground
     truth written into ``args.labels_json``) wins, else --image_dir /
-    --image.  Conflicting flags fail before any device work."""
+    --image (BMP files kept with ``skip_bmp=False``, as the uap and certify
+    CLIs keep them).  Conflicting flags fail before any device work."""
     val_paths = apply_imagenet_val(args)
     if val_paths is not None:
         return val_paths
-    return resolve_image_inputs(args.image_dir, args.image)
+    return resolve_image_inputs(args.image_dir, args.image, skip_bmp=skip_bmp)
 
 
 def resolve_labels_sentinel(labels_json: str | None, paths):

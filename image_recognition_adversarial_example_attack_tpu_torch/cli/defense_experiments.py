@@ -24,8 +24,14 @@ eps/4, 10 steps), the heatmaps and ``timings.json``.
 
 The eps-independent attacks (cw, deepfool, ead, stadv, boundary, simba,
 jsma, spatial) compute one cell and reuse it for every eps.  Every
-``--attacks`` choice of the JAX CLI runs; its certified and CIFAR-10 options
-are not ported yet.
+``--attacks`` choice of the JAX CLI runs.
+
+``--certified ibp|crown-ibp`` (spec-driven models only: ``ibp_cnn7``,
+``ibp_tiny``; refused before the grid otherwise) appends one verified
+accuracy row per eps after the summary, on the same images and labels as
+the grid, and writes ``certified_accuracy.json``; streamed image sets take
+the same chunks.  It is left out of the resume fingerprint.  The JAX CLI's
+CIFAR-10 options are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ from ..defenses.detector import calibrate_feature_threshold, calibrate_squeezing
 from ..defenses.preprocess import DefenseConfig, defend_input
 from ..eval.defense_eval import (DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch,
                                  summary_line)
-from ..eval.streaming import make_placer, round_up, stream_defense_cell
+from ..eval.streaming import _merge_labels, make_placer, round_up, stream_defense_cell
 from .common import (ATTACK_CHOICES, EPS_INDEPENDENT_ATTACKS, add_extended_attack_args,
                      add_imagenet_val_arg, add_model_args, apply_imagenet_val, cell_rng_id,
                      check_label_range, config_fingerprint, extended_attack_kwargs,
@@ -69,6 +75,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--attacks", type=str, nargs="+", default=["fgsm", "pgd", "cw"],
                         choices=list(ATTACK_CHOICES))
     parser.add_argument("--eps_list", type=float, nargs="+", default=list(DEFAULT_EPS_LIST))
+    parser.add_argument("--certified", type=str, default="off",
+                        choices=["off", "ibp", "crown-ibp"],
+                        help="append per-eps CERTIFIED (verified) accuracy rows to "
+                             "the experiment summary: deterministic L-inf interval "
+                             "bounds (defenses/ibp.py / crown_ibp.py) on the SAME "
+                             "images and labels as the empirical grid; spec-driven "
+                             "models only (ibp_cnn7/ibp_tiny)")
     parser.add_argument("--alpha", type=float, default=DEFAULT_ALPHA)
     parser.add_argument("--steps", type=int, default=DEFAULT_STEPS)
     parser.add_argument("--cw_c", type=float, default=DEFAULT_CW_C)
@@ -214,6 +227,12 @@ def main(argv=None) -> int:
         bundle = load_bundle(args)
     logits_fn, features_fn = make_fns(bundle)
     n_classes = n_classes_of(bundle.model)
+    # fail fast before the grid runs (the certified rows come after it)
+    if args.certified != "off" and not hasattr(bundle.model, "spec"):
+        raise SystemExit(
+            f"--certified {args.certified} needs a spec-driven model "
+            f"(ibp_cnn7 / ibp_tiny, models/ibp.py); --model {args.model} "
+            "has no interval propagator")
 
     def pseudo_fn(xx: torch.Tensor) -> torch.Tensor:
         with torch.no_grad():
@@ -392,6 +411,14 @@ def main(argv=None) -> int:
 
     output_dir.mkdir(parents=True, exist_ok=True)
 
+    # --- certified rows beside the empirical ones: same images, same labels ---
+    if args.certified != "off":
+        _certified_summary(args, bundle, pseudo_fn, image_paths=image_paths,
+                           streaming=streaming, x=None if streaming else x, n=n,
+                           y_true=y_true, labels_np=labels_np,
+                           chunk=chunk if streaming else 0,
+                           place=place if streaming else None, output_dir=output_dir)
+
     # --- sample visualization (PGD at eps_list[1] or 8/255, alpha=eps/4) ---
     if args.viz_samples > 0:
         print("\n" + "=" * 60)
@@ -423,6 +450,49 @@ def main(argv=None) -> int:
 
     print("\nAll experiments complete. Results saved to:", output_dir)
     return 0
+
+
+def _certified_summary(args, bundle, pseudo_fn, *, image_paths, streaming, x, n, y_true,
+                       labels_np, chunk, place, output_dir) -> None:
+    """Per-eps verified accuracy after the experiment summary: one interval
+    forward per eps (``defenses/ibp.py``, or the tighter CROWN-IBP backward
+    bound) over the grid's images with the grid's labels (ground truth where
+    given, pseudo-labels otherwise).  A streamed set takes the grid's
+    chunks; only per-chunk counts reach the host."""
+    from ..defenses.crown_ibp import make_crown_verify_fn
+    from ..defenses.ibp import make_verify_fn
+    from ..models.ibp import ibp_params
+    from ..utils.pipeline import EvalBatchPipeline
+
+    make = make_crown_verify_fn if args.certified == "crown-ibp" else make_verify_fn
+    verify = make(ibp_params(bundle.model), bundle.model.spec, bundle.mean, bundle.std)
+    eps_list = [float(e) for e in args.eps_list]
+    print("-" * 60)
+    counts = {eps: [0, 0, 0] for eps in eps_list}  # verified, correct, images
+    if streaming:
+        pipe = EvalBatchPipeline(image_paths, chunk, labels=labels_np,
+                                 size=bundle.input_size)
+        batches = ((place(x_np), y_np, n_valid) for _, x_np, y_np, n_valid in pipe)
+    else:
+        batches = [(x, None, n)]
+    for xc, y_np, n_valid in batches:
+        yc = y_true if not streaming else _merge_labels(y_np, pseudo_fn(xc))
+        for eps in eps_list:
+            out = verify(xc, yc, eps)
+            counts[eps][0] += int(out["verified"][:n_valid].sum())
+            counts[eps][1] += int(out["correct"][:n_valid].sum())
+            counts[eps][2] += int(n_valid)
+    rows = []
+    for eps in eps_list:
+        nv, nc, tot = counts[eps]
+        v, c = nv / max(tot, 1), nc / max(tot, 1)
+        print(f"certified({args.certified}), eps={eps:.5f}: "
+              f"verified_acc={v:.4f}, clean_acc={c:.4f} ({tot} images)")
+        rows.append({"eps": eps, "verified_accuracy": v, "clean_accuracy": c, "count": tot})
+    path = output_dir / "certified_accuracy.json"
+    path.write_text(json.dumps({"method": args.certified, "model": args.model, "rows": rows},
+                               indent=2))
+    print(f"Certified rows: {path}")
 
 
 def _visualize_samples(logits_fn, x, y_pred, eps, defense_cfg, output_dir, generator):

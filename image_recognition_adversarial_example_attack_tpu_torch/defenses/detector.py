@@ -31,23 +31,32 @@ FeaturesFn = Callable[[torch.Tensor], torch.Tensor]  # x01 [B,H,W,3] -> [B,h,w,C
 
 def make_features_fn(model: nn.Module, mean, std,
                      input_dtype: torch.dtype | None = None) -> FeaturesFn:
-    """x in [0,1], NHWC -> stage-3 feature map, NHWC float32."""
+    """x in [0,1], NHWC -> stage-3 feature map, NHWC float32.
+
+    A model without ``features_stage3`` (the IBP nets) gives its plain
+    forward, the logits [B,K], as the JAX package's does;
+    ``score_from_features`` takes both ranks."""
     from ..attacks.api import make_logits_fn
 
+    if not hasattr(model, "features_stage3"):
+        return make_logits_fn(model, mean, std, input_dtype=input_dtype)
     stage3 = make_logits_fn(model, mean, std, input_dtype=input_dtype,
                             method="features_stage3")
     return lambda x01: stage3(x01).permute(0, 2, 3, 1)
 
 
 def score_from_features(feats: torch.Tensor) -> torch.Tensor:
-    """Detector score per sample of an NHWC feature map [B, H, W, C]."""
-    if feats.ndim != 4:
-        raise ValueError(f"expected an NHWC feature map, got shape {tuple(feats.shape)}")
-    channels = feats.shape[-1]
-    feat_l2 = torch.sqrt(torch.sum(torch.square(feats), dim=(1, 2, 3))) / channels
-    # unbiased variance over the spatial dims per channel, then the channel mean
-    feat_var = torch.mean(torch.var(feats, dim=(1, 2), correction=1), dim=-1)
-    return torch.clamp(feat_l2 + 0.1 * feat_var, 0.0, 100.0)
+    """Detector score per sample of an NHWC feature map [B, H, W, C]; of
+    logits [B, K] (a model without a stage-3 split), their L2 norm."""
+    if feats.ndim == 4:
+        channels = feats.shape[-1]
+        feat_l2 = torch.sqrt(torch.sum(torch.square(feats), dim=(1, 2, 3))) / channels
+        # unbiased variance over the spatial dims per channel, then the channel mean
+        feat_var = torch.mean(torch.var(feats, dim=(1, 2), correction=1), dim=-1)
+        score = feat_l2 + 0.1 * feat_var
+    else:
+        score = torch.linalg.vector_norm(feats.reshape(feats.shape[0], -1), dim=-1)
+    return torch.clamp(score, 0.0, 100.0)
 
 
 def feature_score(features_fn: FeaturesFn, x: torch.Tensor) -> torch.Tensor:

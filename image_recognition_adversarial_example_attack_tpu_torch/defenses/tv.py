@@ -12,14 +12,17 @@ proxes.  The JAX package scans the steps; here they are a Python loop.  The
 solve runs in float32 and is differentiable end to end: the clamp inside the
 dual projection keeps the gradient finite on flat (saturated) regions.
 
-The randomized pixel-dropout variant, ``tv_transform``, needs the EOT attack
-and is not ported yet.
+``tv_transform`` is the randomized pixel-dropout variant as a transform of
+the EOT wrapper (``attacks/eot.py``): a Bernoulli(keep_prob) mask per pixel,
+shared across channels, gates the data term.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..core.rng import device_generator
 
 TV_WEIGHT = 0.03   # the paper's lambda_TV
 TV_STEPS = 30      # Chambolle-Pock iterations (static; O(1/k) gap)
@@ -91,3 +94,26 @@ def rof_energy(z: torch.Tensor, x: torch.Tensor, *, weight: float = TV_WEIGHT,
     m = torch.ones_like(x) if mask is None else torch.broadcast_to(mask, x.shape)
     data = 0.5 * torch.sum(m * (z - x) ** 2, dim=(1, 2, 3))
     return data + weight * total_variation(z)
+
+
+def draw_keep_mask(shape, keep_prob: float, generator: torch.Generator,
+                   device: torch.device | str) -> torch.Tensor:
+    """Bernoulli(keep_prob) float32 of ``shape`` on ``device`` (1 = kept)."""
+    g = device_generator(generator, device)
+    u = torch.rand(tuple(shape), generator=g, dtype=torch.float32, device=device)
+    return (u < float(keep_prob)).to(torch.float32)
+
+
+def tv_transform(weight: float = TV_WEIGHT, steps: int = TV_STEPS, keep_prob: float = 0.5):
+    """The randomized (pixel-dropout) TV defense as an EOT transform
+    ``(generator, x) -> x'``: per draw a Bernoulli(keep_prob) mask per
+    pixel, shared across channels, gates the data term; dropped pixels are
+    TV-inpainted.  ``n_samples=1`` in ``make_eot_logits_fn`` is the deployed
+    defense; ``n_samples >= 8`` the adaptive expectation attack."""
+
+    def transform(generator, x):
+        keep = draw_keep_mask((x.shape[0], x.shape[1], x.shape[2], 1), keep_prob,
+                              generator, x.device)
+        return tv_minimize(x, weight=weight, steps=steps, mask=keep.to(x.dtype))
+
+    return transform

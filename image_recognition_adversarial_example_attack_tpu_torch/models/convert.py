@@ -174,6 +174,8 @@ _FAMILIES: dict[str, tuple[Callable, Callable]] = {
     "densenet": (_densenet_torch, _densenet_flax),
     "vit": (_vit_torch, _vit_flax),
     "swin": (_swin_torch, _swin_flax),
+    # IBPNet's conv_{i} / dense_{i} carry the Flax names
+    "ibp": (".".join, lambda path: tuple(path.split("."))),
 }
 
 

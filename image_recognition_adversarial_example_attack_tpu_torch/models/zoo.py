@@ -1,6 +1,7 @@
 """Model registry and weight resolution (port of ``models/zoo.py``, the
-``resnet50``, ``resnet50_robust``, ``resnet_tiny`` and ``tiny`` entries and
-the transfer study's ``vgg19``, ``densenet121``, ``vit_b_16`` and ``swin_t``).
+``resnet50``, ``resnet50_robust``, ``resnet_tiny`` and ``tiny`` entries, the
+transfer study's ``vgg19``, ``densenet121``, ``vit_b_16`` and ``swin_t``, and
+the certified family's ``ibp_cnn7`` and ``ibp_tiny``).
 
 Weight resolution for ``load_model(name)``, the JAX zoo's order:
 
@@ -27,7 +28,9 @@ cannot be reproduced without JAX.  To run the JAX package's exact weights,
 carry them across with ``models.convert.from_jax_variables``.
 
 In a bfloat16 model, BatchNorm and LayerNorm keep float32 parameters and
-normalize in float32, as Flax's do.
+normalize in float32, as Flax's do, and an ``IBPNet`` keeps float32
+parameters (cast to the input's dtype in its forward), so that its interval
+bounds read the float32 weights as the JAX package's do.
 
 Every parameter has ``requires_grad`` off, so ``torch.autograd.grad`` with
 respect to the input builds only the input-gradient chain.
@@ -57,6 +60,7 @@ from ..core.device import resolve_device
 from .convert import from_jax_variables, load_torch_checkpoint
 from .densenet import densenet121
 from .flax_msgpack import read_variables
+from .ibp import IBPNet, ibp_cnn7, ibp_tiny
 from .resnet import FrozenBatchNorm2d, resnet50, resnet_tiny
 from .swin import WindowAttention, swin_t
 from .tiny import TinyCNN
@@ -92,13 +96,29 @@ _REGISTRY: dict[str, tuple[str, Callable[..., nn.Module]]] = {
     "densenet121": ("densenet", densenet121),
     "vit_b_16": ("vit", vit_b_16),
     "swin_t": ("swin", swin_t),
+    # the certified family: plain conv/relu/dense stacks whose worst-case
+    # logits under an L-inf ball are bounded in closed form (defenses/ibp.py)
+    "ibp_cnn7": ("ibp", ibp_cnn7),
+    "ibp_tiny": ("ibp", ibp_tiny),
+}
+
+# Per-model defaults beyond the ImageNet-224 convention (input_size, mean,
+# std).  The IBP nets read raw [0,1] pixels at 32x32: identity
+# normalization keeps a certified eps in pixel units.
+_META: dict[str, dict] = {
+    "ibp_cnn7": {"input_size": 32, "mean": np.zeros(3, np.float32),
+                 "std": np.ones(3, np.float32)},
+    "ibp_tiny": {"input_size": 32, "mean": np.zeros(3, np.float32),
+                 "std": np.ones(3, np.float32)},
 }
 
 
 def model_meta(name: str) -> dict:
     """Default input_size/mean/std for a registered model name: 224 and the
-    ImageNet statistics for every family registered here."""
-    return {"input_size": IMAGE_SIZE, "mean": IMAGENET_MEAN, "std": IMAGENET_STD}
+    ImageNet statistics unless ``_META`` says otherwise."""
+    meta = {"input_size": IMAGE_SIZE, "mean": IMAGENET_MEAN, "std": IMAGENET_STD}
+    meta.update(_META.get(name, {}))
+    return meta
 
 
 def list_models() -> list[str]:
@@ -161,10 +181,10 @@ def random_init_(model: nn.Module) -> nn.Module:
 def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Convs, GEMMs and attention compute in ``dtype``; BatchNorm and
     LayerNorm keep float32 parameters and normalize in float32, as Flax's
-    do for a bfloat16 model."""
+    do for a bfloat16 model, and an IBPNet keeps float32 parameters."""
     model.to(dtype=dtype)
     for m in model.modules():
-        if isinstance(m, (FrozenBatchNorm2d, LayerNorm)):
+        if isinstance(m, (FrozenBatchNorm2d, LayerNorm, IBPNet)):
             m.float()
     return model
 

@@ -2,8 +2,9 @@
 (port of ``plot_defense_heatmaps``, ``plot_attack_samples``,
 ``plot_attack_grid``, ``plot_attack_trajectory``,
 ``plot_perturbation_analysis``, ``plot_gradcam_panel``,
-``plot_loss_landscape``, ``plot_transfer_heatmap``, ``plot_blackbox_pair``
-and ``plot_robust_accuracy`` of ``viz/plots.py``), drawn with PIL alone.
+``plot_loss_landscape``, ``plot_transfer_heatmap``, ``plot_blackbox_pair``,
+``plot_robust_accuracy`` and ``plot_certified_accuracy`` of
+``viz/plots.py``), drawn with PIL alone.
 
 The contract with the JAX package is the file names and the plotted values,
 not the styling:
@@ -34,7 +35,11 @@ not the styling:
   adversarial side by side, each model's label under its panel);
 - the robust_eval CLI's ``--plot`` figure: robust accuracy against eps
   (dark ink) with each arm's success rate present in the rows
-  (``robust_series``).
+  (``robust_series``);
+- the certify CLI's ``--plot`` figure: certified accuracy against the L2
+  radius, ``acc(r) = mean(correct & radii >= r)`` on 256 radii, one
+  sequential step of the blue ramp per sigma with a direct sigma label at
+  the curve's head (``certified_curves``).
 
 PIL, because the CUDA machines the port runs on need not have matplotlib;
 Pillow is there already for the image pipeline.  Nothing here touches the
@@ -760,4 +765,67 @@ def plot_robust_accuracy(rows: Sequence[Mapping], out_path) -> None:
     # the default font has no "∞" glyph
     _text(draw, ((x0 + x1) / 2, h - 45), "eps (L-inf)", f_label)
     _vertical_text(img, (40, (y0 + y1) / 2), "rate", f_label)
+    img.save(out_path)
+
+
+def certified_curves(curves: Sequence[Mapping]) -> tuple[np.ndarray, list[tuple[float, np.ndarray]]]:
+    """The plotted values of ``plot_certified_accuracy``: the 256 radii
+    (0 to 1.05 x the largest radius) and, by ascending sigma,
+    ``(sigma, acc)`` with ``acc(r) = mean(correct & radii >= r)``."""
+    curves = sorted(curves, key=lambda c: float(c["sigma"]))
+    r_max = max((float(np.max(c["radii"])) for c in curves if len(c["radii"])), default=1.0)
+    r_grid = np.linspace(0.0, max(r_max, 1e-6) * 1.05, 256)
+    out = []
+    for c in curves:
+        radii = np.asarray(c["radii"], np.float64)
+        correct = np.asarray(c["correct"], bool)
+        acc = (np.asarray([(correct & (radii >= r)).mean() for r in r_grid]) if len(radii)
+               else np.zeros_like(r_grid))
+        out.append((float(c["sigma"]), acc))
+    return r_grid, out
+
+
+def plot_certified_accuracy(curves: Sequence[Mapping], out_path) -> None:
+    """Certified accuracy against the L2 radius (randomized smoothing; the
+    certify CLI).  ``curves``: one mapping per noise level with "sigma",
+    "radii" [N] (0 where abstained) and "correct" [N] bool.  Sigma is an
+    ordered magnitude, so the series are sequential steps of one hue, each
+    labelled directly at its head (``certified_curves``)."""
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    r_grid, series = certified_curves(curves)
+    w, h = 1400, 900
+    x0, y0, x1, y1 = 130, 90, w - 90, h - 120
+    img = Image.new("RGB", (w, h), _WHITE)
+    draw = ImageDraw.Draw(img)
+    f_title, f_label, f_tick = _font(30), _font(22), _font(18)
+    r_hi = float(r_grid[-1])
+
+    def px(r: float) -> float:
+        return x0 + r / r_hi * (x1 - x0)
+
+    def py(v: float) -> float:
+        return y1 - v / 1.02 * (y1 - y0)
+
+    for i in range(6):
+        v = i / 5
+        draw.line((x0, py(v), x1, py(v)), fill=_GRID, width=1)
+        _text(draw, (x0 - 12, py(v)), f"{v:.1f}", f_tick, align="right")
+    for i in range(6):
+        r = r_hi * i / 5
+        draw.line((px(r), y0, px(r), y1), fill=_GRID, width=1)
+        _text(draw, (px(r), y1 + 22), f"{r:.3g}", f_tick)
+    draw.rectangle((x0, y0, x1, y1), outline=_INK, width=2)
+    shades = ramp(np.linspace(0.45, 0.95, max(2, len(series))), "Blues")
+    for k, (sigma, acc) in enumerate(series):
+        color = tuple(int(v) for v in shades[k])
+        draw.line([(px(float(r)), py(float(a))) for r, a in zip(r_grid, acc)], fill=color,
+                  width=4)
+        # the direct label at the curve's head, staggered by its value
+        _text(draw, (px(0.0) + 8, py(float(acc[0])) - 14), f"sigma={sigma:g}", f_tick,
+              fill=(58, 58, 58), align="left")
+    _text(draw, ((x0 + x1) / 2, 40), "Certified accuracy vs radius (randomized smoothing)",
+          f_title)
+    _text(draw, ((x0 + x1) / 2, h - 45), "L2 radius", f_label)
+    _vertical_text(img, (40, (y0 + y1) / 2), "certified accuracy", f_label)
     img.save(out_path)

@@ -723,3 +723,41 @@ def test_query_curve_on_the_card(cuda):
         assert len(curve["asr"]) == steps and 0.0 <= curve["final_asr"] <= 1.0
         pgd = steps if attack in ("nes", "spsa", "bandits") else 0
         assert ew.LAUNCHES["pgd_step"] == pgd
+
+
+def test_resize_pad_on_the_card_equals_the_cpu(cuda):
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import randomization
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.rand((4, 224, 224, 3), generator=g)
+    s = torch.tensor([0.7, 0.85, 0.93, 1.0])
+    oy, ox = torch.rand(4, generator=g) * (1 - s) * 224, torch.rand(4, generator=g) * (1 - s) * 224
+    want = randomization.resize_pad(x, s, oy, ox)
+    got = randomization.resize_pad(x.to(cuda), s.to(cuda), oy.to(cuda), ox.to(cuda))
+    assert float((got.cpu() - want).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("name", ["ibp_tiny", "ibp_cnn7"])
+def test_crown_ibp_margin_on_the_card_equals_the_cpu(cuda, name):
+    """float32 on the card (TF32 off) against float64 on the CPU, relative
+    to the margins' scale; with TF32 allowed the bounds refuse to run."""
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import crown_ibp
+    from image_recognition_adversarial_example_attack_tpu_torch.models import ibp, load_model
+
+    b = load_model(name, device=cuda)
+    spec, mean, std = b.model.spec, b.mean, b.std
+    x = torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(1))
+    y = torch.tensor([0, 3, 5, 9])
+    got = crown_ibp.crown_ibp_margin(ibp.ibp_params(b.model), spec, x.to(cuda), y.to(cuda),
+                                     8 / 255, mean, std).cpu().double()
+    cpu = load_model(name, device="cpu").model.double()
+    want = crown_ibp.crown_ibp_margin(ibp.ibp_params(cpu), spec, x.double(), y, 8 / 255, mean,
+                                      std)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="full float32"):
+            crown_ibp.crown_ibp_margin(ibp.ibp_params(b.model), spec, x.to(cuda), y.to(cuda),
+                                       8 / 255, mean, std)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False

@@ -94,8 +94,11 @@ def test_score_from_features(shape):
     # the clip at 100
     big = score_from_features(torch.from_numpy(f * 1e4)).numpy()
     assert big.max() == 100.0
-    with pytest.raises(ValueError, match="NHWC"):
-        score_from_features(torch.from_numpy(f).reshape(shape[0], -1))
+    # logits [B, K] (a model without a stage-3 split): their norm, as JAX's
+    flat = f.reshape(shape[0], -1)
+    np.testing.assert_allclose(score_from_features(torch.from_numpy(flat)).numpy(),
+                               np.asarray(jax_det.score_from_features(jnp.asarray(flat))),
+                               rtol=1e-12, atol=0)
 
 
 @pytest.mark.parametrize("scale", [0.01, 3.0, 40.0, 300.0])

@@ -143,7 +143,7 @@ def test_parser_keeps_the_jax_flags_of_the_ported_attacks():
     --device."""
     from image_recognition_adversarial_example_attack_tpu.cli import defense_experiments as jx
 
-    left_out = {"certified", "cifar10_dir", "cifar10_split", "cifar10_n"}
+    left_out = {"cifar10_dir", "cifar10_split", "cifar10_n"}
     ours = {a.dest: a.default for a in build_parser()._actions}
     theirs = {a.dest: a.default for a in jx.build_parser()._actions}
     assert set(ours) - set(theirs) == {"device"}
@@ -153,3 +153,6 @@ def test_parser_keeps_the_jax_flags_of_the_ported_attacks():
     theirs_attacks = next(a for a in jx.build_parser()._actions if a.dest == "attacks")
     assert attacks.choices == theirs_attacks.choices
     assert attacks.default == ["fgsm", "pgd", "cw"]
+    certified = next(a for a in build_parser()._actions if a.dest == "certified")
+    theirs_certified = next(a for a in jx.build_parser()._actions if a.dest == "certified")
+    assert certified.choices == theirs_certified.choices == ["off", "ibp", "crown-ibp"]

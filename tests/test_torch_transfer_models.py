@@ -209,7 +209,8 @@ def test_full_width_shapes_match_the_jax_init(name):
 def test_n_classes_of_every_registered_family(name):
     with torch.device("meta"):
         model = zoo.build_model(name)
-    assert n_classes_of(model) == (10 if name == "resnet_tiny" else 1000)
+    assert n_classes_of(model) == (10 if name in ("resnet_tiny", "ibp_cnn7", "ibp_tiny")
+                                   else 1000)
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))
