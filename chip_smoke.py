@@ -218,6 +218,23 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    CLI in this process, ``--model ibp_cnn7 --model-dtype float32 --attacks
    fgsm pgd --certified crown-ibp`` on 128 PNGs resident and streamed in
    chunks of 48: equal certified rows, exact launches.
+21. detector / corruption -- ResNet-50 bf16 at 224x224, random weights: (a)
+   all 17 corruptions of the bank at severities 1-5 through
+   ``make_corruption_run`` on the batch of 128 (ms per cell, synchronised,
+   after one warm-up per corruption; each output finite and in [0,1]), the
+   card against the CPU on 4 of the images with the draws made once on the
+   CPU (within 1e-5; pixelate and the exact corruptions, and glass_blur's
+   gathers, equal), ``map_coordinates`` in float64 card vs CPU within
+   1e-12; (b) fgsm, pgd-10 and cw-100 at batch 128 scored by the feature,
+   squeezing and Mahalanobis detectors in stacked [256] calls, with exactly
+   10 pgd_step, 4 quantize and 1 noise launches; each detector's stacked
+   call timed; quantize at [256,224,224,3] bit-exact; (c) the detector_eval
+   CLI at its defaults and the corruption_eval CLI (``--corruptions all
+   --severities 1 3 5 --plot``) in two subprocesses started together on 32
+   PNGs, and in this process corruption_eval streamed in chunks of 16 (its
+   deterministic cells equal the resident run's) and detector_eval
+   ``--model-dtype float32 --attacks fgsm`` resident and streamed, the
+   feature and squeezing clean scores equal within 1e-5 relative.
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -3170,7 +3187,7 @@ def _ibp_nets() -> dict:
             except RuntimeError as e:
                 if "full float32" not in str(e):
                     raise
-            with mock.patch.object(ibp, "require_full_float32", lambda t: None), \
+            with mock.patch.object(ibp, "require_full_float32", lambda *a: None), \
                     torch.no_grad():
                 tf32 = crown_ibp.crown_ibp_margin(p, spec, x[:4], y[:4], eps, mean, std)
         finally:
@@ -3454,6 +3471,322 @@ def phase_certified(state: dict, pngs: list[Path]) -> dict:
     return res
 
 
+# phase 21: (a) the corruption bank, (b) the detector comparison, (c) the
+# detector_eval and corruption_eval CLIs
+CORR_SUBSET, CORR_TOL = 4, 1e-5
+# the corruptions whose card output must equal the CPU's: an order-0 gather
+# (pixelate) or exact elementwise arithmetic
+CORR_EXACT = ("pixelate", "brightness", "impulse_noise", "shot_noise")
+# elastic_transform is not clipped (in either package): its order-1 weights
+# (1 - f, f) may sum to one ulp above 1
+ELASTIC_SLACK = 1e-6
+DET_ATTACKS, DET_CW_STEPS = ("fgsm", "pgd", "cw"), 100
+# the counted detector comparison: one quantize calibrating squeezing on the
+# clean batch, one per attack scoring the stacked batch; PGD-10's 10 pgd_step
+# and 1 noise; fgsm and cw launch none
+DET_LAUNCHES = {"pgd_step": STEPS, "quantize": 1 + len(DET_ATTACKS), "uniform_noise": 1}
+CLI_N, CLI_CHUNK = 32, 16
+
+
+def _corruption_bank(lf, x, y) -> dict:
+    """Phase 21 (a)."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
+        cell_generator, generator_from_seed)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval import corruptions as c
+
+    res = {"cell_ms": {}, "accuracy": {}, "card_vs_cpu": {}}
+    n = x.shape[0]
+    for name in c.CORRUPTION_NAMES:
+        run = c.make_corruption_run(lf, name)
+        run(x, y, 1, generator_from_seed(0))  # warm-up
+        ms, accs = [], []
+        for sev in range(1, 6):
+            cell = f"{name}:s{sev}"
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            correct = run(x, y, sev, cell_generator(0, cell))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            accs.append(float(correct.float().mean()))
+            out = c.apply_corruption(name, x, sev, cell_generator(0, cell))
+            hi = 1.0 + (ELASTIC_SLACK if name == "elastic_transform" else 0.0)
+            if (out.shape != x.shape or not bool(torch.isfinite(out).all())
+                    or float(out.min()) < 0.0 or float(out.max()) > hi):
+                raise AssertionError(f"{name} s{sev}: shape {tuple(out.shape)}, range "
+                                     f"[{float(out.min())}, {float(out.max())}]")
+        res["cell_ms"][name], res["accuracy"][name] = ms, accs
+        log(f"[corruption] {name:>17s} at batch {n}: ms per cell (corruption + forward) "
+            + " ".join(f"{v:.2f}" for v in ms) + "; accuracy " + " ".join(f"{a:.3f}" for a in accs))
+    flat = [v for ms in res["cell_ms"].values() for v in ms]
+    res["cell_ms_mean"] = sum(flat) / len(flat)
+    log(f"[corruption] 85 cells at batch {n}: mean {res['cell_ms_mean']:.2f} ms a cell, "
+        f"every output finite and in [0,1] (elastic_transform within {ELASTIC_SLACK:.0e}); the "
+        "accuracies of random weights measure cost, not robustness")
+
+    # the card against the CPU on the same draws, made once on the CPU
+    xs = x[:CORR_SUBSET].cpu().contiguous()
+    worst = 0.0
+    for name in c.CORRUPTION_NAMES:
+        errs = []
+        for sev in range(1, 6):
+            draws = c.draw_corruption(name, xs, sev, generator_from_seed(sev))
+            want = c.apply_corruption(name, xs, sev, draws=draws)
+            got = c.apply_corruption(name, xs.cuda(), sev,
+                                     draws=tuple(d.cuda() for d in draws)).cpu()
+            err = float((got - want).abs().max())
+            if err > CORR_TOL or (name in CORR_EXACT and not torch.equal(got, want)):
+                raise AssertionError(f"{name} s{sev} card vs CPU: max|diff| {err:.3e}")
+            if name == "glass_blur":
+                # its order-0 gathers, on the same rounded coordinates: equal
+                rr, cc = c._grid(224, 224, "cpu")
+                for dr, dc in (draws[:2], draws[2:]):
+                    r, q = rr[None] + torch.round(dr), cc[None] + torch.round(dc)
+                    g_cpu = c.map_coordinates(want, r, q, order=0)
+                    g_card = c.map_coordinates(want.cuda(), r.cuda(), q.cuda(), order=0).cpu()
+                    if not torch.equal(g_cpu, g_card):
+                        raise AssertionError(f"glass_blur s{sev}: the card's gather differs")
+            errs.append(err)
+        res["card_vs_cpu"][name] = max(errs)
+        worst = max(worst, max(errs))
+    log(f"[corruption] card vs CPU on {CORR_SUBSET} images at 224x224, every corruption and "
+        f"severity on the same CPU draws: max|diff| {worst:.3e} (limit {CORR_TOL:.0e}); "
+        f"{', '.join(CORR_EXACT)} and glass_blur's gathers equal")
+
+    g = generator_from_seed(9)
+    x64 = xs.double()
+    rr = torch.rand((CORR_SUBSET, 224, 224), generator=g, dtype=torch.float64) * 240 - 8
+    cc = torch.rand((CORR_SUBSET, 224, 224), generator=g, dtype=torch.float64) * 240 - 8
+    rr.view(-1)[:4] = torch.tensor([-0.5, 0.5, 2.5, 222.5], dtype=torch.float64)
+    mc = {}
+    for order in (0, 1):
+        want = c.map_coordinates(x64, rr, cc, order)
+        got = c.map_coordinates(x64.cuda(), rr.cuda(), cc.cuda(), order).cpu()
+        mc[order] = float((got - want).abs().max())
+        if mc[order] > 1e-12:
+            raise AssertionError(f"map_coordinates order {order} card vs CPU: {mc[order]:.3e}")
+    res["map_coordinates_card_vs_cpu"] = mc
+    log(f"[corruption] map_coordinates float64 card vs CPU, [{CORR_SUBSET},224,224,3]: order 0 "
+        f"{mc[0]:.3e}, order 1 {mc[1]:.3e} (limit 1e-12)")
+    return res
+
+
+def _detector_comparison(bundle, x, y) -> dict:
+    """Phase 21 (b)."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        AttackParams, predict_labels, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import (
+        cell_rng_id, make_fns, n_classes_of)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import cell_generator
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import (
+        calibrate_mahalanobis, feature_score, mahalanobis_score, squeezing_score,
+        threshold_from_scores)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval import detector_eval
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    lf, ff = make_fns(bundle)
+    params = AttackParams(eps=EPS, alpha=ALPHA, steps=STEPS, cw_steps=DET_CW_STEPS)
+    state = {}
+
+    def comparison():
+        with torch.no_grad():
+            thr = {"feature": threshold_from_scores(feature_score(ff, x)),
+                   "squeezing": float(torch.quantile(squeezing_score(lf, x), 0.95))}
+        maha, thr["mahalanobis"] = calibrate_mahalanobis(ff, x, y, n_classes_of(bundle.model),
+                                                         n=x.shape[0])
+        fns = {"feature": lambda xx: feature_score(ff, xx),
+               "squeezing": lambda xx: squeezing_score(lf, xx),
+               "mahalanobis": lambda xx: mahalanobis_score(ff, xx, maha)}
+        cells, adv = [], {}
+        for attack in DET_ATTACKS:
+            x_adv = run_attack(attack, lf, x, y, params,
+                               generator=cell_generator(0, cell_rng_id(attack, EPS)))
+            asr = float((predict_labels(lf, x_adv) != y).float().mean())
+            adv[attack] = (x_adv, asr)
+            for det, fn in fns.items():
+                cells.append(detector_eval.evaluate_detector_cell(fn, x, x_adv, thr[det],
+                                                                  detector=det, attack=attack))
+        state.update(fns=fns, adv=adv, thr=thr)
+        return cells
+
+    cells, seconds, counts = _counted(comparison)
+    if counts != DET_LAUNCHES:
+        raise AssertionError(f"detector comparison launches {counts}, want {DET_LAUNCHES}")
+    _check_ball(state["adv"]["pgd"][0], x, EPS, "detector comparison pgd")
+    for r in cells:
+        if not all(0.0 <= v <= 1.0 for v in (r.auc, r.tpr_at_threshold, r.fpr_at_threshold,
+                                              r.tpr_at_fpr05)):
+            raise AssertionError(f"detector cell out of range: {r}")
+    res = {"seconds": seconds, "launches": counts, "thresholds": state["thr"],
+           "asr": {a: v[1] for a, v in state["adv"].items()},
+           "cells": [vars(r) for r in cells], "score_ms": {}}
+    log(f"[detector] fgsm, pgd-10, cw-{DET_CW_STEPS} at batch {x.shape[0]} scored by feature, "
+        f"squeezing and Mahalanobis (stacked [{2 * x.shape[0]}] calls): {seconds:.2f} s; "
+        f"launches {counts} (predicted {DET_LAUNCHES}); ASR "
+        + ", ".join(f"{a} {v:.3f}" for a, v in res["asr"].items()))
+    for line in detector_eval.summary_table(cells).splitlines():
+        log(f"[detector]   {line}")
+    log("[detector] random weights: the AUCs and TPRs measure cost and agreement, not "
+        "detection")
+
+    # each detector's stacked [2B] call, timed outside the counted run
+    stacked = torch.cat([x, state["adv"]["pgd"][0]]).contiguous()
+    with torch.no_grad():
+        for det, fn in state["fns"].items():
+            res["score_ms"][det] = time_ms(lambda: fn(stacked), iters=3, warmup=1)
+    # quantize at the stacked shape: bit-exact, with values outside [0,1] and ties
+    xq = stacked * 1.2 - 0.1
+    ties = (torch.arange(xq.numel() // 11, device=xq.device) % (LEVELS - 1)).float()
+    xq.view(-1)[::11][:ties.numel()] = (ties + 0.5) / (LEVELS - 1)
+    kq, pq = ew.quantize(xq, LEVELS), ew.quantize_plain(xq, LEVELS)
+    if not torch.equal(kq, pq):
+        raise AssertionError(f"quantize at {list(xq.shape)}: max|diff| "
+                             f"{float((kq - pq).abs().max())}")
+    res["quantize_stacked"] = {
+        "shape": list(xq.shape), "bit_exact": True,
+        "ms": time_ms(lambda: ew.quantize(xq, LEVELS)),
+        "plain_ms": time_ms(lambda: ew.quantize_plain(xq, LEVELS)),
+        "bound_ms": bound_ms("quantize", xq.numel())}
+    q = res["quantize_stacked"]
+    log(f"[detector] stacked [{2 * x.shape[0]}] scoring ms (CUDA events): "
+        + ", ".join(f"{d} {v:.2f}" for d, v in res["score_ms"].items())
+        + f"; quantize at {q['shape']} bit-exact with ties, {q['ms']:.4f} ms (plain "
+        f"{q['plain_ms']:.4f}, bound {q['bound_ms']:.4f})")
+    return res
+
+
+def _capture_clean_scores():
+    """Record every clean score vector the detector CLI hands to
+    ``cell_from_scores`` (both paths reach it), by (detector, attack)."""
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import detector_eval as cli
+    from image_recognition_adversarial_example_attack_tpu_torch.eval import detector_eval
+
+    seen: dict = {}
+    original = detector_eval.cell_from_scores
+
+    def recording(s_clean, s_adv, threshold, *, detector, attack):
+        seen[(detector, attack)] = s_clean
+        return original(s_clean, s_adv, threshold, detector=detector, attack=attack)
+
+    detector_eval.cell_from_scores = cli.cell_from_scores = recording
+
+    def restore():
+        detector_eval.cell_from_scores = cli.cell_from_scores = original
+
+    return seen, restore
+
+
+def _phase21_clis(pngs: list[Path], tmp: Path) -> dict:
+    """Phase 21 (c): the default detector_eval and the resident
+    corruption_eval in two subprocesses started together; meanwhile, in
+    this process, detector_eval in float32 resident and streamed and
+    corruption_eval streamed."""
+    import numpy as np
+
+    from PIL import Image
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import corruption_eval
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import detector_eval
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.corruptions import (
+        CORRUPTION_NAMES, DETERMINISTIC)
+
+    imgs = _linked(pngs[:CLI_N], tmp / "p21")
+    sev = ["--severities", "1", "3", "5"]
+    runs = {
+        "detector_eval": ("detector_eval", "--output_json", str(tmp / "det.json")),
+        "corruption_eval": ("corruption_eval", "--corruptions", "all", *sev, "--plot",
+                            str(tmp / "heat.png"), "--output", str(tmp / "corr.json")),
+    }
+    procs = {}
+    for name, (module, *args) in runs.items():
+        cmd = [sys.executable, "-m", f"{PKG}.cli.{module}", "--image_dir", str(imgs), *args]
+        procs[name] = (subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True), time.perf_counter())
+    res = {}
+    # in process meanwhile: corruption_eval streamed, detector_eval float32 both ways
+    out, seconds, counts = _in_process_cli(corruption_eval.main, [
+        "--image_dir", str(imgs), "--corruptions", "all", *sev, "--max_batch", str(CLI_CHUNK),
+        "--output", str(tmp / "corr_s.json")])
+    if "Streaming evaluation" not in out:
+        raise AssertionError("corruption_eval --max_batch 16 did not stream")
+    res["corruption_streamed"] = {"seconds": seconds, "launches": counts}
+    clean = {}
+    for mode, extra in (("resident", []), ("streamed", ["--max_batch", str(CLI_CHUNK)])):
+        seen, restore = _capture_clean_scores()
+        try:
+            out, seconds, counts = _in_process_cli(detector_eval.main, [
+                "--image_dir", str(imgs), "--attacks", "fgsm", "--model-dtype", "float32",
+                "--output_json", str(tmp / f"det_f32_{mode}.json"), *extra])
+        finally:
+            restore()
+        rows = json.loads((tmp / f"det_f32_{mode}.json").read_text())
+        if len(rows) != 3 or "DETECTOR COMPARISON" not in out:
+            raise AssertionError(f"detector_eval float32 {mode}: {rows}")
+        clean[mode] = seen
+        res[f"detector_f32_{mode}"] = {"seconds": seconds, "launches": counts, "rows": rows}
+    rel = {}
+    for det in ("feature", "squeezing"):
+        a, b = clean["resident"][(det, "fgsm")], clean["streamed"][(det, "fgsm")]
+        rel[det] = float(np.abs(a - b).max() / max(np.abs(a).max(), 1e-30))
+        if a.shape != (CLI_N,) or b.shape != (CLI_N,) or rel[det] > 1e-5:
+            raise AssertionError(f"detector_eval float32 clean {det} scores resident vs "
+                                 f"streamed: {rel[det]:.3e} relative")
+    res["clean_scores_rel"] = rel
+    log(f"[cli21] detector_eval --model-dtype float32 --attacks fgsm on {CLI_N} PNGs in process: "
+        f"resident {res['detector_f32_resident']['seconds']:.1f} s, launches "
+        f"{res['detector_f32_resident']['launches']}; streamed in chunks of {CLI_CHUNK} "
+        f"{res['detector_f32_streamed']['seconds']:.1f} s, launches "
+        f"{res['detector_f32_streamed']['launches']}; clean scores resident vs streamed "
+        + ", ".join(f"{d} {v:.3e}" for d, v in rel.items()) + " relative (limit 1e-5; "
+        "Mahalanobis fits on the first chunk when streamed, so its scores differ by design)")
+
+    for name, (proc, t0) in procs.items():
+        out, err = proc.communicate(timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or "Using device: cuda" not in out:
+            raise AssertionError(f"{name} CLI exit {proc.returncode}:\n{out[-3000:]}\n"
+                                 f"{err[-4000:]}")
+        res[name] = {"seconds": seconds, "stdout_tail": out[-2500:]}
+    rows = json.loads((tmp / "det.json").read_text())
+    if (len(rows) != 9 or "DETECTOR COMPARISON" not in res["detector_eval"]["stdout_tail"]
+            or {r["attack"] for r in rows} != set(DET_ATTACKS)):
+        raise AssertionError(f"detector_eval CLI rows: {rows}")
+    resident = json.loads((tmp / "corr.json").read_text())
+    streamed = json.loads((tmp / "corr_s.json").read_text())
+    if set(resident["cells"]) != set(CORRUPTION_NAMES) or resident["n_images"] != CLI_N:
+        raise AssertionError(f"corruption_eval JSON: {resident.keys()}")
+    det = {n: resident["cells"][n] for n in DETERMINISTIC}
+    if det != {n: streamed["cells"][n] for n in DETERMINISTIC}:
+        raise AssertionError("corruption_eval: deterministic cells differ resident vs streamed")
+    with Image.open(tmp / "heat.png") as im:
+        res["heatmap_size"] = im.size
+    res["corruption_eval"]["mean_corruption_accuracy"] = resident["mean_corruption_accuracy"]
+    log(f"[cli21] subprocesses started together: detector_eval at its defaults (fgsm pgd cw, "
+        f"bf16) exit 0 in {res['detector_eval']['seconds']:.1f} s, 9 rows; corruption_eval "
+        f"--corruptions all --severities 1 3 5 --plot exit 0 in "
+        f"{res['corruption_eval']['seconds']:.1f} s, heatmap {res['heatmap_size']}; "
+        f"in process streamed in chunks of {CLI_CHUNK}: "
+        f"{res['corruption_streamed']['seconds']:.1f} s, its {len(DETERMINISTIC)} "
+        "deterministic corruptions' cells equal the resident run's")
+    return res
+
+
+def phase_detector_corruption(state: dict, pngs: list[Path]) -> dict:
+    """Phase 21: the corruption bank and the detector comparison at full
+    width, then the detector_eval and corruption_eval CLIs."""
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+
+    x, y, bundle = state["x"], state["y"], state["bundle"]
+    res = {"corruption": _corruption_bank(make_fns(bundle)[0], x, y)}
+    res["detector"] = _detector_comparison(bundle, x, y)
+    with tempfile.TemporaryDirectory() as tmp:
+        res["cli"] = _phase21_clis(pngs, Path(tmp))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=str, default=None,
@@ -3521,6 +3854,8 @@ def main(argv=None) -> int:
         record["zoo"] = run("zoo", phase_white_box_zoo, state, pngs)
         record["black_box"] = run("black_box", phase_black_box, state, pngs)
         record["certified"] = run("certified", phase_certified, state, pngs)
+        record["detector_corruption"] = run("detector_corruption", phase_detector_corruption,
+                                            state, pngs)
 
     # the elementwise kernels' main path: PGD-10, the eight cells, the
     # streamed pgd cell, the visualize path's PGD-20 and trajectory, the
@@ -3530,10 +3865,11 @@ def main(argv=None) -> int:
     # grid CLIs, the black-box group's counted runs, its streamed robust
     # cell, query_curves CLIs (and their per-chunk resident runs) and grid
     # and suite CLIs, phase 20's EOT-PGD runs and its two grid CLIs with
-    # --certified; the conv's: the probe's entry point
+    # --certified, phase 21's detector comparison and its in-process CLIs;
+    # the conv's: the probe's entry point
     detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
     ta, zoo, bb = record["transfer_attacks"], record["zoo"], record["black_box"]
-    cert = record["certified"]
+    cert, p21 = record["certified"], record["detector_corruption"]
     runs = [record["pgd"], record["cell"], *record["cells"].values(),
             *(record["detectors"][c] for c in detector_cells),
             record["stream"]["pgd_cell"], record["visualize"]["in_process"],
@@ -3546,7 +3882,9 @@ def main(argv=None) -> int:
             bb["query_curves"]["resident_chunks"], bb["grid_cli"], bb["suite_cli"],
             cert["uap"], cert["patch"],
             *(v for v in cert["eot"].values() if isinstance(v, dict)),
-            cert["cli"]["grid_resident"], cert["cli"]["grid_streamed"]]
+            cert["cli"]["grid_resident"], cert["cli"]["grid_streamed"],
+            p21["detector"], p21["cli"]["corruption_streamed"],
+            p21["cli"]["detector_f32_resident"], p21["cli"]["detector_f32_streamed"]]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

@@ -26,3 +26,14 @@ def synchronize(device: torch.device) -> None:
     clock that ends here measures the work, not its enqueueing."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def require_full_float32(t: torch.Tensor, what: str) -> None:
+    """Refuse ``what`` on a CUDA tensor while TF32 is allowed for cuDNN
+    convolutions or cuBLAS matmuls (``load_model`` turns both off)."""
+    if t.is_cuda and (torch.backends.cudnn.allow_tf32
+                      or torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(
+            f"{what} need full float32 on the card: set "
+            "torch.backends.cudnn.allow_tf32 = False and "
+            "torch.backends.cuda.matmul.allow_tf32 = False (load_model does)")

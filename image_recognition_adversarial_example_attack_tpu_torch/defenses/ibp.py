@@ -27,19 +27,9 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from ..core.device import require_full_float32
 from ..core.normalize import normalize_batch
 from ..models.ibp import conv_same, flatten_nhwc, spec_apply
-
-
-def require_full_float32(t: torch.Tensor) -> None:
-    """Refuse to bound on a CUDA tensor while TF32 is allowed for cuDNN
-    convolutions or cuBLAS matmuls."""
-    if t.is_cuda and (torch.backends.cudnn.allow_tf32
-                      or torch.backends.cuda.matmul.allow_tf32):
-        raise RuntimeError(
-            "interval bounds need full float32 on the card: set "
-            "torch.backends.cudnn.allow_tf32 = False and "
-            "torch.backends.cuda.matmul.allow_tf32 = False (load_model does)")
 
 
 def bound_dtype(t: torch.Tensor) -> torch.dtype:
@@ -85,7 +75,7 @@ def interval_trace(params: Mapping, spec: tuple, lo: torch.Tensor, hi: torch.Ten
     ENTERING each layer: ``pre[i] = (lo_i, hi_i)`` (NCHW before the
     flatten, flat after).  CROWN-IBP reads them all; ``interval_propagate``
     the last."""
-    require_full_float32(lo)
+    require_full_float32(lo, "interval bounds")
     dt = bound_dtype(lo)
     lo, hi = _nchw(lo.to(dt)), _nchw(hi.to(dt))
     pre = []
@@ -125,7 +115,7 @@ def logit_bounds(params: Mapping, spec: tuple, x01: torch.Tensor, eps, mean, std
 def spec_forward(params: Mapping, spec: tuple, x_norm: torch.Tensor) -> torch.Tensor:
     """Plain float32 forward through ``spec`` of a normalized NHWC batch
     (the zero-radius interval at half the cost)."""
-    require_full_float32(x_norm)
+    require_full_float32(x_norm, "interval bounds")
     return spec_apply(params, spec, _nchw(x_norm.to(bound_dtype(x_norm))))
 
 

@@ -8,9 +8,11 @@ gradient), IDCT, triangular 2x chroma upsampling, YCbCr -> RGB.  Entropy
 coding is lossless and left out.  Arbitrary H, W: edge-padded to a multiple
 of 16 and cropped after.
 
-The quality is a static int here; the JAX package's traced-quality tables
-(``_quant_tables_traced``, used by its corruption sweep) are not ported.
-The block transforms run in full float32 on the card: TF32 would cross the
+The quality is an int (tables computed on the host, ``_quant_tables``) or a
+0-d tensor (the same libjpeg scaling computed in float32 torch ops,
+``_quant_tables_tensor``, the counterpart of the JAX package's traced
+tables, which the corruption bank's jpeg_compression uses).  The block
+transforms run in full float32 on the card: TF32 would cross the
 rounding boundaries of the small quantization steps, so ``_blockwise``
 refuses to run on a CUDA tensor while ``torch.backends.cuda.matmul.allow_tf32``
 is set.
@@ -59,6 +61,25 @@ def _quant_tables(quality: int) -> tuple[np.ndarray, np.ndarray]:
     return scale(_LUMA_BASE).astype(np.float32), scale(_CHROMA_BASE).astype(np.float32)
 
 
+def _quant_tables_tensor(quality: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_quant_tables`` for a tensor quality, in float32 on its device
+    (``_quant_tables_traced`` of the JAX package).  Every division has a
+    tensor divisor: PyTorch divides by a Python scalar as a multiplication
+    by its reciprocal, which can move a value across a ``floor``."""
+    q = torch.clamp(quality.to(torch.float32), 1.0, 100.0)
+
+    def c(v: float) -> torch.Tensor:
+        return torch.full((), v, dtype=torch.float32, device=q.device)
+
+    s = torch.where(q < 50.0, c(5000.0) / q, 200.0 - 2.0 * q)
+
+    def scale(base: np.ndarray) -> torch.Tensor:
+        b = torch.from_numpy(base).to(q.device)
+        return torch.clamp(torch.floor((b * s + 50.0) / c(100.0)), 1.0, 255.0)
+
+    return scale(_LUMA_BASE), scale(_CHROMA_BASE)
+
+
 @lru_cache(maxsize=None)
 def _dct_matrix() -> np.ndarray:
     """Orthonormal 8-point DCT-II matrix D (DCT = D X D^T), float32 as in the
@@ -75,7 +96,7 @@ def _ste_round(v: torch.Tensor) -> torch.Tensor:
     return v + (torch.round(v) - v).detach()
 
 
-def _blockwise(channel: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+def _blockwise(channel: torch.Tensor, table: np.ndarray | torch.Tensor) -> torch.Tensor:
     """[B,H,W] centered channel -> DCT -> quant/dequant -> IDCT."""
     if channel.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("jpeg_dct: the block transforms need full float32; "
@@ -84,7 +105,7 @@ def _blockwise(channel: torch.Tensor, table: np.ndarray) -> torch.Tensor:
     d = torch.from_numpy(_dct_matrix()).to(device=channel.device, dtype=channel.dtype)
     x5 = channel.reshape(b, h // 8, 8, w // 8, 8)
     coef = torch.einsum("ij,bajck,lk->baicl", d, x5, d)
-    t = torch.from_numpy(table).to(device=channel.device, dtype=channel.dtype)
+    t = torch.as_tensor(table).to(device=channel.device, dtype=channel.dtype)
     t = t[None, None, :, None, :]  # the block dims sit at axes 2 and 4
     coef = _ste_round(coef / t) * t
     x5 = torch.einsum("ij,baicl,lk->bajck", d, coef, d)
@@ -105,8 +126,11 @@ def _up2(c: torch.Tensor) -> torch.Tensor:
                          align_corners=False)[:, 0]
 
 
-def jpeg_dct_roundtrip(x: torch.Tensor, quality: int = 75) -> torch.Tensor:
-    """[B,H,W,3] in [0,1] -> baseline-JPEG-compressed batch in [0,1]."""
+def jpeg_dct_roundtrip(x: torch.Tensor, quality: int | torch.Tensor = 75) -> torch.Tensor:
+    """[B,H,W,3] in [0,1] -> baseline-JPEG-compressed batch in [0,1].
+
+    ``quality``: an int (host tables) or a 0-d tensor (tables computed in
+    torch, ``_quant_tables_tensor``)."""
     if x.ndim != 4 or x.shape[-1] != 3:
         raise ValueError(f"expected [B,H,W,3], got {tuple(x.shape)}")
     b, h, w, _ = x.shape
@@ -121,7 +145,10 @@ def jpeg_dct_roundtrip(x: torch.Tensor, quality: int = 75) -> torch.Tensor:
     cb = 128.0 - 0.168736 * r - 0.331264 * g + 0.5 * bl
     cr = 128.0 + 0.5 * r - 0.418688 * g - 0.081312 * bl
 
-    luma_t, chroma_t = _quant_tables(int(quality))
+    if isinstance(quality, torch.Tensor):
+        luma_t, chroma_t = _quant_tables_tensor(quality)
+    else:
+        luma_t, chroma_t = _quant_tables(int(quality))
     y = _blockwise(y - 128.0, luma_t) + 128.0
     cb = _up2(_blockwise(_down2(cb) - 128.0, chroma_t) + 128.0)
     cr = _up2(_blockwise(_down2(cr) - 128.0, chroma_t) + 128.0)

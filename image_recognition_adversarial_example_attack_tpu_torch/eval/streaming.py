@@ -1,8 +1,9 @@
 """Dataset-scale streaming evaluation: a grid cell over more images than fit
 one resident batch (port of ``round_up``, ``make_placer``,
 ``stream_defense_cell``, ``stream_transfer_cell``, ``stream_suite_attack``,
-``stream_query_curve_hist``, ``stream_robust_cell`` and their helpers of
-``eval/streaming.py``).
+``stream_query_curve_hist``, ``stream_robust_cell``,
+``stream_correctness_cell``, ``stream_detector_scores``,
+``stream_clean_scores`` and their helpers of ``eval/streaming.py``).
 
 - Fixed-shape chunks come from ``utils.pipeline.EvalBatchPipeline``
   (background decode, a bounded queue: constant host memory).
@@ -19,9 +20,6 @@ Deterministic attacks (fgsm, cw, deepfool, ...) give the one-batch counters.  A 
 attack (pgd's random start) draws each chunk's noise from
 ``core.rng.chunk_generator(seed, cell id, step)``: the same distribution
 as a whole-batch draw, other numbers.
-
-The other ``stream_*`` functions of the JAX module come with the CLIs that
-call them.
 """
 
 from __future__ import annotations
@@ -389,3 +387,132 @@ def stream_robust_cell(
     out = {f"arm{i}": vecs[i] for i in range(vecs.shape[0] - 1)}
     out["clean_correct"] = vecs[-1]
     return out
+
+
+def stream_correctness_cell(
+    run_fn: Callable[[torch.Tensor, torch.Tensor, int, torch.Generator], torch.Tensor],
+    paths: Sequence,
+    *,
+    seed: int,
+    cell_id: str,
+    severity: int,
+    chunk_size: int,
+    place: Placer,
+    size: int = IMAGE_SIZE,
+    pseudo_label_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    labels: Sequence[int] | None = None,
+) -> dict[str, np.ndarray]:
+    """One (corruption, severity) cell of the corruption benchmark over any
+    number of images.
+
+    ``run_fn(x, y, severity, generator) -> bool[B]`` is the correctness cell
+    (``eval.corruptions.make_corruption_run``).  ``labels`` are ground truth
+    with ``-1`` for "use this image's pseudo-label".  Where ``labels`` has
+    no ``-1`` (the CLI resolves them in a prelude pass) the per-chunk clean
+    forward is skipped: a corruption cell is itself only a corruption and a
+    forward, so a pseudo pass would nearly double its time.  Chunk ``step``
+    draws from ``chunk_generator(seed, cell_id, step)``.  Returns the
+    concatenated ``correct`` vector, and ``clean_correct`` where the pseudo
+    pass ran; ``{}`` where no chunk decoded.
+    """
+    if labels is None and pseudo_label_fn is None:
+        raise ValueError("need labels or pseudo_label_fn")
+    need_pseudo = labels is None or bool(np.any(np.asarray(labels) < 0))
+    if need_pseudo and pseudo_label_fn is None:
+        raise ValueError("labels contain the UNLABELED (-1) sentinel but no "
+                         "pseudo_label_fn was given to substitute for them")
+    parts: list[np.ndarray] = []
+    pipe = EvalBatchPipeline(paths, chunk_size, labels=labels, size=size)
+    for step, x_np, y_np, n_valid in pipe:
+        x = place(x_np)
+        if need_pseudo:
+            pseudo, y = _chunk_labels(x, step, y_np, pseudo_label_fn, None)
+        else:
+            y = torch.from_numpy(np.asarray(y_np, np.int64)).to(x.device)
+        vecs = [run_fn(x, y, severity, chunk_generator(seed, cell_id, step))]
+        if need_pseudo:
+            vecs.append(pseudo == y)
+        # the chunk's one read from the card: correct (and clean_correct)
+        parts.append(torch.stack(vecs).cpu().numpy()[:, :n_valid])
+    if not parts:
+        return {}
+    vecs = np.concatenate(parts, axis=1)
+    out = {"correct": vecs[0]}
+    if need_pseudo:
+        out["clean_correct"] = vecs[1]
+    return out
+
+
+def stream_detector_scores(
+    attack_fn: Callable[[torch.Tensor, torch.Tensor, torch.Generator], torch.Tensor],
+    score_fns: dict,
+    pred_fn: Callable[[torch.Tensor], torch.Tensor],
+    paths: Sequence,
+    *,
+    seed: int,
+    cell_id: str,
+    chunk_size: int,
+    place: Placer,
+    size: int = IMAGE_SIZE,
+    clean_cache: dict | None = None,
+) -> dict:
+    """The adversarial side of one attack's detector comparison
+    (``cli/detector_eval.py``) over any number of images.
+
+    ``attack_fn(x, y, generator) -> x_adv``; ``score_fns`` maps a detector's
+    name to its score function; ``pred_fn(x)`` gives the top-1 labels (the
+    chunk's pseudo-labels and the success check).  Only the [B] vectors
+    leave the card, in one read per chunk; the ROC arithmetic runs on the
+    concatenated vectors (``eval.detector_eval.cell_from_scores``).
+    ``clean_cache`` carries the per-chunk pseudo-labels over the CLI's
+    attacks.  Chunk ``step`` draws from ``chunk_generator(seed, cell_id,
+    step)``.  Returns ``{"adv": {detector: float64 scores}, "succ": bool
+    vector, "count": n}``.
+    """
+    _check_cache_sig(clean_cache, paths, chunk_size, size)
+    adv: dict[str, list[np.ndarray]] = {d: [] for d in score_fns}
+    succ: list[np.ndarray] = []
+    count = 0
+    pipe = EvalBatchPipeline(paths, chunk_size, size=size)
+    for step, x_np, _y, n_valid in pipe:
+        x = place(x_np)
+        _, y = _chunk_labels(x, step, None, pred_fn, clean_cache)
+        x_adv = attack_fn(x, y, chunk_generator(seed, cell_id, step))
+        with torch.no_grad():
+            vecs = [(pred_fn(x_adv) != y).to(torch.float64),
+                    *(fn(x_adv).to(torch.float64) for fn in score_fns.values())]
+        # the chunk's one read from the card: success and every score
+        host = torch.stack(vecs).cpu().numpy()[:, :n_valid]
+        succ.append(host[0] > 0.5)
+        for row, det in enumerate(score_fns, start=1):
+            adv[det].append(host[row])
+        count += int(n_valid)
+    if count == 0:
+        raise SystemExit("no loadable images")
+    return {"adv": {d: np.concatenate(v) for d, v in adv.items()},
+            "succ": np.concatenate(succ), "count": count}
+
+
+def stream_clean_scores(
+    score_fns: dict,
+    paths: Sequence,
+    *,
+    chunk_size: int,
+    place: Placer,
+    size: int = IMAGE_SIZE,
+) -> dict[str, np.ndarray]:
+    """Clean detector scores over any number of images (the calibration pass
+    of the streamed detector comparison: the thresholds come from quantiles
+    over the whole set, as in the one-batch path).  One read per chunk."""
+    clean: dict[str, list[np.ndarray]] = {d: [] for d in score_fns}
+    pipe = EvalBatchPipeline(paths, chunk_size, size=size)
+    for _step, x_np, _y, n_valid in pipe:
+        x = place(x_np)
+        with torch.no_grad():
+            host = torch.stack([fn(x).to(torch.float64) for fn in score_fns.values()])
+        host = host.cpu().numpy()[:, :n_valid]
+        for row, det in enumerate(score_fns):
+            clean[det].append(host[row])
+    if not any(clean.values()):
+        raise SystemExit("no loadable images")
+    return {d: np.concatenate(v) for d, v in clean.items()}

@@ -3,8 +3,8 @@
 ``plot_attack_grid``, ``plot_attack_trajectory``,
 ``plot_perturbation_analysis``, ``plot_gradcam_panel``,
 ``plot_loss_landscape``, ``plot_transfer_heatmap``, ``plot_blackbox_pair``,
-``plot_robust_accuracy`` and ``plot_certified_accuracy`` of
-``viz/plots.py``), drawn with PIL alone.
+``plot_robust_accuracy``, ``plot_certified_accuracy`` and
+``plot_corruption_heatmap`` of ``viz/plots.py``), drawn with PIL alone.
 
 The contract with the JAX package is the file names and the plotted values,
 not the styling:
@@ -39,7 +39,10 @@ not the styling:
 - the certify CLI's ``--plot`` figure: certified accuracy against the L2
   radius, ``acc(r) = mean(correct & radii >= r)`` on 256 radii, one
   sequential step of the blue ramp per sigma with a direct sigma label at
-  the curve's head (``certified_curves``).
+  the curve's head (``certified_curves``);
+- the corruption_eval CLI's ``--plot`` figure: corruption rows x severity
+  columns of the top-1 accuracy (green ramp), each cell annotated to 2
+  decimals, the clean accuracy in the title.
 
 PIL, because the CUDA machines the port runs on need not have matplotlib;
 Pillow is there already for the image pipeline.  Nothing here touches the
@@ -617,41 +620,74 @@ def plot_loss_landscape(landscapes: Mapping[str, np.ndarray], span: float, save_
 # The transfer CLIs' figures
 # ---------------------------------------------------------------------------
 
+def _annotated_cells(img: Image.Image, grid, matrix: np.ndarray, ramp_name: str, fmt: str,
+                     row_labels: Sequence[str], col_labels: Sequence[str], f_label,
+                     f_cell) -> None:
+    """The cells of a heatmap inside ``grid`` (x0, y0, x1, y1), each filled
+    from the ramp and annotated with ``fmt``, the column labels under it, the
+    row labels left of it, and the ramp's color bar from 0 to 1 on its
+    right."""
+    draw = ImageDraw.Draw(img)
+    gx0, gy0, gx1, gy1 = grid
+    n_rows, n_cols = matrix.shape
+    cw, ch = (gx1 - gx0) / max(n_cols, 1), (gy1 - gy0) / max(n_rows, 1)
+    colors = ramp(matrix, ramp_name)
+    for i in range(n_rows):
+        for j in range(n_cols):
+            cell = (gx0 + j * cw, gy0 + i * ch, gx0 + (j + 1) * cw, gy0 + (i + 1) * ch)
+            draw.rectangle(cell, fill=tuple(int(c) for c in colors[i, j]), outline=_WHITE,
+                           width=2)
+            ink = _WHITE if matrix[i, j] > 0.55 else _INK
+            _text(draw, ((cell[0] + cell[2]) / 2, (cell[1] + cell[3]) / 2),
+                  format(matrix[i, j], fmt), f_cell, fill=ink)
+    for j, label in enumerate(col_labels):
+        _text(draw, (gx0 + (j + 0.5) * cw, gy1 + 25), label, f_label)
+    for i, label in enumerate(row_labels):
+        _text(draw, (gx0 - 12, gy0 + (i + 0.5) * ch), label, f_label, align="right")
+    bar = ramp(np.linspace(1.0, 0.0, int(gy1 - gy0)), ramp_name)[:, None, :]
+    img.paste(Image.fromarray(np.repeat(bar, 25, axis=1)), (int(gx1) + 30, int(gy0)))
+    _text(draw, (gx1 + 63, gy0), "1.0", f_label, align="left")
+    _text(draw, (gx1 + 63, gy1), "0.0", f_label, align="left")
+
+
 def plot_transfer_heatmap(matrix: np.ndarray, eps_values: Sequence[float],
                           model_names: Sequence[str], source_model: str, attack_name: str,
                           out_path) -> None:
     """eps x target-model heatmap of the transfer success rate."""
     out_path = Path(out_path)
     out_path.parent.mkdir(parents=True, exist_ok=True)
-    matrix = np.asarray(matrix, np.float64)
-    n_eps, n_models = matrix.shape
     w, h = 1500, 900
     img = Image.new("RGB", (w, h), _WHITE)
-    draw = ImageDraw.Draw(img)
-    f_title, f_label, f_cell = _font(28), _font(22), _font(24)
+    f_title, f_label = _font(28), _font(22)
     gx0, gy0, gx1, gy1 = 220, 140, w - 180, h - 140
-    cw, ch = (gx1 - gx0) / n_models, (gy1 - gy0) / n_eps
-    colors = ramp(matrix, "Oranges")
-    for i in range(n_eps):
-        for j in range(n_models):
-            cell = (gx0 + j * cw, gy0 + i * ch, gx0 + (j + 1) * cw, gy0 + (i + 1) * ch)
-            draw.rectangle(cell, fill=tuple(int(c) for c in colors[i, j]), outline=_WHITE,
-                           width=2)
-            ink = _WHITE if matrix[i, j] > 0.55 else _INK
-            _text(draw, ((cell[0] + cell[2]) / 2, (cell[1] + cell[3]) / 2),
-                  f"{matrix[i, j]:.3f}", f_cell, fill=ink)
-    for j, name in enumerate(model_names):
-        _text(draw, (gx0 + (j + 0.5) * cw, gy1 + 25), str(name), f_label)
-    for i, e in enumerate(eps_values):
-        _text(draw, (gx0 - 12, gy0 + (i + 0.5) * ch), f"{e:.3f}", f_label, align="right")
-    bar = ramp(np.linspace(1.0, 0.0, int(gy1 - gy0)), "Oranges")[:, None, :]
-    img.paste(Image.fromarray(np.repeat(bar, 25, axis=1)), (gx1 + 30, gy0))
-    _text(draw, (gx1 + 63, gy0), "1.0", f_label, align="left")
-    _text(draw, (gx1 + 63, gy1), "0.0", f_label, align="left")
+    _annotated_cells(img, (gx0, gy0, gx1, gy1), np.asarray(matrix, np.float64), "Oranges",
+                     ".3f", [f"{e:.3f}" for e in eps_values], [str(m) for m in model_names],
+                     f_label, _font(24))
+    draw = ImageDraw.Draw(img)
     _text(draw, ((gx0 + gx1) / 2, 60), "Transferability attack success rates\n"
           f"source: {source_model}, attack: {attack_name.upper()}", f_title)
     _text(draw, ((gx0 + gx1) / 2, h - 60), "Target models (black-box)", f_label)
     _vertical_text(img, (50, (gy0 + gy1) / 2), "Perturbation budget (eps)", f_label)
+    img.save(out_path)
+
+
+def plot_corruption_heatmap(matrix: np.ndarray, corruption_names: Sequence[str],
+                            severities: Sequence[int], clean_acc: float, out_path) -> None:
+    """corruption x severity accuracy heatmap (cli/corruption_eval.py)."""
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    w, h = 1200, max(600, 60 * len(corruption_names) + 260)
+    img = Image.new("RGB", (w, h), _WHITE)
+    f_title, f_label = _font(28), _font(22)
+    gx0, gy0, gx1, gy1 = 330, 120, w - 170, h - 120
+    _annotated_cells(img, (gx0, gy0, gx1, gy1), np.asarray(matrix, np.float64), "Greens",
+                     ".2f", [str(n) for n in corruption_names], [f"s{s}" for s in severities],
+                     f_label, f_label)
+    draw = ImageDraw.Draw(img)
+    _text(draw, ((gx0 + gx1) / 2, 60),
+          f"Accuracy under common corruptions (clean {clean_acc:.3f})", f_title)
+    _text(draw, ((gx0 + gx1) / 2, h - 60), "Severity", f_label)
+    _vertical_text(img, (40, (gy0 + gy1) / 2), "Corruption", f_label)
     img.save(out_path)
 
 

@@ -761,3 +761,81 @@ def test_crown_ibp_margin_on_the_card_equals_the_cpu(cuda, name):
                                        8 / 255, mean, std)
     finally:
         torch.backends.cudnn.allow_tf32 = False
+
+
+CORRUPTION_CONVS = ("defocus_blur", "glass_blur", "motion_blur", "snow", "elastic_transform",
+                    "gaussian_blur", "fog")
+
+
+@pytest.fixture()
+def full_float32():
+    """TF32 off for cuDNN and cuBLAS (``load_model`` does this), restored after."""
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("severity", [1, 3, 5])
+def test_corruption_bank_on_the_card_equals_the_cpu(cuda, full_float32, severity):
+    """Every corruption on the card against the CPU on the same draws (made
+    once on the CPU): within 1e-5, the order-0 gathers (pixelate) and the
+    exact ones equal; the draws of a generator are made on the card; with
+    TF32 allowed the convolutions refuse to run."""
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
+        generator_from_seed)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval import corruptions as c
+
+    x = torch.rand((3, 64, 64, 3), generator=torch.Generator().manual_seed(severity))
+    for name in c.CORRUPTION_NAMES:
+        draws = c.draw_corruption(name, x, severity, generator_from_seed(severity))
+        want = c.apply_corruption(name, x, severity, draws=draws)
+        got = c.apply_corruption(name, x.to(cuda), severity,
+                                 draws=tuple(d.to(cuda) for d in draws)).cpu()
+        if name in ("pixelate", "brightness", "impulse_noise", "shot_noise"):
+            assert torch.equal(got, want), name
+        assert float((got - want).abs().max()) <= 1e-5, name
+        on_card = c.draw_corruption(name, x.to(cuda), severity, generator_from_seed(0))
+        assert all(d.device.type == "cuda" for d in on_card), name
+    torch.backends.cudnn.allow_tf32 = True
+    for name in CORRUPTION_CONVS[:-1]:
+        with pytest.raises(RuntimeError, match="full float32"):
+            c.apply_corruption(name, x.to(cuda), severity, generator_from_seed(0))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    with pytest.raises(RuntimeError, match="full float32"):
+        c.apply_corruption("fog", x.to(cuda), severity, generator_from_seed(0))
+
+
+def test_map_coordinates_on_the_card_equals_the_cpu(cuda):
+    from image_recognition_adversarial_example_attack_tpu_torch.eval import corruptions as c
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.rand((2, 32, 24, 3), generator=g, dtype=torch.float64)
+    rr = torch.rand((2, 32, 24), generator=g, dtype=torch.float64) * 40 - 4
+    cc = torch.rand((2, 32, 24), generator=g, dtype=torch.float64) * 30 - 3
+    rr.view(-1)[:3] = torch.tensor([0.5, 2.5, -0.5], dtype=torch.float64)
+    for order in (0, 1):
+        want = c.map_coordinates(x, rr, cc, order)
+        got = c.map_coordinates(x.to(cuda), rr.to(cuda), cc.to(cuda), order).cpu()
+        assert float((got - want).abs().max()) <= 1e-12
+
+
+def test_squeezing_cell_launches_quantize_once_on_the_stacked_batch(cuda):
+    """The detector comparison's squeezing score on the stacked [2B] batch:
+    one quantize launch, bit-equal to the plain version at that shape."""
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import make_logits_fn
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import squeezing_score
+    from image_recognition_adversarial_example_attack_tpu_torch.eval import detector_eval
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    b = load_model("resnet_tiny", device=cuda)
+    lf = make_logits_fn(b.model, b.mean, b.std)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.rand((8, 224, 224, 3), generator=g, device=cuda)
+    x_adv = torch.clamp(x + 0.03 * torch.randn(x.shape, generator=g, device=cuda), 0, 1)
+    before = ew.LAUNCHES["quantize"]
+    r = detector_eval.evaluate_detector_cell(lambda xx: squeezing_score(lf, xx), x, x_adv, 0.01,
+                                             detector="squeezing", attack="toy")
+    assert ew.LAUNCHES["quantize"] == before + 1 and 0.0 <= r.auc <= 1.0
+    stacked = torch.cat([x, x_adv]) * 1.2 - 0.1
+    assert torch.equal(ew.quantize(stacked, 16), ew.quantize_plain(stacked, 16))
