@@ -235,6 +235,21 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    deterministic cells equal the resident run's) and detector_eval
    ``--model-dtype float32 --attacks fgsm`` resident and streamed, the
    feature and squeezing clean scores equal within 1e-5 relative.
+22. cifar  -- the CIFAR family and the lightweight ImageNet families,
+   random weights: (a) each of wrn28_10, wrn34_10, wrn_tiny,
+   preact_resnet18, wrn28_10_robust (32x32), mobilenet_v2, efficientnet_b0
+   and convnext_tiny (224x224) in float32 on 4 images, the card against
+   the CPU within 1e-5 of the largest logit; (b) the bf16 and int8 forward
+   ms at batch 128 of the six full-width families (the quantized calls
+   counted), and ConvNeXt-T's 7x7 depthwise convs timed alone per stage
+   against their bound and the forward; (c) WRN-28-10 at full width, bf16,
+   batch 128, 32x32, eps 8/255: PGD-10 ex/s (10 pgd_step and 1 noise), the
+   stage-3 detector threshold calibrated on the clean batch and the pgd ->
+   smoothing + quantization -> detector cell (10, 1, 1); (d) the grid CLI
+   ``--cifar10_dir`` on a seeded 256-image archive, ``--model wrn28_10
+   --attacks fgsm pgd --model-dtype bfloat16``, in a subprocess that
+   prints its launches, with (e) ``robust_eval --cifar10_dir`` on 32 of the
+   images at cut budgets in this process meanwhile.
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -3787,6 +3802,291 @@ def phase_detector_corruption(state: dict, pngs: list[Path]) -> dict:
     return res
 
 
+# Phase 22: the CIFAR family and the lightweight ImageNet families
+CIFAR_NAMES = ("wrn28_10", "wrn34_10", "wrn_tiny", "preact_resnet18", "wrn28_10_robust",
+               "mobilenet_v2", "efficientnet_b0", "convnext_tiny")
+CIFAR_TIMED = ("wrn28_10", "wrn34_10", "preact_resnet18", "mobilenet_v2", "efficientnet_b0",
+               "convnext_tiny")
+CIFAR_ARCHIVE_N, CIFAR_RE_N, CIFAR_EPS = 256, 32, "0.03137"
+# PGD-10 with its random start; the cell adds the quantization arm's one quantize
+CIFAR_PGD_LAUNCHES = {"pgd_step": STEPS, "quantize": 0, "uniform_noise": 1}
+CIFAR_CELL_LAUNCHES = {"pgd_step": STEPS, "quantize": 1, "uniform_noise": 1}
+# ConvNeXt-T's stages: (channels, side at 224x224, blocks)
+CONVNEXT_STAGES = ((96, 56, 3), (192, 28, 3), (384, 14, 9), (768, 7, 3))
+# runs a CLI's main in a subprocess and prints its kernel launches last
+LAUNCH_WRAPPER = ("import json, sys, importlib\n"
+                  f"from {PKG}.kernels import elementwise as ew\n"
+                  "main = importlib.import_module(sys.argv[1]).main\n"
+                  "code = main(sys.argv[2:])\n"
+                  "print('LAUNCHES ' + json.dumps(ew.launch_counts()))\n"
+                  "sys.exit(code)\n")
+
+
+def _write_cifar_archive(root: Path, n: int, seed: int = 22) -> Path:
+    """A CIFAR-10 test batch of ``n`` seeded images and labels, in the
+    archive's pickle layout."""
+    import pickle
+
+    import numpy as np
+
+    d = root / "cifar-10-batches-py"
+    d.mkdir(parents=True)
+    rng = np.random.RandomState(seed)
+    rows = rng.randint(0, 256, (n, 3072)).astype(np.uint8)
+    with open(d / "test_batch", "wb") as f:
+        pickle.dump({b"data": rows, b"labels": rng.randint(0, 10, n).tolist()}, f)
+    return root
+
+
+def _cifar_card_vs_cpu() -> dict:
+    """Phase 22 (a): each of the eight names in float32, 4 images at its
+    input size, the card against the CPU on the same seeded weights."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import (
+        make_fns, n_classes_of)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model, model_meta
+
+    res = {}
+    for name in CIFAR_NAMES:
+        size = int(model_meta(name)["input_size"])
+        x = torch.rand((4, size, size, 3), generator=generator_from_seed(22))
+        out = {}
+        for d in ("cpu", "cuda"):
+            b = load_model(name, dtype=torch.float32, device=d)
+            with torch.no_grad():
+                out[d] = make_fns(b)[0](x.to(d)).cpu()
+            classes = n_classes_of(b.model)
+            del b
+        scale = float(out["cpu"].abs().max())
+        rel = float((out["cuda"] - out["cpu"]).abs().max()) / scale
+        if out["cuda"].shape != (4, classes) or not rel <= F32_REL_TOL:
+            raise AssertionError(f"{name}: float32 logits {tuple(out['cuda'].shape)} on the "
+                                 f"card vs the CPU {rel:.3e} relative (limit {F32_REL_TOL:.0e})")
+        res[name] = {"input_size": size, "classes": classes, "max_abs_logit": scale,
+                     "max_abs_diff": float((out["cuda"] - out["cpu"]).abs().max()), "rel": rel}
+    log("[cifar] float32 card vs CPU, 4 images, same seeded weights (TF32 off): " + "; ".join(
+        f"{n} {r['input_size']}x{r['input_size']} max|diff| {r['max_abs_diff']:.3e} of "
+        f"{r['max_abs_logit']:.3e}" for n, r in res.items()) + f" (limit {F32_REL_TOL:.0e} "
+        "relative)")
+    return res
+
+
+def _convnext_dwconv(model, forward_ms: float) -> dict:
+    """The 7x7 depthwise convs of ConvNeXt-T alone, bf16 channels_last at
+    batch 128: one block's conv per stage timed, the sum over the 18 blocks
+    against the forward."""
+    import torch
+
+    res = {"stages": []}
+    total = 0.0
+    for k, (dim, side, depth) in enumerate(CONVNEXT_STAGES):
+        conv = model.features[2 * k + 1][0].block[0]
+        xa = torch.randn((SHAPE[0], dim, side, side), device="cuda", dtype=torch.bfloat16)
+        xa = xa.contiguous(memory_format=torch.channels_last)
+        with torch.no_grad():
+            ms = time_ms(lambda: conv(xa), iters=10, warmup=2)
+        bytes_ = 2 * 2 * xa.numel() + 2 * conv.weight.numel()
+        flops = 2 * 49 * xa.numel()
+        bound = max(bytes_ / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+        res["stages"].append({"channels": dim, "side": side, "blocks": depth, "ms": ms,
+                              "bound_ms": bound, "bound_share": bound / ms})
+        total += ms * depth
+    res["total_ms"], res["forward_share"] = total, total / forward_ms
+    log("[cifar] convnext_tiny's 7x7 depthwise convs alone, bf16 batch 128 (CUDA events; "
+        "bound: the bytes at 3.35 TB/s or 2*49 FLOP an output at the 67 TFLOP/s non-tensor "
+        "rate): " + "; ".join(
+            f"{s['channels']}x{s['side']}^2 {s['ms']:.3f} ms (bound {s['bound_ms']:.3f}, "
+            f"{s['bound_share']:.2f})" for s in res["stages"])
+        + f"; x depths {total:.2f} ms, {res['forward_share']:.3f} of the {forward_ms:.2f} ms "
+        "forward")
+    return res
+
+
+def _cifar_forward_ms() -> dict:
+    """Phase 22 (b): bf16 and int8 forward ms at batch 128 of the six
+    full-width families, at 32x32 (the CIFAR nets) or 224x224."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import make_logits_fn
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model, model_meta
+    from image_recognition_adversarial_example_attack_tpu_torch.ops import int8
+
+    res, bundles = {}, {}
+    for name in CIFAR_TIMED:
+        size = int(model_meta(name)["input_size"])
+        x = torch.rand((SHAPE[0], size, size, 3), generator=generator_from_seed(23, "cuda"),
+                       device="cuda")
+        b = load_model(name, dtype=torch.bfloat16, device="cuda")
+        lf = make_fns(b)[0]
+        qlf = make_logits_fn(_int8_twin(b), b.mean, b.std, input_dtype=torch.bfloat16)
+        with torch.no_grad():
+            logits = lf(x)
+            ms = time_ms(lambda: lf(x), iters=5, warmup=2)
+            int8.reset_calls()
+            qlogits = qlf(x)
+            calls = int8.call_counts()
+            ms8 = time_ms(lambda: qlf(x), iters=3, warmup=1)
+        for what, t in (("bf16", logits), ("int8", qlogits)):
+            if t.shape[0] != SHAPE[0] or not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name} {what}: logits {tuple(t.shape)}, not all finite")
+        agree = float((logits.argmax(-1) == qlogits.argmax(-1)).float().mean())
+        res[name] = {"input_size": size, "bf16_ms": ms, "bf16_img_s": SHAPE[0] / ms * 1e3,
+                     "int8_ms": ms8, "int8_over_bf16": ms8 / ms, "int8_calls": calls,
+                     "int8_vs_bf16_top1": agree, "params": sum(
+                         p.numel() for p in b.model.parameters())}
+        log(f"[cifar] {name} at {size}x{size} batch {SHAPE[0]}: bf16 forward {ms:.2f} ms "
+            f"({res[name]['bf16_img_s']:.1f} img/s); int8 {ms8:.2f} ms ({ms8 / ms:.2f}x), "
+            f"quantized calls {calls}, top-1 agreement with bf16 {agree:.3f}; "
+            f"{res[name]['params'] / 1e6:.2f}M parameters")
+        if name == "convnext_tiny":
+            res[name]["dwconv"] = _convnext_dwconv(b.model, ms)
+        if name == "wrn28_10":
+            bundles[name] = b
+        del b, qlf
+    return res, bundles
+
+
+def _cifar_wrn_path(bundle) -> dict:
+    """Phase 22 (c): PGD-10 on WRN-28-10 at full width, bf16, batch 128,
+    32x32; the pgd -> smoothing + quantization -> stage-3 detector cell with
+    the threshold calibrated on the clean batch."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        AttackParams, predict_labels, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import (
+        calibrate_feature_threshold)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.defense_eval import (
+        DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch, summary_line)
+
+    lf, ff = make_fns(bundle)
+    x = torch.rand((SHAPE[0], 32, 32, 3), generator=generator_from_seed(24, "cuda"),
+                   device="cuda")
+    y = predict_labels(lf, x)
+    params = AttackParams(eps=EPS, alpha=ALPHA, steps=STEPS, random_start=True)
+    x_adv, _, counts = _counted(lambda: run_attack("pgd", lf, x, y, params,
+                                                   generator_from_seed(0)))
+    if counts != CIFAR_PGD_LAUNCHES:
+        raise AssertionError(f"WRN-28-10 PGD-10 launches {counts}, want {CIFAR_PGD_LAUNCHES}")
+    linf = _check_ball(x_adv, x, EPS, "wrn28_10 pgd")
+    success = float((predict_labels(lf, x_adv) != y).float().mean())
+    runs = 3
+    _, seconds, _ = _counted(lambda: [run_attack("pgd", lf, x, y, params,
+                                                 generator_from_seed(10 + i))
+                                      for i in range(runs)])
+    ex_s = SHAPE[0] * runs / seconds
+    res = {"pgd": {"launches": counts, "linf": linf, "attack_success": success,
+                   "ms_per_attack": seconds / runs * 1e3, "ex_per_s": ex_s}}
+    log(f"[cifar] wrn28_10 PGD-10 bf16 batch {SHAPE[0]} at 32x32, eps 8/255: "
+        f"{seconds / runs * 1e3:.1f} ms an attack, {ex_s:.1f} ex/s (mean of {runs} after a "
+        f"counted warm-up); launches {counts}; |x_adv - x|_inf {linf:.6f}; attack success "
+        f"{success:.3f}")
+
+    thr, cal_s, _ = _counted(lambda: calibrate_feature_threshold(ff, x, n=SHAPE[0]))
+    cfg = DefenseEvalConfig(attack_name="pgd", eps=EPS, alpha=ALPHA, steps=STEPS)
+    out, cell_s, counts = _counted(lambda: evaluate_defenses_batch(
+        lf, ff, x, y, thr, cfg, generator_from_seed(1)))
+    stats = aggregate_stats(out)
+    if counts != CIFAR_CELL_LAUNCHES:
+        raise AssertionError(f"WRN-28-10 cell launches {counts}, want {CIFAR_CELL_LAUNCHES}")
+    _check_ball(out["x_adv"], x, EPS, "wrn28_10 cell")
+    if stats["count"] != SHAPE[0] or any(not 0 <= stats[k] <= stats["count"] for k in stats):
+        raise AssertionError(f"WRN-28-10 cell counters out of range: {stats}")
+    with torch.no_grad():
+        feats = ff(x)
+    line = summary_line("pgd", EPS, stats)
+    res["cell"] = {"launches": counts, "seconds": cell_s, "threshold": thr,
+                   "calibrate_s": cal_s, "stats": stats, "summary_line": line,
+                   "stage3_shape": list(feats.shape)}
+    log(f"[cifar] wrn28_10 stage-3 detector ({list(feats.shape)} NHWC) calibrated on the "
+        f"{SHAPE[0]} clean images: threshold {thr:.4f} in {cal_s * 1e3:.1f} ms; pgd -> "
+        f"smoothing + quantization -> detector cell {cell_s * 1e3:.1f} ms, launches {counts}")
+    log(line)
+    return res
+
+
+def _cifar_clis(tmp: Path) -> dict:
+    """Phase 22 (d) and (e): the grid CLI with --cifar10_dir on WRN-28-10 in
+    a subprocess (its launches printed by the wrapper); meanwhile, in this
+    process, robust_eval --cifar10_dir on 32 of the images at cut budgets."""
+    import re
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import robust_eval
+
+    archive = _write_cifar_archive(tmp / "c10", CIFAR_ARCHIVE_N)
+    grid_args = ["--cifar10_dir", str(archive), "--cifar10_n", str(CIFAR_ARCHIVE_N),
+                 "--model", "wrn28_10", "--attacks", "fgsm", "pgd", "--eps_list", CIFAR_EPS,
+                 "--model-dtype", "bfloat16", "--output_dir", str(tmp / "grid")]
+    cmd = [sys.executable, "-c", LAUNCH_WRAPPER, f"{PKG}.cli.defense_experiments", *grid_args]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    res = {}
+    try:
+        re_args = ["--cifar10_dir", str(archive), "--cifar10_n", str(CIFAR_RE_N), "--model",
+                   "wrn28_10", "--eps_list", CIFAR_EPS, "--apgd_steps", "10", "--square_steps",
+                   "100", "--deepfool_steps", "5", "--output", str(tmp / "re.json")]
+        out, seconds, counts = _in_process_cli(robust_eval.main, re_args)
+        rows = json.loads((tmp / "re.json").read_text())["results"]
+        if ("clean accuracy vs CIFAR-10 test labels: " not in out or len(rows) != 1
+                or rows[0]["count"] != CIFAR_RE_N or counts["uniform_noise"] != 1):
+            raise AssertionError(f"robust_eval --cifar10_dir: launches {counts}, rows {rows}:\n"
+                                 f"{out[-2000:]}")
+        res["robust_eval"] = {"seconds": seconds, "launches": counts, "row": rows[0],
+                              "lines": [ln for ln in out.splitlines()
+                                        if ln.startswith(("clean accuracy", "eps="))]}
+    finally:
+        grid_out, grid_err = proc.communicate(timeout=600)
+    grid_s = time.perf_counter() - t0
+    if proc.returncode != 0 or "Using device: cuda" not in grid_out:
+        raise AssertionError(f"grid CLI --cifar10_dir exit {proc.returncode}:\n"
+                             f"{grid_out[-3000:]}\n{grid_err[-4000:]}")
+    lines = [ln for ln in grid_out.splitlines() if ln.startswith("attack=")]
+    clean = [ln for ln in grid_out.splitlines() if ln.startswith("clean accuracy vs CIFAR-10")]
+    launch_line = [ln for ln in grid_out.splitlines() if ln.startswith("LAUNCHES ")]
+    if (len(lines) != 2 or not all(re.match(SUMMARY_RE, ln) for ln in lines) or len(clean) != 1
+            or f"Loaded CIFAR-10 test split: {CIFAR_ARCHIVE_N} images" not in grid_out
+            or len(launch_line) != 1):
+        raise AssertionError(f"grid CLI --cifar10_dir output:\n{grid_out[-3000:]}")
+    grid_counts = json.loads(launch_line[0].split(" ", 1)[1])
+    if grid_counts["pgd_step"] < STEPS or grid_counts["uniform_noise"] < 1:
+        raise AssertionError(f"grid CLI --cifar10_dir launches {grid_counts}")
+    res["grid_cli"] = {"seconds": grid_s, "launches": grid_counts,
+                       "summary_lines": lines, "clean_line": clean[0]}
+    log(f"[cifar] grid CLI --cifar10_dir ({CIFAR_ARCHIVE_N} seeded images) --model wrn28_10 "
+        f"--attacks fgsm pgd --eps_list {CIFAR_EPS} --model-dtype bfloat16 in a subprocess: "
+        f"exit 0 in {grid_s:.1f} s wall (process start and model init included), launches "
+        f"{grid_counts}; {clean[0]}")
+    for ln in lines:
+        log(f"[cifar]   {ln}")
+    r = res["robust_eval"]
+    log(f"[cifar] robust_eval --cifar10_dir --cifar10_n {CIFAR_RE_N} (lite: apgd-10 square-100 "
+        f"deepfool-5) in process beside it: {r['seconds']:.1f} s, launches {r['launches']}; "
+        + " | ".join(r["lines"]))
+    log("[cifar] random weights and random labels: the accuracies measure cost, not "
+        "robustness")
+    return res
+
+
+def phase_cifar(card: str) -> dict:
+    """Phase 22: the CIFAR family (WRN-28-10/34-10, PreActResNet-18, the
+    robust arm) and MobileNetV2, EfficientNet-B0, ConvNeXt-T."""
+    log(f"[cifar] on {card}")
+    res = {"card_vs_cpu": _cifar_card_vs_cpu()}
+    res["forward"], bundles = _cifar_forward_ms()
+    res["wrn"] = _cifar_wrn_path(bundles["wrn28_10"])
+    del bundles
+    with tempfile.TemporaryDirectory() as tmp:
+        res["cli"] = _cifar_clis(Path(tmp))
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=str, default=None,
@@ -3856,6 +4156,7 @@ def main(argv=None) -> int:
         record["certified"] = run("certified", phase_certified, state, pngs)
         record["detector_corruption"] = run("detector_corruption", phase_detector_corruption,
                                             state, pngs)
+    record["cifar"] = run("cifar", phase_cifar, smi)
 
     # the elementwise kernels' main path: PGD-10, the eight cells, the
     # streamed pgd cell, the visualize path's PGD-20 and trajectory, the
@@ -3865,11 +4166,13 @@ def main(argv=None) -> int:
     # grid CLIs, the black-box group's counted runs, its streamed robust
     # cell, query_curves CLIs (and their per-chunk resident runs) and grid
     # and suite CLIs, phase 20's EOT-PGD runs and its two grid CLIs with
-    # --certified, phase 21's detector comparison and its in-process CLIs;
-    # the conv's: the probe's entry point
+    # --certified, phase 21's detector comparison and its in-process CLIs,
+    # phase 22's WRN-28-10 PGD-10 and cell, its grid CLI (launches printed by
+    # the subprocess) and its in-process robust_eval; the conv's: the probe's
+    # entry point
     detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
     ta, zoo, bb = record["transfer_attacks"], record["zoo"], record["black_box"]
-    cert, p21 = record["certified"], record["detector_corruption"]
+    cert, p21, p22 = record["certified"], record["detector_corruption"], record["cifar"]
     runs = [record["pgd"], record["cell"], *record["cells"].values(),
             *(record["detectors"][c] for c in detector_cells),
             record["stream"]["pgd_cell"], record["visualize"]["in_process"],
@@ -3884,7 +4187,9 @@ def main(argv=None) -> int:
             *(v for v in cert["eot"].values() if isinstance(v, dict)),
             cert["cli"]["grid_resident"], cert["cli"]["grid_streamed"],
             p21["detector"], p21["cli"]["corruption_streamed"],
-            p21["cli"]["detector_f32_resident"], p21["cli"]["detector_f32_streamed"]]
+            p21["cli"]["detector_f32_resident"], p21["cli"]["detector_f32_streamed"],
+            p22["wrn"]["pgd"], p22["wrn"]["cell"], p22["cli"]["grid_cli"],
+            p22["cli"]["robust_eval"]]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

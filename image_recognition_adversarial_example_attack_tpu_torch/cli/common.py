@@ -466,6 +466,31 @@ def resolve_eval_inputs(args, *, skip_bmp: bool = True) -> list:
     return resolve_image_inputs(args.image_dir, args.image, skip_bmp=skip_bmp)
 
 
+def cifar10_inputs(args) -> tuple[np.ndarray, np.ndarray, list[str]]:
+    """--cifar10_dir: ``(x [N,32,32,3] float32, y [N] int32, names)`` of the
+    first ``--cifar10_n`` images of ``--cifar10_split`` (all with 0), named
+    ``cifar10_<split>_<i:05d>``; beside --imagenet_val_dir it is refused
+    before any device work."""
+    from ..core.datasets import load_cifar10
+
+    if getattr(args, "imagenet_val_dir", None):
+        # two data planes: refuse rather than run CIFAR-10 silently
+        raise SystemExit("pass at most one of --imagenet_val_dir / --cifar10_dir")
+    x, y = load_cifar10(args.cifar10_dir, split=args.cifar10_split)
+    if int(args.cifar10_n) > 0:
+        x, y = x[: int(args.cifar10_n)], y[: int(args.cifar10_n)]
+    return x, y, [f"cifar10_{args.cifar10_split}_{i:05d}" for i in range(len(y))]
+
+
+def require_cifar_model(args, bundle) -> None:
+    """--cifar10_dir is 32x32 data: a model of another input size exits."""
+    if bundle.input_size != 32:
+        raise SystemExit(f"--cifar10_dir is 32x32 data but --model "
+                         f"{args.model} expects {bundle.input_size}x"
+                         f"{bundle.input_size}; use the CIFAR family "
+                         "(wrn28_10/wrn34_10/preact_resnet18)")
+
+
 def resolve_labels_sentinel(labels_json: str | None, paths):
     """Ground truth with ``UNLABELED`` where the file has no entry, or None
     without a labels file."""

@@ -30,8 +30,15 @@ jsma, spatial) compute one cell and reuse it for every eps.  Every
 ``ibp_tiny``; refused before the grid otherwise) appends one verified
 accuracy row per eps after the summary, on the same images and labels as
 the grid, and writes ``certified_accuracy.json``; streamed image sets take
-the same chunks.  It is left out of the resume fingerprint.  The JAX CLI's
-CIFAR-10 options are not ported yet.
+the same chunks.  It is left out of the resume fingerprint.
+
+``--cifar10_dir`` runs the grid on a standard CIFAR-10 archive
+(``core.datasets.load_cifar10``: ``--cifar10_split``, the first
+``--cifar10_n`` images) with its real labels instead of an image directory,
+one resident batch whatever ``--max_batch`` says, the images named
+``cifar10_<split>_<i:05d>``; it takes a 32x32 model (the CIFAR family:
+``wrn28_10``, ``wrn34_10``, ``preact_resnet18``) and refuses
+``--labels_json`` and ``--imagenet_val_dir``.
 """
 
 from __future__ import annotations
@@ -56,9 +63,10 @@ from ..eval.defense_eval import (DefenseEvalConfig, aggregate_stats, evaluate_de
 from ..eval.streaming import _merge_labels, make_placer, round_up, stream_defense_cell
 from .common import (ATTACK_CHOICES, EPS_INDEPENDENT_ATTACKS, add_extended_attack_args,
                      add_imagenet_val_arg, add_model_args, apply_imagenet_val, cell_rng_id,
-                     check_label_range, config_fingerprint, extended_attack_kwargs,
+                     check_label_range, cifar10_inputs, config_fingerprint,
+                     extended_attack_kwargs,
                      labels_digest, load_bundle, make_fns, maybe_profile, n_classes_of,
-                     resolve_image_inputs, resolve_labels,
+                     require_cifar_model, resolve_image_inputs, resolve_labels,
                      resolve_labels_sentinel)
 
 
@@ -82,6 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
                              "bounds (defenses/ibp.py / crown_ibp.py) on the SAME "
                              "images and labels as the empirical grid; spec-driven "
                              "models only (ibp_cnn7/ibp_tiny)")
+    parser.add_argument("--cifar10_dir", type=str, default=None,
+                        help="run the grid on a standard CIFAR-10 archive "
+                             "(core/datasets.py) with REAL labels instead "
+                             "of an image directory; use with the CIFAR "
+                             "family (wrn28_10/wrn34_10/preact_resnet18)")
+    parser.add_argument("--cifar10_split", type=str, default="test",
+                        choices=["train", "test"])
+    parser.add_argument("--cifar10_n", type=int, default=200,
+                        help="cap on evaluated CIFAR images (0 = all)")
     parser.add_argument("--alpha", type=float, default=DEFAULT_ALPHA)
     parser.add_argument("--steps", type=int, default=DEFAULT_STEPS)
     parser.add_argument("--cw_c", type=float, default=DEFAULT_CW_C)
@@ -204,8 +221,14 @@ def main(argv=None) -> int:
                 f"objective (fgsm|pgd); drop {bad} from --attacks")
 
     # --- image list first: fail fast before any device work ---
-    val_paths = apply_imagenet_val(args)
-    if val_paths is not None:
+    cifar = args.cifar10_dir is not None
+    if cifar:
+        if args.labels_json:
+            raise SystemExit("--cifar10_dir carries its own ground-truth "
+                             "labels; drop --labels_json")
+        x_cifar, y_cifar, image_paths = cifar10_inputs(args)
+        print(f"Loaded CIFAR-10 {args.cifar10_split} split: {len(image_paths)} images")
+    elif (val_paths := apply_imagenet_val(args)) is not None:
         image_paths = val_paths
     else:
         image_paths = resolve_image_inputs(args.image_dir, args.image)
@@ -225,6 +248,8 @@ def main(argv=None) -> int:
         bundle.std = np.ones(3, np.float32)
     else:
         bundle = load_bundle(args)
+    if cifar:
+        require_cifar_model(args, bundle)
     logits_fn, features_fn = make_fns(bundle)
     n_classes = n_classes_of(bundle.model)
     # fail fast before the grid runs (the certified rows come after it)
@@ -239,7 +264,8 @@ def main(argv=None) -> int:
             return torch.argmax(logits_fn(xx), dim=-1)
 
     max_batch = int(args.max_batch)
-    streaming = max_batch > 0 and len(image_paths) > max_batch
+    # the CIFAR-10 archive is decoded already: always one resident batch
+    streaming = not cifar and max_batch > 0 and len(image_paths) > max_batch
     if streaming:
         chunk = round_up(max_batch, 1)  # one card: no mesh axis to round to
         place = make_placer(device)
@@ -247,7 +273,10 @@ def main(argv=None) -> int:
         print(f"Streaming evaluation: {n} images in fixed chunks of {chunk} "
               "(constant memory; decode overlaps the device step)")
     else:
-        x_np, image_paths = load_image_batch_tolerant(image_paths, size=bundle.input_size)
+        if cifar:
+            x_np = x_cifar
+        else:
+            x_np, image_paths = load_image_batch_tolerant(image_paths, size=bundle.input_size)
         x = torch.from_numpy(x_np).to(device)
         n = int(x.shape[0])
 
@@ -311,6 +340,15 @@ def main(argv=None) -> int:
         labels_np = resolve_labels_sentinel(args.labels_json, image_paths)
         if labels_np is not None:
             check_label_range(labels_np, n_classes)
+    elif cifar:
+        # the archive's labels (one card: no padded rows to label)
+        y_pseudo = pseudo_fn(x)
+        pseudo = y_pseudo.cpu().numpy()
+        labels = y_cifar.astype(np.int64)
+        check_label_range(labels, n_classes)
+        print(f"clean accuracy vs CIFAR-10 {args.cifar10_split} labels: "
+              f"{float(np.mean(labels == pseudo)):.3f}")
+        y_true = torch.from_numpy(labels).to(device)
     elif args.labels_json:
         y_pseudo = pseudo_fn(x)
         pseudo = y_pseudo.cpu().numpy()

@@ -19,8 +19,10 @@ Each eps draws from ``core.rng.cell_generator(seed, "<protocol>:<eps>")``.
 Image sets larger than ``--max_batch`` stream in chunks of that size
 (``eval.streaming.stream_robust_cell``), chunk ``step`` drawing from
 ``chunk_generator(seed, that cell id, step)``; ``--save_adv_dir`` saves the
-worst-case examples in one-batch mode only.  ``--cifar10_dir`` is refused
-before any device work: CIFAR-10 and the CIFAR families are not ported yet.
+worst-case examples in one-batch mode only.  ``--cifar10_dir`` evaluates a
+standard CIFAR-10 archive (``core.datasets.load_cifar10``: ``--cifar10_split``,
+the first ``--cifar10_n`` images) with its real labels, one resident batch,
+on a 32x32 model (the CIFAR family); it refuses ``--imagenet_val_dir``.
 """
 
 from __future__ import annotations
@@ -40,9 +42,9 @@ from ..core.device import resolve_device
 from ..core.images import load_image_batch_tolerant
 from ..core.rng import cell_generator
 from ..eval.robust_eval import autoattack, autoattack_lite, autoattack_rand
-from .common import (add_imagenet_val_arg, add_model_args, check_label_range, load_bundle,
-                     make_fns, maybe_profile, n_classes_of, resolve_eval_inputs,
-                     resolve_labels, resolve_labels_sentinel)
+from .common import (add_imagenet_val_arg, add_model_args, check_label_range, cifar10_inputs,
+                     load_bundle, make_fns, maybe_profile, n_classes_of, require_cifar_model,
+                     resolve_eval_inputs, resolve_labels, resolve_labels_sentinel)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,8 +53,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--image_dir", type=str, default=None)
     parser.add_argument("--image", type=str, default="example.jpg")
     parser.add_argument("--cifar10_dir", type=str, default=None,
-                        help="evaluate on a standard CIFAR-10 archive with real labels "
-                             "(not ported yet: refused)")
+                        help="evaluate on a standard CIFAR-10 archive "
+                             "(core/datasets.py) with REAL labels — the "
+                             "RobustBench-style flow for checkpoints from "
+                             "adversarial_train --cifar10_dir; overrides "
+                             "--image_dir/--image")
     parser.add_argument("--cifar10_split", type=str, default="test",
                         choices=["train", "test"])
     parser.add_argument("--cifar10_n", type=int, default=1000,
@@ -156,25 +161,36 @@ def _protocol(args, logits_fn, save_adv: bool):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.cifar10_dir is not None:
-        if getattr(args, "imagenet_val_dir", None):
-            raise SystemExit("pass at most one of --imagenet_val_dir / --cifar10_dir")
-        raise SystemExit("--cifar10_dir: CIFAR-10 and the CIFAR model families are not "
-                         "ported to this package yet (ROADMAP.md, Queue 1 item 6)")
-    paths = resolve_eval_inputs(args)
+    cifar = args.cifar10_dir is not None
+    if cifar:
+        x_all, y_all, paths = cifar10_inputs(args)
+    else:
+        paths = resolve_eval_inputs(args)
 
     device = resolve_device(args.device)
     print(f"Using device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     bundle = load_bundle(args)
+    if cifar:
+        require_cifar_model(args, bundle)
     logits_fn, _ = make_fns(bundle)
 
     def pseudo_fn(xx):
         return predict_labels(logits_fn, xx)
 
     max_batch = int(args.max_batch)
-    streaming = max_batch > 0 and len(paths) > max_batch
-    if streaming:
+    # the CIFAR-10 archive is decoded already: always one resident batch
+    streaming = not cifar and max_batch > 0 and len(paths) > max_batch
+    if cifar:
+        kept = paths
+        y_np = y_all.astype(np.int64)
+        check_label_range(y_np, n_classes_of(bundle.model))
+        x = torch.from_numpy(x_all).to(device)
+        y = torch.from_numpy(y_np).to(device)
+        clean_correct = pseudo_fn(x).cpu().numpy() == y_np
+        print(f"clean accuracy vs CIFAR-10 {args.cifar10_split} labels: "
+              f"{clean_correct.mean():.3f}")
+    elif streaming:
         kept = list(paths)  # the chunks' decode handles failures
         x = y = clean_correct = None
         # ground truth with the UNLABELED sentinel, replaced per chunk by

@@ -17,7 +17,8 @@ points in one batched forward.  ``--gradcam`` adds ``gradcam_attack.png``:
 the Grad-CAM maps of the clean prediction on the clean image and of the
 adversarial prediction on each adversarial image (``eval/explain.py``), and
 the report's ``gradcam_iou`` per attack; a model without the conv tap
-(every family but ResNet) prints ``gradcam skipped: ...`` and goes on.
+(every family but ResNet, WideResNet and PreActResNet) prints
+``gradcam skipped: ...`` and goes on.
 
 The randomness is drawn in the JAX CLI's order from one generator seeded
 with ``--seed``: pgd's random start, the trajectory's, then one plane per

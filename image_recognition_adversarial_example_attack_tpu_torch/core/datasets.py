@@ -1,17 +1,99 @@
-"""The ImageNet validation set's ground truth (port of the ImageNet part of
-``core/datasets.py``; CIFAR-10 is not ported yet).
+"""Dataset readers (port of ``core/datasets.py``): the standard CIFAR-10
+archives and the ImageNet validation set's ground truth.
 
-A copy of the JAX package's ``list_imagenet_val`` and
-``_val_from_annotations``: the port imports nothing of that package.
+Copies of the JAX package's functions: the port imports nothing of that
+package.  No torchvision is needed: the CIFAR-10 formats are plain pickle
+and raw bytes.  Layouts under ``root``, detected in this order:
+
+- ``cifar-10-batches-py/`` (or the files directly in ``root``): python
+  pickles ``data_batch_1..5`` + ``test_batch``, each ``{b"data": uint8
+  [N,3072] channel-planar rows, b"labels": [N]}`` (str keys are read too);
+- ``cifar-10-batches-bin/`` (or the files directly in ``root``): records of
+  one label byte and 3072 pixel bytes (``data_batch_N.bin`` /
+  ``test_batch.bin``).
+
+Images come back NHWC float32 in [0,1], the framework's image convention
+(normalization happens inside the logits function), and labels int32.
 """
 
 from __future__ import annotations
 
+import pickle
 from pathlib import Path
 
 import numpy as np
 
 from .constants import IMAGE_EXTS
+
+CIFAR10_CLASSES = (
+    "airplane", "automobile", "bird", "cat", "deer",
+    "dog", "frog", "horse", "ship", "truck",
+)
+
+_PY_DIR = "cifar-10-batches-py"
+_BIN_DIR = "cifar-10-batches-bin"
+
+
+def _find_dir(root: Path, sub: str, markers: tuple[str, ...]) -> Path | None:
+    for cand in (root / sub, root):
+        if any((cand / m).is_file() for m in markers):
+            return cand
+    return None
+
+
+def _decode_rows(rows: np.ndarray) -> np.ndarray:
+    """uint8 [N, 3072] channel-planar rows -> float32 [N, 32, 32, 3]."""
+    x = rows.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+    return np.ascontiguousarray(x, dtype=np.float32) / 255.0
+
+
+def _load_pickle_batch(path: Path) -> tuple[np.ndarray, np.ndarray]:
+    with open(path, "rb") as f:
+        d = pickle.load(f, encoding="bytes")
+
+    def get(key: str):
+        # the official archives pickle with bytes keys; str keys are read too
+        return d[key.encode()] if key.encode() in d else d[key]
+
+    data = np.asarray(get("data"), np.uint8)
+    return _decode_rows(data), np.asarray(get("labels"), np.int32)
+
+
+def _load_bin_batch(path: Path) -> tuple[np.ndarray, np.ndarray]:
+    raw = np.frombuffer(path.read_bytes(), np.uint8)
+    if raw.size % 3073:
+        raise ValueError(f"{path}: size {raw.size} is not a multiple of "
+                         "3073 (1 label byte + 3072 pixels per record)")
+    rec = raw.reshape(-1, 3073)
+    return _decode_rows(rec[:, 1:].copy()), rec[:, 0].astype(np.int32)
+
+
+def load_cifar10(root: str | Path, split: str = "train") -> tuple[np.ndarray, np.ndarray]:
+    """CIFAR-10 from the standard archives under ``root``: ``split`` is
+    ``"train"`` (data_batch_1..5, those present) or ``"test"``
+    (test_batch).  Returns ``(x [N,32,32,3] float32 in [0,1], y [N]
+    int32)``; raises ValueError for another split and FileNotFoundError
+    where no archive or no batch of the split is found."""
+    if split not in ("train", "test"):
+        raise ValueError(f"split must be 'train' or 'test', got {split!r}")
+    root = Path(root)
+    for sub, suffix, load in ((_PY_DIR, "", _load_pickle_batch),
+                              (_BIN_DIR, ".bin", _load_bin_batch)):
+        found = _find_dir(root, sub, (f"data_batch_1{suffix}", f"test_batch{suffix}"))
+        if found is None:
+            continue
+        names = ([f"data_batch_{i}{suffix}" for i in range(1, 6)]
+                 if split == "train" else [f"test_batch{suffix}"])
+        present = [found / n for n in names if (found / n).is_file()]
+        if not present:
+            what = f"{suffix} batches" if suffix else "batches"
+            raise FileNotFoundError(f"no {split} {what} under {found}")
+        parts = [load(p) for p in present]
+        return np.concatenate([x for x, _ in parts]), np.concatenate([y for _, y in parts])
+    raise FileNotFoundError(
+        f"no CIFAR-10 archive found under {root} (looked for "
+        f"{_PY_DIR}/data_batch_1 and {_BIN_DIR}/data_batch_1.bin)")
+
 
 _VAL_MAP_NAMES = ("val_map.txt", "val_annotations.txt")
 

@@ -11,7 +11,7 @@ normalized per sample to [0,1] by its max (an all-zero map stays zero).
 ``cam_shift_iou`` measures how far an attack moved the model's evidence.
 
 The forward is split at the tap by the model's ``features_last`` /
-``head_from_features`` (the ResNet family's; ``models/resnet.py``): the
+``head_from_features`` (ResNet's, WideResNet's and PreActResNet's): the
 features are computed once without a graph, in float32 as the JAX package's
 closure returns them, then detached and marked ``requires_grad``, and the
 gradient runs only through the GAP + fc head, in the model's compute dtype.

@@ -1,4 +1,5 @@
-"""The model families (ResNet, VGG, DenseNet, ViT, Swin, the tiny CNN), the
+"""The model families (ResNet, VGG, DenseNet, ViT, Swin, EfficientNet,
+MobileNetV2, ConvNeXt, WideResNet, PreActResNet, the tiny CNN, the IBP nets), the
 model registry and the weight bridge."""
 
 from .convert import from_jax_variables, load_torch_checkpoint

@@ -4,14 +4,17 @@
 variables into the port's model of a weight-layout family (one of
 ``FAMILIES``; the zoo records each registered model's, ``zoo.model_family``):
 it inverts that package's ``convert_state_dict``, the family's rename (``resnet_rename``,
-``vgg_rename``, ``densenet_rename``, ``vit_rename``, ``swin_rename``) and,
-for the attention families, ``conform_qkv_layout``.  Leaves: conv kernel
+``vgg_rename``, ``densenet_rename``, ``vit_rename``, ``swin_rename``,
+``wideresnet_rename``, ``preactresnet_rename``, ``mobilenet_rename``,
+``efficientnet_rename``, ``convnext_rename``) and, for the attention
+families, ``conform_qkv_layout``.  Leaves: conv kernel
 HWIO -> OIHW, Dense IO -> OI, ``scale`` -> ``weight``, ``mean``/``var`` ->
 ``running_mean``/``running_var``, the head-aligned qkv kernel ``[D, 3, H,
 hd]`` / bias ``[3, H, hd]`` -> torch's packed ``[3D, D]`` / ``[3D]`` (a
 row-major reshape and a transpose), and the bare parameters
 (``class_token``, ``pos_embedding``, ``relative_position_bias_table``) as
-they are; Swin's static ``relative_position_index`` buffer is computed.
+they are, ConvNeXt's ``layer_scale`` ``[C]`` -> torchvision's ``[C,1,1]``;
+Swin's static ``relative_position_index`` buffer is computed.
 ``to_jax_variables(model, family)`` goes the other way, so that a port model
 can be written as a Flax msgpack file (``models.flax_msgpack``).
 ``load_torch_checkpoint`` reads a torchvision-style ``.pth``.  A key the
@@ -21,6 +24,7 @@ bridge cannot map raises.
 from __future__ import annotations
 
 import re
+from functools import partial
 from pathlib import Path
 from typing import Any, Callable, Mapping
 
@@ -167,6 +171,140 @@ def _swin_flax(path: str) -> tuple[str, ...]:
     return (head, *[p for p in joined.split(".") if p])
 
 
+def _wrn_torch(path: tuple[str, ...]) -> str:
+    """WideResNet: ("block1_0", "convShortcut") -> "block1.layer.0.convShortcut"."""
+    return ".".join(re.sub(r"^block(\d+)_(\d+)$", r"block\1.layer.\2", p) for p in path)
+
+
+def _wrn_flax(path: str) -> tuple[str, ...]:
+    return tuple(re.sub(r"^block(\d+)\.layer\.(\d+)", r"block\1_\2", path).split("."))
+
+
+def _preact_torch(path: tuple[str, ...]) -> str:
+    """PreActResNet: ("layer2_0", "shortcut_0") -> "layer2.0.shortcut.0"."""
+    return ".".join(re.sub(r"^(layer\d+|shortcut)_(\d+)$", r"\1.\2", p) for p in path)
+
+
+def _preact_flax(path: str) -> tuple[str, ...]:
+    return tuple(re.sub(r"(^|\.)(layer\d+|shortcut)\.(\d+)", r"\1\2_\3", path).split("."))
+
+
+# The stem, head and classifier of MobileNetV2 and EfficientNet; the head
+# sits at ``features.<head>``, one past the last block (MobileNetV2) or stage
+# (EfficientNet), so these two maps take its index.
+def _ends_torch(name: str, head: int) -> str | None:
+    return {"stem_conv": "features.0.0", "stem_bn": "features.0.1",
+            "head_conv": f"features.{head}.0", "head_bn": f"features.{head}.1",
+            "classifier": "classifier.1"}.get(name)
+
+
+def _ends_flax(path: str, head: int) -> tuple[str, ...] | None:
+    return {"features.0.0": ("stem_conv",), "features.0.1": ("stem_bn",),
+            f"features.{head}.0": ("head_conv",), f"features.{head}.1": ("head_bn",),
+            "classifier.1": ("classifier",)}.get(path)
+
+
+# Within a block, the sequential index of each role, as JAX's renames read
+# them: the first block (MobileNetV2) or stage (EfficientNet) has no
+# expansion conv, every later one has.
+_MBV2_ROLES = ({"dw": "0", "project_conv": "1", "project_bn": "2"},
+               {"expand": "0", "dw": "1", "project_conv": "2", "project_bn": "3"})
+_EFF_ROLES = ({"dw": "0", "se": "1", "project": "2"},
+              {"expand": "0", "dw": "1", "se": "2", "project": "3"})
+
+
+def _mobilenet_torch(path: tuple[str, ...], head: int) -> str:
+    """MobileNetV2: stem_conv -> features.0.0; block2/expand_bn ->
+    features.2.conv.0.1; block2/project_conv -> features.2.conv.2;
+    head_bn -> features.<head>.1; classifier -> classifier.1."""
+    if (end := _ends_torch(path[0], head)) is not None:
+        return end
+    if not (m := re.fullmatch(r"block(\d+)", path[0])):
+        return ".".join(path)  # unknown: left for the strict load to refuse
+    n = int(m[1])
+    roles = _MBV2_ROLES[n != 1]
+    role, _, part = path[1].rpartition("_")
+    if path[1] in roles:  # the projection: a plain conv and BatchNorm
+        return f"features.{n}.conv.{roles[path[1]]}"
+    return f"features.{n}.conv.{roles[role]}.{'0' if part == 'conv' else '1'}"
+
+
+def _mobilenet_flax(path: str, head: int) -> tuple[str, ...]:
+    if (end := _ends_flax(path, head)) is not None:
+        return end
+    parts = path.split(".")  # features N conv I [J]
+    n = int(parts[1])
+    by_index = {v: k for k, v in _MBV2_ROLES[n != 1].items()}
+    role = by_index[parts[3]]
+    if role.startswith("project"):
+        return (f"block{n}", role)
+    return (f"block{n}", f"{role}_{'conv' if parts[4] == '0' else 'bn'}")
+
+
+def _efficientnet_torch(path: tuple[str, ...], head: int) -> str:
+    """EfficientNet: stem_conv -> features.0.0; stage2_block1/expand_bn ->
+    features.2.1.block.0.1; stage2_block1/se/fc1 -> features.2.1.block.2.fc1;
+    head_conv -> features.<head>.0; classifier -> classifier.1."""
+    if (end := _ends_torch(path[0], head)) is not None:
+        return end
+    if not (m := re.fullmatch(r"stage(\d+)_block(\d+)", path[0])):
+        return ".".join(path)  # unknown: left for the strict load to refuse
+    s = int(m[1])
+    roles = _EFF_ROLES[s != 1]
+    prefix = f"features.{s}.{m[2]}.block"
+    if path[1] == "se":
+        return f"{prefix}.{roles['se']}.{path[2]}"
+    role, _, part = path[1].rpartition("_")
+    return f"{prefix}.{roles[role]}.{'0' if part == 'conv' else '1'}"
+
+
+def _efficientnet_flax(path: str, head: int) -> tuple[str, ...]:
+    if (end := _ends_flax(path, head)) is not None:
+        return end
+    parts = path.split(".")  # features S B block I (J | fc1 | fc2)
+    s = int(parts[1])
+    role = {v: k for k, v in _EFF_ROLES[s != 1].items()}[parts[4]]
+    prefix = f"stage{s}_block{parts[2]}"
+    if role == "se":
+        return (prefix, "se", parts[5])
+    return (prefix, f"{role}_{'conv' if parts[5] == '0' else 'bn'}")
+
+
+_CN_BLOCK = {"dwconv": "0", "ln": "2", "mlp_linear_1": "3", "mlp_linear_2": "5"}
+_CN_BLOCK_FLAX = {v: k for k, v in _CN_BLOCK.items()}
+
+
+def _convnext_torch(path: tuple[str, ...]) -> str:
+    """ConvNeXt: stem_conv/stem_ln -> features.0.{0,1}; stage{K}_{J} ->
+    features.{2K-1}.J (block.{0,2,3,5}: dwconv, ln, mlp_linear_1,
+    mlp_linear_2); down{D}_{ln,conv} -> features.{2D}.{0,1};
+    head_ln/classifier -> classifier.{0,2}."""
+    head = path[0]
+    fixed = {"stem_conv": "features.0.0", "stem_ln": "features.0.1",
+             "head_ln": "classifier.0", "classifier": "classifier.2"}
+    if head in fixed:
+        return fixed[head]
+    if m := re.fullmatch(r"down(\d+)_(ln|conv)", head):
+        return f"features.{2 * int(m[1])}.{'0' if m[2] == 'ln' else '1'}"
+    if not (m := re.fullmatch(r"stage(\d+)_(\d+)", head)):
+        return ".".join(path)  # unknown: left for the strict load to refuse
+    out = f"features.{2 * int(m[1]) - 1}.{m[2]}"
+    return out if len(path) == 1 else f"{out}.block.{_CN_BLOCK[path[1]]}"
+
+
+def _convnext_flax(path: str) -> tuple[str, ...]:
+    parts = path.split(".")
+    if parts[0] == "classifier":
+        return ("head_ln",) if parts[1] == "0" else ("classifier",)
+    n = int(parts[1])
+    if n == 0:
+        return ("stem_conv",) if parts[2] == "0" else ("stem_ln",)
+    if n % 2 == 0:
+        return (f"down{n // 2}_{'ln' if parts[2] == '0' else 'conv'}",)
+    block = f"stage{(n + 1) // 2}_{parts[2]}"
+    return (block,) if len(parts) == 3 else (block, _CN_BLOCK_FLAX[parts[4]])
+
+
 _FAMILIES: dict[str, tuple[Callable, Callable]] = {
     "resnet": (torch_module_path, flax_module_path),
     "tiny": (".".join, lambda path: tuple(path.split("."))),
@@ -176,16 +314,35 @@ _FAMILIES: dict[str, tuple[Callable, Callable]] = {
     "swin": (_swin_torch, _swin_flax),
     # IBPNet's conv_{i} / dense_{i} carry the Flax names
     "ibp": (".".join, lambda path: tuple(path.split("."))),
+    "wideresnet": (_wrn_torch, _wrn_flax),
+    "preactresnet": (_preact_torch, _preact_flax),
+    "mobilenet": (_mobilenet_torch, _mobilenet_flax),
+    "efficientnet": (_efficientnet_torch, _efficientnet_flax),
+    "convnext": (_convnext_torch, _convnext_flax),
 }
+# the families whose maps take the head's index in ``features``
+_HEADED = ("mobilenet", "efficientnet")
 
 
 FAMILIES = tuple(_FAMILIES)
 
 
-def _paths(family: str, direction: int) -> Callable:
+def _paths(family: str, direction: int, head: int | None = None) -> Callable:
     if family not in _FAMILIES:
         raise ValueError(f"no weight bridge for family '{family}'; known: {FAMILIES}")
-    return _FAMILIES[family][direction]
+    fn = _FAMILIES[family][direction]
+    return partial(fn, head=head) if family in _HEADED else fn
+
+
+def _head_of_tree(params: Mapping, family: str) -> int | None:
+    """The head's index in ``features`` for a Flax tree: one past its last
+    block (MobileNetV2) or stage (EfficientNet)."""
+    if family == "mobilenet":
+        return 1 + max(int(m[1]) for k in params if (m := re.fullmatch(r"block(\d+)", k)))
+    if family == "efficientnet":
+        return 1 + max(int(m[1]) for k in params
+                       if (m := re.fullmatch(r"stage(\d+)_block\d+", k)))
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -211,7 +368,7 @@ def from_jax_variables(variables: Mapping[str, Any], family: str) -> dict[str, t
     """``{"params", "batch_stats"}`` Flax tree of numpy arrays (or torch
     tensors) -> a torch state dict for the port's model of ``family``.
     Array dtypes are kept.  Raises on any key it cannot map."""
-    to_torch = _paths(family, 0)
+    to_torch = _paths(family, 0, _head_of_tree(variables.get("params", {}), family))
     sd: dict[str, torch.Tensor] = {}
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
@@ -232,6 +389,8 @@ def from_jax_variables(variables: Mapping[str, Any], family: str) -> dict[str, t
                 put(f"{to_torch(module)}.{'weight' if leaf == 'kernel' else 'bias'}", t)
         elif family == "vit" and not module and leaf in ("class_token", "pos_embedding"):
             put(leaf if leaf == "class_token" else "encoder.pos_embedding", t)
+        elif family == "convnext" and leaf == "layer_scale" and t.ndim == 1:
+            put(f"{to_torch(module)}.{leaf}", t.reshape(-1, 1, 1))  # [C] -> [C,1,1]
         elif family == "swin" and leaf == "relative_position_bias_table" and t.ndim == 2:
             put(f"{to_torch(module)}.{leaf}", t)
             sd[f"{to_torch(module)}.relative_position_index"] = _relative_position_index(
@@ -265,7 +424,7 @@ def to_jax_variables(model: torch.nn.Module, family: str) -> dict[str, dict]:
     bfloat16 tensors are written as float32 (exactly), the dtype of Flax's
     parameters; a family without BatchNorm has no ``batch_stats``, as its
     Flax module has none."""
-    to_flax = _paths(family, 1)
+    to_flax = _paths(family, 1, len(model.features) - 1 if family in _HEADED else None)
     tree: dict[str, dict] = {"params": {}, "batch_stats": {}}
 
     def put(collection: str, path: tuple[str, ...], t: torch.Tensor) -> None:
@@ -296,6 +455,8 @@ def to_jax_variables(model: torch.nn.Module, family: str) -> dict[str, dict]:
         path = to_flax(module)
         if leaf == "relative_position_bias_table":
             put("params", path + (leaf,), t)
+        elif leaf == "layer_scale":  # ConvNeXt's [C,1,1] -> Flax's [C]
+            put("params", path + (leaf,), t.reshape(-1))
         elif leaf == "weight" and t.ndim == 4:
             put("params", path + ("kernel",), t.permute(2, 3, 1, 0))
         elif leaf == "weight" and t.ndim == 2:

@@ -1,7 +1,13 @@
-"""Model registry and weight resolution (port of ``models/zoo.py``, the
-``resnet50``, ``resnet50_robust``, ``resnet_tiny`` and ``tiny`` entries, the
-transfer study's ``vgg19``, ``densenet121``, ``vit_b_16`` and ``swin_t``, and
-the certified family's ``ibp_cnn7`` and ``ibp_tiny``).
+"""Model registry and weight resolution (port of ``models/zoo.py``: all 18
+of its names, the ``resnet50``, ``resnet50_robust``, ``resnet_tiny`` and
+``tiny`` entries, the transfer study's ``vgg19``, ``densenet121``,
+``vit_b_16``, ``swin_t``, ``efficientnet_b0``, ``mobilenet_v2`` and
+``convnext_tiny``, the CIFAR family's ``wrn28_10``, ``wrn34_10``,
+``wrn_tiny``, ``preact_resnet18`` and ``wrn28_10_robust``, and the certified
+family's ``ibp_cnn7`` and ``ibp_tiny``).  ``model_meta`` gives each name the
+JAX zoo's input size and normalization: 32x32 and the CIFAR-10 statistics
+for the CIFAR family (mean 0 / std 1 for ``wrn28_10_robust`` and the IBP
+nets), 224x224 and the ImageNet statistics otherwise.
 
 Weight resolution for ``load_model(name)``, the JAX zoo's order:
 
@@ -23,7 +29,8 @@ The random init draws Flax's default distributions (LeCun-normal kernels,
 the packed qkv projection's with fan-in D; unit BatchNorm and LayerNorm
 scale, unit BatchNorm variance; zero biases and means; ViT's class token
 zero; ViT's position embedding and Swin's relative position bias table
-normal with standard deviation 0.02), but not Flax's bits: ``PRNGKey(0)``
+normal with standard deviation 0.02; ConvNeXt's layer scale the constant
+1e-6), but not Flax's bits: ``PRNGKey(0)``
 cannot be reproduced without JAX.  To run the JAX package's exact weights,
 carry them across with ``models.convert.from_jax_variables``.
 
@@ -55,17 +62,23 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..core.constants import IMAGE_SIZE, IMAGENET_MEAN, IMAGENET_STD
+from ..core.constants import (CIFAR10_MEAN, CIFAR10_STD, IMAGE_SIZE, IMAGENET_MEAN,
+                              IMAGENET_STD)
 from ..core.device import resolve_device
 from .convert import from_jax_variables, load_torch_checkpoint
+from .convnext import CNBlock, convnext_tiny
 from .densenet import densenet121
+from .efficientnet import efficientnet_b0
 from .flax_msgpack import read_variables
 from .ibp import IBPNet, ibp_cnn7, ibp_tiny
+from .mobilenet import mobilenet_v2
+from .preactresnet import preact_resnet18
 from .resnet import FrozenBatchNorm2d, resnet50, resnet_tiny
 from .swin import WindowAttention, swin_t
 from .tiny import TinyCNN
 from .vgg import vgg19
 from .vit import Encoder, LayerNorm, SelfAttention, ViT, vit_b_16
+from .wideresnet import wrn28_10, wrn34_10, wrn_tiny
 
 
 @dataclass
@@ -96,6 +109,17 @@ _REGISTRY: dict[str, tuple[str, Callable[..., nn.Module]]] = {
     "densenet121": ("densenet", densenet121),
     "vit_b_16": ("vit", vit_b_16),
     "swin_t": ("swin", swin_t),
+    "efficientnet_b0": ("efficientnet", efficientnet_b0),
+    "mobilenet_v2": ("mobilenet", mobilenet_v2),
+    "convnext_tiny": ("convnext", convnext_tiny),
+    # the small-image (CIFAR) family, 10 classes by default
+    "wrn28_10": ("wideresnet", wrn28_10),
+    "wrn34_10": ("wideresnet", wrn34_10),
+    "wrn_tiny": ("wideresnet", wrn_tiny),
+    "preact_resnet18": ("preactresnet", preact_resnet18),
+    # the RobustBench-style robust arm: wrn28_10's architecture with its own
+    # weights file, reading raw [0,1] pixels (identity normalization, _META)
+    "wrn28_10_robust": ("wideresnet", wrn28_10),
     # the certified family: plain conv/relu/dense stacks whose worst-case
     # logits under an L-inf ball are bounded in closed form (defenses/ibp.py)
     "ibp_cnn7": ("ibp", ibp_cnn7),
@@ -103,9 +127,16 @@ _REGISTRY: dict[str, tuple[str, Callable[..., nn.Module]]] = {
 }
 
 # Per-model defaults beyond the ImageNet-224 convention (input_size, mean,
-# std).  The IBP nets read raw [0,1] pixels at 32x32: identity
-# normalization keeps a certified eps in pixel units.
+# std).  The CIFAR family reads 32x32 with the CIFAR-10 statistics; the
+# robust WRN arm and the IBP nets read raw [0,1] pixels at 32x32 (identity
+# normalization keeps an eps in pixel units).
 _META: dict[str, dict] = {
+    "wrn28_10": {"input_size": 32, "mean": CIFAR10_MEAN, "std": CIFAR10_STD},
+    "wrn34_10": {"input_size": 32, "mean": CIFAR10_MEAN, "std": CIFAR10_STD},
+    "wrn_tiny": {"input_size": 32, "mean": CIFAR10_MEAN, "std": CIFAR10_STD},
+    "preact_resnet18": {"input_size": 32, "mean": CIFAR10_MEAN, "std": CIFAR10_STD},
+    "wrn28_10_robust": {"input_size": 32, "mean": np.zeros(3, np.float32),
+                        "std": np.ones(3, np.float32)},
     "ibp_cnn7": {"input_size": 32, "mean": np.zeros(3, np.float32),
                  "std": np.ones(3, np.float32)},
     "ibp_tiny": {"input_size": 32, "mean": np.zeros(3, np.float32),
@@ -175,6 +206,8 @@ def random_init_(model: nn.Module) -> nn.Module:
             m.pos_embedding.normal_(0.0, 0.02, generator=g)
         elif isinstance(m, WindowAttention):
             m.relative_position_bias_table.normal_(0.0, 0.02, generator=g)
+        elif isinstance(m, CNBlock):
+            m.layer_scale.fill_(1e-6)
     return model
 
 

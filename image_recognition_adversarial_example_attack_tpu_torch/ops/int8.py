@@ -39,7 +39,12 @@ construction (``int8_linear`` contracts the input's last axis with the
 weight's; the attention score products are not routed here and stay float,
 as in the JAX models), so that branch has nothing to reach.
 
-Grouped and dilated convolutions raise: no ported family has one.
+Grouped and dilated convolutions raise: no family quantizes one.  The
+depthwise convs of MobileNetV2, EfficientNet and ConvNeXt, and
+EfficientNet's squeeze-excite convs, stay float in int8 mode, as the JAX
+families leave them unhooked.  A Dense layer's input may have any rank
+(ConvNeXt's MLP reads [B, H, W, C]): one activation scale per example over
+every axis but the leading one.
 
 ``CALLS`` counts the quantized ops' forward calls (on any device), so a run
 can show how many of a model's layers went through them.
@@ -195,7 +200,7 @@ def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, stride=1, padding=0,
     its gradient is the float convolution's at the same point."""
     if int(groups) != 1:
         raise ValueError("int8_conv2d: grouped convolutions are not supported "
-                         f"(groups={groups}); no ported family has one")
+                         f"(groups={groups}); no family quantizes one")
     if _pair(dilation) != (1, 1):
         raise ValueError(f"int8_conv2d: dilation {dilation} is not supported")
     CALLS["conv"] += 1

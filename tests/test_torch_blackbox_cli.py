@@ -6,8 +6,8 @@ and read the same three images.  Their random draws differ, so the counts
 may differ; the parsers, the console formats, the JSON keys and every
 number that does not depend on a draw (the budgets, the query axes, the
 counts of images) agree.  Then the port alone: ``--save_adv_dir``,
-``--plot``, streaming past ``--max_batch``, and ``--cifar10_dir`` refused
-before any device work.
+``--plot``, streaming past ``--max_batch``, and ``--cifar10_dir`` beside
+``--imagenet_val_dir`` refused before any device work.
 """
 
 import io
@@ -141,10 +141,12 @@ def test_robust_eval_streams_past_max_batch(setup):
 
 
 def test_robust_eval_refuses_cifar10_before_any_device_work(setup):
-    """Asked for the card (absent here): the refusal comes first."""
-    with pytest.raises(SystemExit, match="Queue 1 item 6"):
+    """``--cifar10_dir`` is ported (tests/test_torch_cifar_cli.py); beside
+    ``--imagenet_val_dir`` it is refused, as by the JAX CLI, and asked for
+    the card (absent here) the refusal comes first."""
+    with pytest.raises(SystemExit, match="at most one of --imagenet_val_dir / --cifar10_dir"):
         robust_eval.main([*setup["base"], "--cifar10_dir", str(setup["root"]),
-                          "--device", "cuda"])
+                          "--imagenet_val_dir", str(setup["images"]), "--device", "cuda"])
 
 
 def _qc_table(text: str) -> tuple[str, dict[str, list[str]]]:

@@ -839,3 +839,54 @@ def test_squeezing_cell_launches_quantize_once_on_the_stacked_batch(cuda):
     assert ew.LAUNCHES["quantize"] == before + 1 and 0.0 <= r.auc <= 1.0
     stacked = torch.cat([x, x_adv]) * 1.2 - 0.1
     assert torch.equal(ew.quantize(stacked, 16), ew.quantize_plain(stacked, 16))
+
+
+# the test-scale variants of the CIFAR and lightweight families: (module, constructor)
+TINY_FAMILIES = {
+    "wrn_tiny": ("wideresnet", "wrn_tiny"),
+    "preact_tiny": ("preactresnet", None),
+    "mobilenet_tiny": ("mobilenet", "mobilenet_tiny"),
+    "efficientnet_tiny": ("efficientnet", "efficientnet_tiny"),
+    "convnext_micro": ("convnext", "convnext_micro"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TINY_FAMILIES))
+def test_cifar_and_light_families_float32_on_the_card_match_the_cpu(cuda, name):
+    """Each tiny variant, the same seeded weights (norm statistics and layer
+    scales moved off their init): float32 logits at 32x32 on the card (TF32
+    off, as load_model sets it) within 1e-5 of the largest CPU logit."""
+    import importlib
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import make_logits_fn
+    from image_recognition_adversarial_example_attack_tpu_torch.core.constants import (
+        CIFAR10_MEAN, CIFAR10_STD)
+    from image_recognition_adversarial_example_attack_tpu_torch.models import zoo
+
+    module, ctor = TINY_FAMILIES[name]
+    mod = importlib.import_module(
+        f"image_recognition_adversarial_example_attack_tpu_torch.models.{module}")
+    model = (mod.PreActResNet(stage_sizes=(1, 1, 1, 1)) if ctor is None
+             else getattr(mod, ctor)())
+    zoo.random_init_(model).requires_grad_(False).eval()
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for key, t in model.state_dict().items():
+            if key.endswith(("running_var", "layer_scale")) or (t.ndim == 1 and "weight" in key):
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+            elif key.endswith(("running_mean", "bias")):
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+    x = torch.rand((4, 32, 32, 3), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = make_logits_fn(model, CIFAR10_MEAN, CIFAR10_STD)(x)
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card = model.to(cuda, memory_format=torch.channels_last)
+        with torch.no_grad():
+            got = make_logits_fn(card, CIFAR10_MEAN, CIFAR10_STD)(x.to(cuda)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    assert got.shape == want.shape == (4, 10)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale

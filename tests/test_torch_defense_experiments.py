@@ -138,12 +138,11 @@ def test_labels_json_range_is_checked(image_dir, tmp_path):
 
 
 def test_parser_keeps_the_jax_flags_of_the_ported_attacks():
-    """The same flags and defaults as the JAX CLI (the extended-attack flags
-    and --square_steps included), less the options of unported paths, plus
-    --device."""
+    """The same flags and defaults as the JAX CLI (the extended-attack flags,
+    --square_steps and the --cifar10_* options included), plus --device."""
     from image_recognition_adversarial_example_attack_tpu.cli import defense_experiments as jx
 
-    left_out = {"cifar10_dir", "cifar10_split", "cifar10_n"}
+    left_out = set()
     ours = {a.dest: a.default for a in build_parser()._actions}
     theirs = {a.dest: a.default for a in jx.build_parser()._actions}
     assert set(ours) - set(theirs) == {"device"}

@@ -27,6 +27,8 @@ import torch.nn.functional as F
 from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.ops import int8 as jax_int8
 from image_recognition_adversarial_example_attack_tpu_torch.models import zoo
+from image_recognition_adversarial_example_attack_tpu_torch.models.efficientnet import (
+    SqueezeExcite)
 from image_recognition_adversarial_example_attack_tpu_torch.models.convert import (
     to_jax_variables)
 from image_recognition_adversarial_example_attack_tpu_torch.ops import int8
@@ -94,8 +96,9 @@ def test_int8_conv2d_is_bit_equal(xs, ws, stride, pad, dtype):
 
 
 # (input, Dense kernel [K, N]): a [B,K] head, ViT's [B,T,K] tokens, Swin's
-# [B*nW, 49, C] windows
-LINEARS = [((5, 16), (16, 24)), ((2, 5, 32), (32, 64)), ((8, 49, 16), (16, 48))]
+# [B*nW, 49, C] windows, ConvNeXt's NHWC [B,H,W,C] MLP input
+LINEARS = [((5, 16), (16, 24)), ((2, 5, 32), (32, 64)), ((8, 49, 16), (16, 48)),
+           ((2, 3, 3, 8), (8, 32))]
 
 
 @pytest.mark.parametrize("xs,ws", LINEARS)
@@ -177,6 +180,8 @@ def test_grouped_and_dilated_convolutions_raise():
     x = torch.zeros(1, 4, 6, 6)
     with pytest.raises(ValueError, match="grouped"):
         int8.int8_conv2d(x, torch.zeros(4, 2, 3, 3), 1, 1, groups=2)
+    with pytest.raises(ValueError, match="no family quantizes one"):
+        int8.int8_conv2d(x, torch.zeros(4, 1, 3, 3), 1, 1, groups=4)
     with pytest.raises(ValueError, match="dilation"):
         int8.int8_conv2d(x, torch.zeros(4, 4, 3, 3), 1, 2, dilation=2)
     with pytest.raises(ValueError, match="explicit integer padding"):
@@ -203,8 +208,13 @@ def test_quantized_layers_add_the_bias_after_the_product():
 @pytest.mark.parametrize("name", zoo.list_models())
 def test_int8_keeps_the_parameter_tree(name):
     """The same state-dict keys and shapes, the hooked layers quantized
-    (built on the meta device: no weights allocated).  The IBP nets have no
-    int8 mode, as in the JAX package: they refuse it."""
+    (built on the meta device: no weights allocated).  The float layers
+    left are exactly the ones the JAX families leave unhooked: the grouped
+    (depthwise) convs of MobileNetV2, EfficientNet and ConvNeXt and
+    EfficientNet's squeeze-excite convs; every other conv and Linear is
+    quantized (the hooked set against JAX's own, layer by layer:
+    tests/test_torch_cifar_families.py).  The IBP nets have no int8 mode,
+    as in the JAX package: they refuse it."""
     if zoo.model_family(name) == "ibp":
         with pytest.raises(ValueError, match="does not support int8"):
             zoo.build_model(name, int8=True)
@@ -215,8 +225,17 @@ def test_int8_keeps_the_parameter_tree(name):
     assert list(a) == list(b)
     assert all(a[k].shape == b[k].shape for k in a)
     n_quant = sum(isinstance(m, (int8.QuantConv2d, int8.QuantLinear)) for m in quant.modules())
-    n_float = sum(type(m) in (torch.nn.Conv2d, torch.nn.Linear) for m in quant.modules())
-    assert n_quant > 0 and n_float == 0
+    left_float = {n for n, m in quant.named_modules()
+                  if type(m) in (torch.nn.Conv2d, torch.nn.Linear)}
+    squeeze_excite = {f"{n}.{c}" for n, m in plain.named_modules()
+                      if isinstance(m, SqueezeExcite) for c in ("fc1", "fc2")}
+    grouped = {n for n, m in plain.named_modules()
+               if isinstance(m, torch.nn.Conv2d) and m.groups > 1}
+    assert n_quant > 0 and left_float == grouped | squeeze_excite
+    assert all(quant.get_submodule(n).groups == quant.get_submodule(n).in_channels
+               for n in grouped)  # depthwise
+    assert bool(grouped) == (zoo.model_family(name) in ("mobilenet", "efficientnet", "convnext"))
+    assert bool(squeeze_excite) == (zoo.model_family(name) == "efficientnet")
 
 
 def test_int8_weights_load_through_msgpack_and_random_init(tmp_path):

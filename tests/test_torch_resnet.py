@@ -163,7 +163,7 @@ def test_zoo_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_model("resnet_tiny")
     with pytest.raises(ValueError, match="unknown model"):
-        load_model("mobilenet_v2", device="cpu")  # not ported yet
+        load_model("mobilenet_v3", device="cpu")  # not a registered name
 
 
 def test_batchnorm_ignores_train_mode(tiny64):

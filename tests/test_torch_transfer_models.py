@@ -209,7 +209,10 @@ def test_full_width_shapes_match_the_jax_init(name):
 def test_n_classes_of_every_registered_family(name):
     with torch.device("meta"):
         model = zoo.build_model(name)
-    assert n_classes_of(model) == (10 if name in ("resnet_tiny", "ibp_cnn7", "ibp_tiny")
+    # the CIFAR family defaults to 10 classes, as the JAX constructors do
+    assert n_classes_of(model) == (10 if name in ("resnet_tiny", "ibp_cnn7", "ibp_tiny",
+                                                  "wrn28_10", "wrn34_10", "wrn_tiny",
+                                                  "preact_resnet18", "wrn28_10_robust")
                                    else 1000)
 
 
