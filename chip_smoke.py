@@ -168,25 +168,26 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    (deepfool's cell computed once), one quantize launch a computed cell,
    and the noise of apgd, fab and pgd_l1.
 19. black-box -- ResNet-50 bf16, random weights, pseudo-labels: (a) at
-   batch 128, square (500 steps), square_l2 (500 steps, eps 3), simba in the
-   dct and the pixel basis (300 steps) and bandits (100 steps); (b) at batch
+   batch 128, square (250 steps), square_l2 (250 steps, eps 3), simba in the
+   dct and the pixel basis (150 steps) and bandits (50 steps); (b) at batch
    32, nes and spsa (10 steps of 32 probe pairs), hsja at its defaults and
-   boundary (200 steps): each in its threat model (the L∞ or L2 ball, or
+   boundary (100 steps) (the steps of (a) and boundary's halved to make room
+   for phase 23, printed): each in its threat model (the L∞ or L2 ball, or
    [0,1] alone for simba, hsja and boundary), ex/s and queries/s, exactly
    ``steps`` pgd_step launches for nes, spsa and bandits and none else,
    rerun from the same generator bit-equal; the EOT wrapper's host read
    (wrapped calls against the same calls with no read); (c) the robust_eval
    CLI in three subprocesses started together, ``--protocol lite``,
    ``standard`` and ``rand`` at two eps on 32 PNGs, budgets cut to
-   ``--apgd_steps 10 --square_steps 200 --fab_steps 10 --n_target_classes 3
+   ``--apgd_steps 10 --square_steps 100 --fab_steps 10 --n_target_classes 3
    --deepfool_steps 10 --eot_samples 4`` (printed): the console lines, the
    JSON and the ``--plot`` figure; then in this process
    ``stream_robust_cell`` over 64 PNGs in chunks of 32 (the standard
    protocol) equal to one resident run a chunk under its generator, with
    exactly 1 + 2 x 3 noise launches a chunk; (d) the query_curves CLI in
-   this process with the six curve attacks at ``--max_queries 250`` on 32
+   this process with the six curve attacks at ``--max_queries 125`` on 32
    PNGs (cut from 500 to keep the script's time; printed), one batch then
-   streamed in chunks of 16 (131 pgd_step launches a pass over the images),
+   streamed in chunks of 16 (64 pgd_step launches a pass over the images),
    the streamed curves equal to the curves assembled
    from resident runs of each chunk; (e) the grid CLI on 128 PNGs and the
    attack_suite CLI on 32, in this process, with ``--attacks square simba
@@ -250,6 +251,34 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    --attacks fgsm pgd --model-dtype bfloat16``, in a subprocess that
    prints its launches, with (e) ``robust_eval --cifar10_dir`` on 32 of the
    images at cut budgets in this process meanwhile.
+23. train -- adversarial and certified training, random weights: (a)
+   PGD-AT on ResNet-50 bf16 at the training CLI's defaults (batch 32, PGD-7,
+   lr 1e-4, AdamW, frozen BatchNorm), float32 master weights: ms a step and
+   ex/s over 10 steps after a warm-up, peak memory, exactly 7 pgd_step and
+   1 noise launches a step, one step profiled by layer; pgd_step bit-exact
+   (both signs, sign(0) entries) and the noise in distribution at
+   [32,224,224,3], outside the counted run; one float32 step
+   (attack_steps 0) at batch 2 on the card against the CPU, TF32 off: the
+   gradient within 1e-4 of its largest entry, at most 0.1% of the AdamW
+   update's entries beyond 1e-3 lr; (b) the adversarial_train CLI at
+   ResNet-50's defaults on 128 PNGs in 4 class folders, 2 epochs,
+   ``--eval_attack_steps 10 --ema_decay 0.999``: in RAM, ``--streaming``
+   and a 1-epoch run in three subprocesses started together, then
+   ``--resume`` of the last to 2 epochs: the streamed loss per epoch within
+   1e-3 of the in-RAM run's, the streamed and resumed parameters within
+   1e-3 of the distance the straight run moved them (planted faults read
+   6.8e-2 and more, ``scripts/train_fault_readings.py``), the exported
+   msgpack reloaded by
+   ``load_model`` to the logits of the checkpoint's EMA parameters; (c) the
+   CLI in this process, ``--model wrn28_10 --train_bn --augment crop-flip
+   --objective trades`` at batch 128 on a 512-image CIFAR-10 archive: 7
+   pgd_step launches a step, precise-BN moving all 25 running statistics,
+   the export loading; (d) MART and free-AT on WRN-28-10 bf16 (train_bn),
+   IBP and CROWN-IBP on ibp_cnn7 float32, batch 128, 3 steps each, losses,
+   launches and the verified accuracy at the ramp's eps.  The 13 training
+   cuda tests of ``tests/test_torch_cuda.py`` run in a subprocess beside
+   (b) (every objective's float32 step on the card against the CPU's
+   float64 one, with the card's draws and PGD iterates replayed).
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -260,6 +289,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2576,24 +2606,24 @@ def phase_white_box_zoo(state: dict, pngs: list[Path]) -> dict:
 # fields, eps, pgd_step launches, queries a sample); (b) at batch 32, the
 # decision-based and gradient-estimating ones
 BB_A = {
-    "square": ({"square_steps": 500}, EPS, 0, 502),
-    "square_l2": ({"square_steps": 500, "eps": 3.0}, 3.0, 0, 502),
-    "simba": ({"simba_steps": 300}, EPS, 0, 601),
-    "simba_pixel": ({"simba_steps": 300, "simba_mode": "pixel"}, EPS, 0, 601),
-    "bandits": ({"bandits_steps": 100}, EPS, 100, 200),
+    "square": ({"square_steps": 250}, EPS, 0, 252),
+    "square_l2": ({"square_steps": 250, "eps": 3.0}, 3.0, 0, 252),
+    "simba": ({"simba_steps": 150}, EPS, 0, 301),
+    "simba_pixel": ({"simba_steps": 150, "simba_mode": "pixel"}, EPS, 0, 301),
+    "bandits": ({"bandits_steps": 50}, EPS, 50, 100),
 }
 BB_B = {
     "nes": ({"steps": 10, "est_samples": 32}, 10, 640),
     "spsa": ({"steps": 10, "est_samples": 32}, 10, 640),
     "hsja": ({}, 0, 12 + 10 * (10 + 32 + 10 + 1)),  # its defaults: 10 steps, 32 probes
-    "boundary": ({"boundary_steps": 200}, 0, 12 + 2 * 200),
+    "boundary": ({"boundary_steps": 100}, 0, 12 + 2 * 100),
 }
 BB_B_BATCH, RE_N, RE_STREAM_N, RE_CHUNK, QC_N, QC_CHUNK = 32, 32, 64, 32, 32, 16
 RE_EPS = ("0.0157", "0.0314")
 # robust_eval's budgets, cut (printed) to keep the phase near two minutes;
 # AutoAttack's defaults are 100 / 5000 / 100 / 9 (30 deepfool steps, 20 EOT
 # draws)
-RE_CUT = ("--apgd_steps", "10", "--square_steps", "200", "--fab_steps", "10",
+RE_CUT = ("--apgd_steps", "10", "--square_steps", "100", "--fab_steps", "10",
           "--n_target_classes", "3", "--deepfool_steps", "10", "--eot_samples", "4")
 RE_ARMS = {"lite": ("apgd", "square", "deepfool"),
            "standard": ("apgd_ce", "apgd_t", "fab", "square"),
@@ -2601,9 +2631,15 @@ RE_ARMS = {"lite": ("apgd", "square", "deepfool"),
 RE_KEYS = {"protocol", "norm", "eot_samples", "eot_sigma", "apgd_steps", "square_steps",
            "deepfool_steps", "fab_steps", "n_target_classes", "results"}
 RE_LINE = r"^eps=\d\.\d{5}: robust_acc=\d\.\d{3} \((\w+ \d+/\d+ ?)+\)  \[\d+\.\ds\]$"
-# the curves' query budget, cut from 500 to keep the script well
-# inside its time limit once phase 20 was added
-QC_QUERIES = 250
+# the curves' query budget, cut from 500 to 250 to keep the script well
+# inside its time limit once phase 20 was added, and to 125 for phase 23
+QC_QUERIES = 125
+# phase 19's budgets, halved to make room for phase 23 (printed): (a)'s
+# square, square_l2, simba and bandits steps, boundary's, robust_eval's
+# --square_steps and the curves' queries; every check and rerun stays
+BB_TRIM = ("square 500 -> 250, square_l2 500 -> 250, simba and simba_pixel 300 -> 150, "
+           "bandits 100 -> 50, boundary 200 -> 100, robust_eval --square_steps 200 -> 100, "
+           "query_curves --max_queries 250 -> 125")
 # the cuda tests of the black-box group (tests/test_torch_cuda.py), run by
 # phase 19 in a subprocess; tests/conftest.py configures jax, so it is left out
 BB_CUDA_TESTS = ("test_black_box_attacks_on_the_card or test_black_box_draws_are_made_on_the_card"
@@ -2820,23 +2856,42 @@ def _query_curves(lf, img32: Path, pngs: list[Path], tmp: Path, dev) -> dict:
     return res
 
 
-def _black_box_cuda_tests() -> dict:
-    """The black-box group's cuda tests in a subprocess: every one passes."""
+def _start_cuda_tests(expr: str) -> tuple:
+    """The cuda tests of ``tests/test_torch_cuda.py`` that ``expr`` selects,
+    started in a subprocess: (the process, its start time)."""
+    cmd = [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py", "-m", "cuda",
+           "--noconftest", "-q", "-p", "no:cacheprovider", "-k", expr]
+    return (subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True), time.perf_counter())
+
+
+def _finish_cuda_tests(tag: str, started: tuple, count: int) -> dict:
+    """Wait for ``_start_cuda_tests``'s process: all ``count`` tests pass."""
     import re
 
-    cmd = [sys.executable, "-m", "pytest", "tests/test_torch_cuda.py", "-m", "cuda",
-           "--noconftest", "-q", "-p", "no:cacheprovider", "-k", BB_CUDA_TESTS]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
     seconds = time.perf_counter() - t0
-    tail = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    tail = out.strip().splitlines()[-1] if out.strip() else ""
     passed = re.search(r"(\d+) passed", tail)
-    if (proc.returncode != 0 or passed is None or int(passed[1]) != BB_CUDA_TEST_COUNT
+    if (proc.returncode != 0 or passed is None or int(passed[1]) != count
             or re.search(r"failed|skipped|error", tail)):
-        raise AssertionError(f"the black-box cuda tests: exit {proc.returncode}, {tail}\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
-    log(f"[black-box] cuda tests (subprocess): {tail} in {seconds:.1f} s")
+        raise AssertionError(f"the {tag} cuda tests: exit {proc.returncode}, {tail}\n"
+                             f"{out[-3000:]}\n{err[-2000:]}")
+    log(f"[{tag}] cuda tests (subprocess): {tail} in {seconds:.1f} s")
     return {"seconds": seconds, "summary": tail}
+
+
+def _cuda_tests(tag: str, expr: str, count: int) -> dict:
+    return _finish_cuda_tests(tag, _start_cuda_tests(expr), count)
+
+
+def _black_box_cuda_tests() -> dict:
+    """The black-box group's cuda tests in a subprocess: every one passes."""
+    return _cuda_tests("black-box", BB_CUDA_TESTS, BB_CUDA_TEST_COUNT)
 
 
 def phase_black_box(state: dict, pngs: list[Path]) -> dict:
@@ -2873,6 +2928,7 @@ def phase_black_box(state: dict, pngs: list[Path]) -> dict:
             f"{rec['queries_per_s']:.0f} queries/s")
         res[group][name] = rec
 
+    log(f"[black-box] cut (room for phase 23): {BB_TRIM}")
     # (a) batch 128
     for name, (fields, eps, pgd, queries) in BB_A.items():
         run_one("a", name, fields, eps, pgd, queries, x, y)
@@ -4087,6 +4143,435 @@ def phase_cifar(card: str) -> dict:
     return res
 
 
+# phase 23: (a) PGD-AT on ResNet-50 in process, (b) the adversarial_train CLI
+# on ResNet-50's defaults, (c) WRN-28-10 from scratch (TRADES, train_bn,
+# crop-flip) through the CLI in process, (d) MART, free-AT, IBP and CROWN-IBP
+TRAIN_B, TRAIN_PGD, TRAIN_TIMED, TRAIN_LR = 32, 7, 10, 1e-4  # the CLI's defaults
+TRAIN_PNGS, TRAIN_CLASSES = 128, 4
+WRN_TRAIN_B, WRN_TRAIN_N, OBJ_STEPS, FREE_REPLAYS = 128, 512, 3, 4
+# card vs CPU, one float32 step of ResNet-50 at batch 2 (attack_steps 0): the
+# gradient (AdamW's first moment is 0.1 x the gradient) within GRAD_REL_TOL of
+# its largest entry; AdamW's first update is +-lr wherever |g| >> its eps, so
+# an entry whose gradient is within float32 noise of zero may take the other
+# sign: at most UPDATE_FLIP_FRAC of the entries differ by more than 1e-3 lr
+GRAD_REL_TOL, UPDATE_FLIP_FRAC = 1e-4, 1e-3
+# the CLI on the card: the streamed run's loss per epoch is held to the
+# in-RAM run's within CLI_LOSS_REL (relative), and the streamed and resumed
+# runs' parameters to the straight run's within RESUME_REL of the distance
+# the straight run moved them.  scripts/train_fault_readings.py read, on an
+# H100 with these data and flags: 0 for the sound runs (bit-equal), and for
+# planted faults a resume replaying epoch 1's generators 6.8e-2, a resume
+# without AdamW's moments 3.6e-1, a stream shuffled with another seed 1.8e-1
+# (loss) and 6.2e-1 (parameters); each limit sits well below the smallest
+# fault and leaves room for a last-bit difference of cuDNN's algorithms
+CLI_LOSS_REL, RESUME_REL = 1e-3, 1e-3
+# the training cuda tests (tests/test_torch_cuda.py), run by phase 23 in a
+# subprocess: launches, the float32 CE step and calibration, augmentation,
+# and every objective card vs CPU with the card's draws and iterates replayed
+TRAIN_CUDA_TESTS = ("test_training_steps_on_the_card_launch_the_kernels or "
+                    "test_float32_training_step_on_the_card_matches_the_cpu or "
+                    "test_augmentation_on_the_card_equals_the_cpu or "
+                    "test_every_objective_on_the_card_matches_the_cpu")
+TRAIN_CUDA_TEST_COUNT = 13
+EPOCH_LINE = (r"^epoch (\d+)/(\d+): loss=(\S+) adv_acc=(\S+) clean_acc=(\S+)"
+              r"( ema_clean_acc=\S+)?( robust_acc@pgd\d+=\S+)?( verified_acc@\S+=\S+)?"
+              r" \((\S+) ex/s\)$")
+
+
+def _train_card_vs_cpu() -> dict:
+    """One float32 PGD-AT step (attack_steps 0: the CE step alone) of
+    ResNet-50 at batch 2 on the card and on the CPU from the same weights."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import chunk_generator
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.train.adversarial import (
+        AdvTrainConfig, make_train_step, train_state_from_bundle)
+
+    cfg = AdvTrainConfig(attack_steps=0, learning_rate=TRAIN_LR, weight_decay=1e-4)
+    rng = np.random.RandomState(5)
+    x, y = rng.rand(2, 224, 224, 3).astype(np.float32), np.array([3, 7])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        bundle = load_model("resnet50", dtype=torch.float32, device=dev)
+        state = train_state_from_bundle(bundle, cfg)
+        new, m = make_train_step(cfg, bundle.mean, bundle.std)(
+            state, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
+            chunk_generator(0, "train:0", 0))
+        out[dev] = ({k: v.cpu() for k, v in new.opt_state.mu.items()},
+                    {k: (new.params[k] - state.params[k]).cpu() for k in new.params},
+                    float(m["loss"]))
+        del bundle, state, new
+    (mu_g, up_g, loss_g), (mu_c, up_c, loss_c) = out["cuda"], out["cpu"]
+    scale = max(float(v.abs().max()) for v in mu_c.values())
+    grad_err = max(float((mu_g[k] - mu_c[k]).abs().max()) for k in mu_c) / scale
+    diff = torch.cat([(up_g[k] - up_c[k]).abs().flatten() for k in up_c])
+    flips = float((diff > 1e-3 * TRAIN_LR).float().mean())
+    rec = {"grad_rel_err": grad_err, "update_flip_frac": flips, "loss_card": loss_g,
+           "loss_cpu": loss_c, "update_max_diff": float(diff.max())}
+    if grad_err > GRAD_REL_TOL or flips > UPDATE_FLIP_FRAC or abs(loss_g - loss_c) > 1e-5 * abs(
+            loss_c):
+        raise AssertionError(f"float32 training step, card vs CPU: {rec}")
+    log(f"[train] float32 step card vs CPU (ResNet-50, batch 2, TF32 off): gradient within "
+        f"{grad_err:.2e} of its largest entry (limit {GRAD_REL_TOL:g}), AdamW update: "
+        f"{flips:.2e} of the entries beyond 1e-3 lr (limit {UPDATE_FLIP_FRAC:g}), loss "
+        f"{loss_g:.6f} / {loss_c:.6f}")
+    return rec
+
+
+def _train_kernels(x) -> dict:
+    """pgd_step and the noise kernel against their plain versions at the
+    shape PGD-AT gives them ([TRAIN_B,224,224,3]), outside the counted run:
+    pgd_step bit-exact untargeted and targeted, with sign(0) entries; the
+    noise's range, mean and variance."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    shape = tuple(x.shape)
+    gen = generator_from_seed(25, "cuda")
+    x0 = x.contiguous()
+    xa = torch.clamp(x0 + (torch.rand(shape, generator=gen, device="cuda") * 2 - 1) * EPS, 0, 1)
+    grad = torch.randn(shape, generator=gen, device="cuda")
+    grad.view(-1)[::7] = 0.0  # sign(0) = 0 must hold
+    for a in (ALPHA, -ALPHA):
+        k = ew.pgd_step(xa, grad, x0, EPS, a)
+        p = ew.pgd_step_plain(xa, grad if a > 0 else -grad, x0, EPS, abs(a))
+        if not torch.equal(k, p):
+            raise AssertionError(f"pgd_step at {list(shape)}, alpha {a}: max|diff| "
+                                 f"{float((k - p).abs().max())}")
+    noise = ew.uniform_noise(shape, EPS, generator_from_seed(26), "cuda").double()
+    eps32 = float(np.float32(EPS))
+    mean, var = float(noise.mean()), float(noise.var())
+    if not (float(noise.min()) >= -eps32 and float(noise.max()) <= eps32
+            and abs(mean) < 1e-2 * EPS and abs(var / (EPS ** 2 / 3) - 1) < 2e-2):
+        raise AssertionError(f"noise at {list(shape)}: range [{float(noise.min())}, "
+                             f"{float(noise.max())}], mean {mean}, var {var}")
+    log(f"[train] kernels at {list(shape)}: pgd_step bit-exact (alpha +-2/255, sign(0) "
+        f"entries), noise in range, mean {mean:.2e}, var/(eps^2/3) "
+        f"{var / (EPS ** 2 / 3):.4f}")
+    return {"pgd_step": "bit-exact", "noise_mean": mean, "noise_var_ratio": var / (EPS ** 2 / 3)}
+
+
+def _train_pgd_at() -> dict:
+    """(a) PGD-AT on ResNet-50 bf16 at the CLI's defaults (batch 32, PGD-7,
+    lr 1e-4, AdamW, frozen BatchNorm): ms a step and ex/s over 10 steps after
+    one warm-up, peak memory, exactly 7 pgd_step and 1 noise launches a
+    step, a profile of one step by layer; then card vs CPU."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import chunk_generator
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.train.adversarial import (
+        AdvTrainConfig, make_train_step, train_state_from_bundle)
+
+    bundle = load_model("resnet50", dtype=torch.float32)
+    cfg = AdvTrainConfig(eps=EPS, alpha=ALPHA, attack_steps=TRAIN_PGD, learning_rate=TRAIN_LR,
+                         weight_decay=1e-4)
+    state = train_state_from_bundle(bundle, cfg, torch.bfloat16)
+    step = make_train_step(cfg, bundle.mean, bundle.std)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.rand((TRAIN_B, 224, 224, 3), generator=g, device="cuda")
+    y = torch.randint(0, 1000, (TRAIN_B,), generator=g, device="cuda")
+    state, _ = step(state, x, y, chunk_generator(0, "train:0", 0))  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ew.reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for s in range(1, TRAIN_TIMED + 1):
+        state, m = step(state, x, y, chunk_generator(0, "train:0", s))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ew.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = {"pgd_step": TRAIN_PGD * TRAIN_TIMED, "quantize": 0, "uniform_noise": TRAIN_TIMED}
+    losses = [float(v) for v in losses]
+    finite = all(bool(torch.isfinite(p).all()) for p in state.params.values())
+    if counts != want or not finite or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"PGD-AT ResNet-50: launches {counts} (want {want}), losses "
+                             f"{losses}, parameters finite {finite}")
+    rec = {"ms_per_step": 1e3 * seconds / TRAIN_TIMED, "ex_per_s": TRAIN_B * TRAIN_TIMED / seconds,
+           "peak_gib": peak, "launches": counts, "losses": losses,
+           "grad_norm": float(m["grad_norm"]), "steps": state.step,
+           "kernels": _train_kernels(x)}
+    prof = profile_breakdown(lambda: step(state, x, y, chunk_generator(0, "train:0", 99)))
+    rec["profile"] = prof
+    log(f"[train] (a) PGD-AT ResNet-50 bf16, batch {TRAIN_B}, PGD-{TRAIN_PGD}, lr {TRAIN_LR:g}: "
+        f"{rec['ms_per_step']:.1f} ms a step, {rec['ex_per_s']:.1f} ex/s over {TRAIN_TIMED} "
+        f"steps after a warm-up, peak {peak:.2f} GiB; launches {counts}; loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    log(f"[train]   one step profiled: wall {prof['wall_ms']:.1f} ms, card busy "
+        f"{prof['busy_ms']:.1f} ms ({100 * prof['busy_share']:.1f}%), {prof['kernels']} "
+        "kernels; by layer " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                         list(prof["by_layer_ms"].items())[:8]))
+    del state, step, bundle, x
+    torch.cuda.empty_cache()
+    rec["card_vs_cpu"] = _train_card_vs_cpu()
+    return rec
+
+
+def _epoch_lines(out: str) -> list[tuple]:
+    import re
+
+    lines = [ln for ln in out.splitlines() if ln.startswith("epoch ")]
+    parsed = [re.match(EPOCH_LINE, ln) for ln in lines]
+    if not lines or not all(parsed):
+        raise AssertionError(f"adversarial_train epoch lines: {lines}\n{out[-2000:]}")
+    return [(int(p[1]), float(p[3]), float(p[9]), ln) for p, ln in zip(parsed, lines)]
+
+
+def _train_clis(tmp: Path) -> dict:
+    """(b) The adversarial_train CLI on ResNet-50's defaults over 128 PNGs in
+    4 class folders, 2 epochs, --eval_attack_steps 10 --ema_decay 0.999:
+    in RAM, --streaming and a 1-epoch run, three subprocesses started
+    together, then --resume of the 1-epoch run to 2 epochs."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import (
+        build_model, load_model)
+
+    data = tmp / "classes"
+    for k in range(TRAIN_CLASSES):
+        _write_pngs(data / f"class_{k}", TRAIN_PNGS // TRAIN_CLASSES, seed=30 + k)
+    common = ["--data_dir", str(data), "--eval_attack_steps", "10", "--ema_decay", "0.999"]
+    runs = {"in_ram": ["--epochs", "2", "--out", str(tmp / "ram.msgpack")],
+            "streaming": ["--epochs", "2", "--streaming", "--out", str(tmp / "stream.msgpack")],
+            "one_epoch": ["--epochs", "1", "--out", str(tmp / "resumed.msgpack")]}
+
+    def start(args):
+        cmd = [sys.executable, "-m", f"{PKG}.cli.adversarial_train", *common, *args]
+        return subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True), time.perf_counter()
+
+    def finish(name, proc, t0):
+        out, err = proc.communicate(timeout=900)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or "Using device: cuda" not in out:
+            raise AssertionError(f"adversarial_train {name}: exit {proc.returncode}\n"
+                                 f"{out[-3000:]}\n{err[-4000:]}")
+        return out, seconds
+
+    procs = {name: start(args) for name, args in runs.items()}
+    res = {}
+    for name, (proc, t0) in procs.items():
+        out, seconds = finish(name, proc, t0)
+        epochs = _epoch_lines(out)
+        res[name] = {"seconds": seconds, "epochs": epochs, "lines": [e[3] for e in epochs]}
+    out, seconds = finish("resume", *start(["--epochs", "2", "--resume", "--out",
+                                            str(tmp / "resumed.msgpack")]))
+    if "Resumed from" not in out or "continuing at epoch 2" not in out:
+        raise AssertionError(f"adversarial_train --resume:\n{out[-2000:]}")
+    res["resume"] = {"seconds": seconds, "epochs": _epoch_lines(out)}
+    res["resume"]["lines"] = [e[3] for e in res["resume"]["epochs"]]
+    ram, stream = res["in_ram"]["epochs"], res["streaming"]["epochs"]
+    loss_rel = max(abs(a[1] - b[1]) / abs(a[1]) for a, b in zip(ram, stream))
+    if ([e[0] for e in ram] != [1, 2] or [e[0] for e in stream] != [1, 2]
+            or loss_rel > CLI_LOSS_REL or [e[0] for e in res["resume"]["epochs"]] != [2]):
+        raise AssertionError(f"adversarial_train: in RAM {ram}, streamed {stream}, resumed "
+                             f"{res['resume']['epochs']}")
+    # the resumed run's state against the straight run's, from the .ckpt files
+    init = load_model("resnet50", dtype=torch.float32, device="cpu").model.state_dict()
+    # and the streamed run's, from the .ckpt files
+    a = torch.load(tmp / "ram.msgpack.ckpt", weights_only=True)
+    b = torch.load(tmp / "resumed.msgpack.ckpt", weights_only=True)
+    st = torch.load(tmp / "stream.msgpack.ckpt", weights_only=True)
+    moved = math.sqrt(sum(float(((a["params"][k] - init[k]) ** 2).sum()) for k in a["params"]))
+    apart, stream_apart = (math.sqrt(sum(float(((a["params"][k] - c["params"][k]) ** 2).sum())
+                                         for k in a["params"])) for c in (b, st))
+    if (a["step"] != 8 or b["step"] != 8 or st["step"] != 8 or apart > RESUME_REL * moved
+            or stream_apart > RESUME_REL * moved):
+        raise AssertionError(f"--resume: steps {a['step']} / {b['step']} / {st['step']}, "
+                             f"parameters apart {apart:.3e} (resumed), {stream_apart:.3e} "
+                             f"(streamed) of a move of {moved:.3e}")
+    # the export (EMA) reloads through load_model to the logits of the
+    # .ckpt's EMA parameters in memory
+    model = build_model("resnet50")
+    model.load_state_dict({**a["ema_params"], **a["extra_variables"]}, strict=True)
+    model = model.cuda().to(memory_format=torch.channels_last).eval()
+    loaded = load_model("resnet50", dtype=torch.float32, weights=tmp / "ram.msgpack")
+    xs = torch.from_numpy(np.random.RandomState(3).rand(4, 3, 224, 224).astype(np.float32)
+                          ).cuda().to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        want, got = model(xs), loaded.model(xs)
+    logit_err = float((got - want).abs().max() / want.abs().max())
+    if loaded.source != "cache" or logit_err > F32_REL_TOL:
+        raise AssertionError(f"the exported msgpack: source {loaded.source}, logits "
+                             f"{logit_err:.2e} from the EMA parameters'")
+    res.update({"stream_loss_rel": loss_rel, "resume_apart": apart, "resume_moved": moved,
+                "stream_apart": stream_apart, "export_logit_rel": logit_err})
+    for k in ("in_ram", "streaming", "one_epoch", "resume"):
+        res[k]["epochs"] = [list(e) for e in res[k]["epochs"]]
+    log(f"[train] (b) adversarial_train CLI, ResNet-50 defaults (batch {TRAIN_B}, PGD-"
+        f"{TRAIN_PGD}, bf16), {TRAIN_PNGS} PNGs in {TRAIN_CLASSES} classes, 2 epochs, "
+        "--eval_attack_steps 10 --ema_decay 0.999, three subprocesses started together: "
+        + ", ".join(f"{k} {res[k]['seconds']:.1f} s" for k in ("in_ram", "streaming",
+                                                                "one_epoch", "resume")))
+    for k in ("in_ram", "streaming", "resume"):
+        for ln in res[k]["lines"]:
+            log(f"[train]   {k}: {ln}")
+    log(f"[train]   streamed loss within {loss_rel:.2e} of the in-RAM run's (limit "
+        f"{CLI_LOSS_REL:g}); resumed parameters {apart:.3e} from the straight run's, "
+        f"{apart / moved:.2e} of their move {moved:.3e}, streamed "
+        f"{stream_apart / moved:.2e} (limit {RESUME_REL:g}); the export "
+        f"reloads to logits within {logit_err:.1e} of the EMA parameters'")
+    return res
+
+
+def _train_wrn_cli(tmp: Path) -> dict:
+    """(c) WRN-28-10 from scratch: TRADES, --train_bn, --augment crop-flip,
+    batch 128 on a 512-image archive, 1 epoch, through the CLI in this
+    process (7 pgd_step launches a step, no noise); precise-BN calibration
+    moves the running statistics; the export loads and runs."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import adversarial_train
+    from image_recognition_adversarial_example_attack_tpu_torch.models.flax_msgpack import (
+        read_variables)
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
+
+    root = tmp / "c10"
+    d = root / "cifar-10-batches-py"
+    d.mkdir(parents=True)
+    rng = np.random.RandomState(23)
+    with open(d / "data_batch_1", "wb") as f:
+        pickle.dump({b"data": rng.randint(0, 256, (WRN_TRAIN_N, 3072)).astype(np.uint8),
+                     b"labels": rng.randint(0, 10, WRN_TRAIN_N).tolist()}, f)
+    out_path = tmp / "wrn.msgpack"
+    out, seconds, counts = _in_process_cli(adversarial_train.main, [
+        "--cifar10_dir", str(root), "--model", "wrn28_10", "--train_bn", "--augment",
+        "crop-flip", "--objective", "trades", "--batch_size", str(WRN_TRAIN_B), "--epochs", "1",
+        "--out", str(out_path)])
+    steps = WRN_TRAIN_N // WRN_TRAIN_B
+    want = {"pgd_step": TRAIN_PGD * steps, "quantize": 0, "uniform_noise": 0}
+    stats = read_variables(out_path)["batch_stats"]
+    leaves = []
+
+    def walk(t):
+        for v in t.values():
+            walk(v) if isinstance(v, dict) else None
+        if "mean" in t:
+            leaves.append((float(np.abs(np.asarray(t["mean"])).max()),
+                           float(np.abs(np.asarray(t["var"]) - 1.0).max())))
+
+    walk(stats)
+    moved = min(max(m, v) for m, v in leaves)
+    bundle = load_model("wrn28_10", dtype=torch.bfloat16, weights=out_path)
+    xs = torch.rand((8, 3, 32, 32), device="cuda").to(memory_format=torch.channels_last)
+    with torch.no_grad():
+        logits = bundle.model(xs.to(torch.bfloat16)).float()
+    lines = _epoch_lines(out)
+    if (counts != want or "precise-BN sweep" not in out or len(leaves) != 25 or moved < 1e-3
+            or not bool(torch.isfinite(logits).all()) or len(lines) != 1):
+        raise AssertionError(f"WRN-28-10 TRADES --train_bn: launches {counts} (want {want}), "
+                             f"{len(leaves)} BatchNorms, least move {moved}:\n{out[-2000:]}")
+    rec = {"seconds": seconds, "launches": counts, "line": lines[0][3],
+           "ex_per_s": lines[0][2], "bn_layers": len(leaves), "least_stat_move": moved}
+    log(f"[train] (c) adversarial_train --model wrn28_10 --train_bn --augment crop-flip "
+        f"--objective trades, batch {WRN_TRAIN_B}, {WRN_TRAIN_N} images, 1 epoch (in process): "
+        f"{seconds:.1f} s; launches {counts} ({TRAIN_PGD} pgd_step a step); precise-BN moved "
+        f"all {len(leaves)} layers' running statistics (least {moved:.3f}); the export loads")
+    log(f"[train]   {lines[0][3]}")
+    return rec
+
+
+def _train_objectives() -> dict:
+    """(d) MART and free-AT on WRN-28-10 bf16 (train_bn, from scratch), IBP
+    and CROWN-IBP on ibp_cnn7 float32, batch 128, lr 1e-4, 3 steps each in
+    process, their losses and launches
+    (MART 7 pgd_step and 1 noise a step; free none; the bounds none); the
+    certified objectives ramp eps over 2 steps, so their third step reports
+    the verified accuracy at the full eps."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import chunk_generator
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.train.adversarial import (
+        AdvTrainConfig, make_free_step, make_ibp_step, make_mart_step, train_state_from_bundle)
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.rand((WRN_TRAIN_B, 32, 32, 3), generator=g, device="cuda")
+    y = torch.randint(0, 10, (WRN_TRAIN_B,), generator=g, device="cuda")
+    res = {}
+    for name in ("mart", "free", "ibp", "crown-ibp"):
+        certified = name in ("ibp", "crown-ibp")
+        cfg = AdvTrainConfig(eps=EPS, alpha=ALPHA, attack_steps=TRAIN_PGD,
+                             learning_rate=TRAIN_LR, free_replays=FREE_REPLAYS,
+                             train_bn=not certified, ibp_ramp_steps=2 if certified else 0,
+                             ibp_bound="crown" if name == "crown-ibp" else "ibp")
+        bundle = load_model("ibp_cnn7" if certified else "wrn28_10", dtype=torch.float32)
+        state = train_state_from_bundle(bundle, cfg,
+                                        torch.float32 if certified else torch.bfloat16)
+        if name == "mart":
+            step = make_mart_step(cfg, bundle.mean, bundle.std)
+        elif name == "free":
+            free = make_free_step(cfg, bundle.mean, bundle.std)
+            delta = torch.zeros_like(x)
+
+            def step(st, xx, yy, gen):
+                nonlocal delta
+                st, m, delta = free(st, xx, yy, gen, delta)
+                return st, m
+        else:
+            step = make_ibp_step(cfg, bundle.model.spec, bundle.mean, bundle.std)
+        torch.cuda.synchronize()
+        ew.reset_launches()
+        t0 = time.perf_counter()
+        metrics = []
+        for s in range(OBJ_STEPS):
+            state, m = step(state, x, y, chunk_generator(0, f"{name}:0", s))
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = ew.launch_counts()
+        want = {"pgd_step": TRAIN_PGD * OBJ_STEPS if name == "mart" else 0, "quantize": 0,
+                "uniform_noise": OBJ_STEPS if name == "mart" else 0}
+        if counts != want or not all(math.isfinite(m["loss"]) for m in metrics):
+            raise AssertionError(f"{name}: launches {counts} (want {want}), metrics {metrics}")
+        rec = {"seconds": seconds, "ms_per_step": 1e3 * seconds / OBJ_STEPS,
+               "launches": counts, "metrics": metrics, "steps": state.step}
+        note = ""
+        if certified:
+            last = metrics[-1]
+            note = (f"; verified accuracy {last['adv_accuracy']:.3f} at the ramp's eps "
+                    f"{last['ibp_eps']:.5f}, clean {last['clean_accuracy']:.3f}")
+        log(f"[train] (d) {name} ({'ibp_cnn7 float32' if certified else 'WRN-28-10 bf16 train_bn'}, "
+            f"batch {WRN_TRAIN_B}): {rec['ms_per_step']:.1f} ms a step"
+            f"{f' ({FREE_REPLAYS} updates each)' if name == 'free' else ''}; losses "
+            + " ".join(f"{m['loss']:.4f}" for m in metrics) + f"; launches {counts}{note}")
+        res[name] = rec
+        del state, bundle
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_train() -> dict:
+    """Phase 23: adversarial and certified training."""
+    res = {"a": _train_pgd_at()}
+    # the training cuda tests run beside (b), whose host-bound subprocesses
+    # leave the card idle most of the time
+    tests = _start_cuda_tests(TRAIN_CUDA_TESTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        try:
+            res["b"] = _train_clis(tmp)
+        finally:
+            res["cuda_tests"] = _finish_cuda_tests("train", tests, TRAIN_CUDA_TEST_COUNT)
+        res["c"] = _train_wrn_cli(tmp)
+    res["d"] = _train_objectives()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=str, default=None,
@@ -4157,6 +4642,7 @@ def main(argv=None) -> int:
         record["detector_corruption"] = run("detector_corruption", phase_detector_corruption,
                                             state, pngs)
     record["cifar"] = run("cifar", phase_cifar, smi)
+    record["train"] = run("train", phase_train)
 
     # the elementwise kernels' main path: PGD-10, the eight cells, the
     # streamed pgd cell, the visualize path's PGD-20 and trajectory, the
@@ -4168,8 +4654,9 @@ def main(argv=None) -> int:
     # and suite CLIs, phase 20's EOT-PGD runs and its two grid CLIs with
     # --certified, phase 21's detector comparison and its in-process CLIs,
     # phase 22's WRN-28-10 PGD-10 and cell, its grid CLI (launches printed by
-    # the subprocess) and its in-process robust_eval; the conv's: the probe's
-    # entry point
+    # the subprocess) and its in-process robust_eval, phase 23's PGD-AT steps,
+    # its in-process WRN-28-10 TRADES CLI and the MART, free, IBP and
+    # CROWN-IBP steps; the conv's: the probe's entry point
     detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
     ta, zoo, bb = record["transfer_attacks"], record["zoo"], record["black_box"]
     cert, p21, p22 = record["certified"], record["detector_corruption"], record["cifar"]
@@ -4189,7 +4676,8 @@ def main(argv=None) -> int:
             p21["detector"], p21["cli"]["corruption_streamed"],
             p21["cli"]["detector_f32_resident"], p21["cli"]["detector_f32_streamed"],
             p22["wrn"]["pgd"], p22["wrn"]["cell"], p22["cli"]["grid_cli"],
-            p22["cli"]["robust_eval"]]
+            p22["cli"]["robust_eval"],
+            record["train"]["a"], record["train"]["c"], *record["train"]["d"].values()]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

@@ -5,7 +5,9 @@ Submodules carry the names of the torch implementation the robustness
 literature shares (kuangliu/pytorch-cifar, as RobustBench vendors it):
 ``conv1``, ``layer{1..4}.{i}.{bn1,conv1,bn2,conv2,shortcut.0}``, the final
 ``bn`` and ``linear``, so such a ``.pth`` loads with ``strict=True``.
-BatchNorm is the port's always-eval ``FrozenBatchNorm2d`` (eps 1e-5).
+BatchNorm is the port's ``TrainableBatchNorm2d`` (eps 1e-5): running
+statistics, or with ``train_bn=True`` (from-scratch training) the batch's
+own.
 
 As the JAX model computes it: the 1x1 shortcut, present only where the
 shape changes, reads the pre-activated input ``relu(bn1(x))``; elsewhere
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8 import conv2d_class, linear_class
-from .resnet import FrozenBatchNorm2d
+from .resnet import TrainableBatchNorm2d, set_train_bn
 
 
 class PreActBlock(nn.Module):
@@ -31,9 +33,9 @@ class PreActBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1, int8: bool = False):
         super().__init__()
         conv = conv2d_class(int8)
-        self.bn1 = FrozenBatchNorm2d(cin)
+        self.bn1 = TrainableBatchNorm2d(cin)
         self.conv1 = conv(cin, features, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = FrozenBatchNorm2d(features)
+        self.bn2 = TrainableBatchNorm2d(features)
         self.conv2 = conv(features, features, 3, padding=1, bias=False)
         self.shortcut = (nn.Sequential(conv(cin, features, 1, stride=stride, bias=False))
                          if cin != features or stride != 1 else None)
@@ -47,10 +49,11 @@ class PreActBlock(nn.Module):
 
 class PreActResNet(nn.Module):
     """PreActResNet with basic blocks.  Takes a normalized NCHW batch.
-    ``int8=True``: every conv and the classifier run in int8."""
+    ``int8=True``: every conv and the classifier run in int8;
+    ``train_bn=True``: every BatchNorm normalizes by batch statistics."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2), num_classes: int = 10,
-                 int8: bool = False):
+                 int8: bool = False, train_bn: bool = False):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.conv1 = conv2d_class(int8)(3, 64, 3, padding=1, bias=False)
@@ -62,8 +65,9 @@ class PreActResNet(nn.Module):
                 blocks.append(PreActBlock(cin, feats, 2 if (stage > 0 and i == 0) else 1, int8))
                 cin = feats
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
-        self.bn = FrozenBatchNorm2d(cin)
+        self.bn = TrainableBatchNorm2d(cin)
         self.linear = linear_class(int8)(cin, num_classes)
+        set_train_bn(self, train_bn)
 
     def _stages(self, x: torch.Tensor, upto: int) -> torch.Tensor:
         x = self.conv1(x)

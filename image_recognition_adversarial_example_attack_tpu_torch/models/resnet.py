@@ -9,7 +9,8 @@ it with ``memory_format=torch.channels_last`` and feed it
 Matching the Flax model: the stride is on the 3x3 conv (v1.5); paddings are
 explicit (3 on the stem 7x7, 1 on each 3x3, 0 on the 1x1 convs, which Flax's
 ``SAME`` leaves unpadded); max pool 3/2/1 pads with -inf; BatchNorm uses
-eps=1e-5 and always its running statistics, whatever ``train()`` says.
+eps=1e-5 and always its running statistics, whatever ``train()`` says
+(the CIFAR families' ``TrainableBatchNorm2d`` can use the batch's own).
 """
 
 from __future__ import annotations
@@ -34,6 +35,48 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, False, 0.0, self.eps)
+
+
+def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mean, variance) of an NCHW batch as Flax's BatchNorm
+    computes them (``use_fast_variance``): ``E[x²] - E[x]²`` clamped at 0,
+    the biased variance, reduced in float32 (float64 stays float64)."""
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = xf.mean(dim=(0, 2, 3))
+    mean2 = (xf * xf).mean(dim=(0, 2, 3))
+    return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
+
+
+class TrainableBatchNorm2d(FrozenBatchNorm2d):
+    """The CIFAR families' BatchNorm.  With ``train_bn`` off it is
+    ``FrozenBatchNorm2d``; with it on (from-scratch training, the JAX
+    package's ``train_bn=True``) every forward normalizes by the batch's own
+    statistics (``batch_moments``) in float32 and casts back to the input's
+    dtype, as Flax does; the running statistics are not updated (training
+    recalibrates them once, ``train.adversarial.calibrate_batch_stats``)."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features)
+        self.train_bn = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.train_bn:
+            return super().forward(x)
+        mean, var = batch_moments(x)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+def set_train_bn(model: nn.Module, train_bn: bool) -> nn.Module:
+    """Set ``train_bn`` on ``model`` and on each of its
+    ``TrainableBatchNorm2d`` layers."""
+    for m in model.modules():
+        if isinstance(m, TrainableBatchNorm2d):
+            m.train_bn = bool(train_bn)
+    model.train_bn = bool(train_bn)
+    return model
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1, int8: bool = False) -> nn.Conv2d:

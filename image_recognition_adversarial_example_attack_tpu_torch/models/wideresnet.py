@@ -5,8 +5,9 @@ Pre-activation WRN-d-k (depth 6n+4; three groups of n blocks at widths
 16k/32k/64k, strides 1/2/2).  Submodules carry the Madry/RobustBench names
 (``conv1``, ``block1.layer.0.{bn1,conv1,bn2,conv2,convShortcut}``, the final
 ``bn1``, ``fc``), so a RobustBench-style ``.pth`` loads with
-``strict=True``.  BatchNorm is the port's always-eval ``FrozenBatchNorm2d``
-(eps 1e-5).
+``strict=True``.  BatchNorm is the port's ``TrainableBatchNorm2d`` (eps
+1e-5): running statistics, or with ``train_bn=True`` (from-scratch
+training) the batch's own.
 
 As the JAX model computes it: when a block's widths differ, its first
 bn-relu is shared by the residual branch and the 1x1 ``convShortcut``
@@ -22,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8 import conv2d_class, linear_class
-from .resnet import FrozenBatchNorm2d
+from .resnet import TrainableBatchNorm2d, set_train_bn
 
 
 class WideBasicBlock(nn.Module):
@@ -31,9 +32,9 @@ class WideBasicBlock(nn.Module):
     def __init__(self, cin: int, features: int, stride: int = 1, int8: bool = False):
         super().__init__()
         conv = conv2d_class(int8)
-        self.bn1 = FrozenBatchNorm2d(cin)
+        self.bn1 = TrainableBatchNorm2d(cin)
         self.conv1 = conv(cin, features, 3, stride=stride, padding=1, bias=False)
-        self.bn2 = FrozenBatchNorm2d(features)
+        self.bn2 = TrainableBatchNorm2d(features)
         self.conv2 = conv(features, features, 3, padding=1, bias=False)
         self.equal_in_out = cin == features and stride == 1
         self.convShortcut = (None if self.equal_in_out
@@ -60,10 +61,11 @@ class NetworkBlock(nn.Module):
 
 class WideResNet(nn.Module):
     """WRN-depth-widen.  Takes a normalized NCHW batch.  ``int8=True``:
-    every conv and the classifier run in int8 (``ops/int8.py``)."""
+    every conv and the classifier run in int8 (``ops/int8.py``).
+    ``train_bn=True``: every BatchNorm normalizes by batch statistics."""
 
     def __init__(self, depth: int = 28, widen: int = 10, num_classes: int = 10,
-                 int8: bool = False):
+                 int8: bool = False, train_bn: bool = False):
         super().__init__()
         if (depth - 4) % 6:
             raise ValueError("WideResNet depth must be 6n+4")
@@ -74,8 +76,9 @@ class WideResNet(nn.Module):
         for g, feats in enumerate(widths, start=1):
             setattr(self, f"block{g}", NetworkBlock(cin, feats, n, 1 if g == 1 else 2, int8))
             cin = feats
-        self.bn1 = FrozenBatchNorm2d(cin)
+        self.bn1 = TrainableBatchNorm2d(cin)
         self.fc = linear_class(int8)(cin, num_classes)
+        set_train_bn(self, train_bn)
 
     def _groups(self, x: torch.Tensor, upto: int) -> torch.Tensor:
         x = self.conv1(x)

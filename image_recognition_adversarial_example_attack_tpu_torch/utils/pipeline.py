@@ -1,6 +1,6 @@
-"""Streaming input pipeline: decode the next chunk while the device runs
-(port of ``_ThreadedPipeline`` and ``EvalBatchPipeline`` of
-``utils/pipeline.py``).
+"""Streaming input pipeline: decode the next batch while the device runs
+(port of ``shuffle_seed``, ``_ThreadedPipeline``, ``BatchPipeline`` and
+``EvalBatchPipeline`` of ``utils/pipeline.py``).
 
 A background thread decodes and preprocesses chunk t+1 (PIL, releasing the
 interpreter lock in its C code) while the card works on chunk t; the host
@@ -16,8 +16,12 @@ than evaluating it.
   (``core.images.load_image_batch_tolerant``); a chunk is dropped only if
   every image in it is unreadable.
 
-The training pipeline (``BatchPipeline``, ``shuffle_seed``) comes with the
-training slice of the port.
+``BatchPipeline`` (training) reshuffles each epoch with
+``RandomState(shuffle_seed(seed, epoch))``, the order of the training CLI's
+in-RAM path, and refills a short tail batch from the same epoch and the
+rows of failed decodes by repeating decoded ones, so every batch has the
+same shape.  ``EvalBatchPipeline`` (evaluation) keeps the listed order,
+each image once.
 """
 
 from __future__ import annotations
@@ -32,6 +36,14 @@ import numpy as np
 
 from ..core.constants import IMAGE_SIZE
 from ..core.images import load_image_batch_tolerant
+
+
+def shuffle_seed(seed: int, epoch: int) -> int:
+    """The epoch-shuffle seed, ``(seed * 100003 + epoch) mod 2**32``: it
+    depends on ``--seed`` and on the epoch alone, so a resumed run replays
+    the order an uninterrupted run would have used.  The training CLI's
+    in-RAM path and ``BatchPipeline`` share it."""
+    return (int(seed) * 100003 + int(epoch)) % (2 ** 32)
 
 
 class _ThreadedPipeline:
@@ -75,6 +87,66 @@ class _ThreadedPipeline:
             # producer and reap the thread either way
             self._stop.set()
             self._thread.join(timeout=30.0)
+
+
+class BatchPipeline(_ThreadedPipeline):
+    """Iterate ``(epoch, step, x [B,H,W,3] float32, y [B] int32)`` over
+    epochs ``start_epoch .. epochs-1`` with background decode.
+
+    ``paths`` / ``labels`` are the whole dataset.  Each epoch reshuffles
+    with ``RandomState(shuffle_seed(seed, epoch))`` and yields
+    ``len(paths) // batch_size`` batches (at least one); a short last batch
+    is filled from the start of the epoch's order, and the rows of images
+    that fail to decode by repeating decoded rows.  An exception in the
+    producer is raised in the consumer.
+    """
+
+    def __init__(self, paths: Sequence[str | Path], labels: Sequence[int], batch_size: int, *,
+                 size: int = IMAGE_SIZE, epochs: int = 1, start_epoch: int = 0,
+                 prefetch: int = 2, seed: int = 0) -> None:
+        if len(paths) != len(labels):
+            raise ValueError(f"{len(paths)} paths vs {len(labels)} labels")
+        if not paths:
+            raise ValueError("empty dataset")
+        super().__init__(prefetch)
+        self._paths = [str(p) for p in paths]
+        self._labels = np.asarray(labels, np.int32)
+        self._batch = int(batch_size)
+        self._size = int(size)
+        self._epochs = int(epochs)
+        self._start_epoch = int(start_epoch)
+        self._seed = int(seed)
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return max(1, len(self._paths) // self._batch)
+
+    def _produce(self) -> None:
+        try:
+            for epoch in range(self._start_epoch, self._epochs):
+                order = np.random.RandomState(
+                    shuffle_seed(self._seed, epoch)).permutation(len(self._paths))
+                for s in range(self.steps_per_epoch):
+                    idx = order[s * self._batch:(s + 1) * self._batch]
+                    if len(idx) < self._batch:  # the static shape: resample
+                        idx = np.concatenate([idx, order[: self._batch - len(idx)]])
+                    batch_paths = [self._paths[i] for i in idx]
+                    x, kept = load_image_batch_tolerant(batch_paths, size=self._size)
+                    # both sides Path-normalized ("./a.jpg" is "a.jpg")
+                    kept_set = {str(Path(p)) for p in kept}
+                    y = np.asarray([self._labels[i] for i, p in zip(idx, batch_paths)
+                                    if str(Path(p)) in kept_set], np.int32)
+                    if x.shape[0] < self._batch:
+                        # refill the rows of failed decodes by repeating
+                        # decoded ones
+                        reps = np.resize(np.arange(x.shape[0]), self._batch - x.shape[0])
+                        x = np.concatenate([x, x[reps]], axis=0)
+                        y = np.concatenate([y, y[reps]], axis=0)
+                    if not self._put((epoch, s, x, y)):
+                        return  # the consumer abandoned the iteration
+            self._put(None)  # end of stream
+        except BaseException as e:  # surface a producer crash to the consumer
+            self._put(e)
 
 
 class EvalBatchPipeline(_ThreadedPipeline):

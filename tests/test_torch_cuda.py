@@ -890,3 +890,251 @@ def test_cifar_and_light_families_float32_on_the_card_match_the_cpu(cuda, name):
     assert got.shape == want.shape == (4, 10)
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# training (train/adversarial.py, train/augment.py), chip_smoke.py phase 23
+# ---------------------------------------------------------------------------
+
+def _train_pair(device, cfg, dtype=torch.float32):
+    """A wrn_tiny TrainState on ``device`` from seeded weights, and a batch."""
+    from image_recognition_adversarial_example_attack_tpu_torch.models import zoo
+    from image_recognition_adversarial_example_attack_tpu_torch.models.wideresnet import wrn_tiny
+    from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
+
+    model = zoo.random_init_(wrn_tiny()).requires_grad_(False).eval()
+    model.to(device, memory_format=torch.channels_last)
+    bundle = zoo.ModelBundle(name="wrn_tiny", model=model, source="random",
+                             dtype=torch.float32, device=device, input_size=32,
+                             mean=zoo.model_meta("wrn_tiny")["mean"].copy(),
+                             std=zoo.model_meta("wrn_tiny")["std"].copy())
+    state = adversarial.train_state_from_bundle(bundle, cfg, dtype)
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand((8, 32, 32, 3), generator=g).to(device)
+    y = torch.randint(0, 10, (8,), generator=g).to(device)
+    return bundle, state, x, y
+
+
+@pytest.mark.parametrize("objective", ["pgd-at", "trades", "mart"])
+def test_training_steps_on_the_card_launch_the_kernels(cuda, objective):
+    """bf16 wrn_tiny, 3 inner steps: exactly 3 pgd_step launches a step (and
+    one noise for PGD-AT and MART, whose start is the noise kernel)."""
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
+
+    cfg = adversarial.AdvTrainConfig(attack_steps=3, train_bn=objective == "trades")
+    bundle, state, x, y = _train_pair(cuda, cfg, torch.bfloat16)
+    make = {"pgd-at": adversarial.make_train_step, "trades": adversarial.make_trades_step,
+            "mart": adversarial.make_mart_step}[objective]
+    step = make(cfg, bundle.mean, bundle.std)
+    ew.reset_launches()
+    for s in range(2):
+        state, m = step(state, x, y, generator_from_seed(s))
+    assert ew.launch_counts() == {"pgd_step": 6, "quantize": 0,
+                                  "uniform_noise": 0 if objective == "trades" else 2}
+    assert torch.isfinite(m["loss"]) and state.step == 2
+    assert all(p.dtype == torch.float32 and p.is_cuda for p in state.params.values())
+
+
+@pytest.mark.parametrize("train_bn", [False, True])
+def test_float32_training_step_on_the_card_matches_the_cpu(cuda, train_bn):
+    """One float32 CE step (attack_steps 0) of wrn_tiny, TF32 off: the loss
+    within 1e-5 relative and the gradient (AdamW's first moment) within 1e-5
+    of its largest entry of the CPU's; with train_bn, calibrate_batch_stats
+    too."""
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
+
+    cfg = adversarial.AdvTrainConfig(attack_steps=0, train_bn=train_bn, learning_rate=1e-3)
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            bundle, state, x, y = _train_pair(dev, cfg)
+            new, m = adversarial.make_train_step(cfg, bundle.mean, bundle.std)(
+                state, x, y, generator_from_seed(0))
+            stats = adversarial.calibrate_batch_stats(new, x, bundle.mean, bundle.std,
+                                                      batch_size=4, min_batches=3)
+            out[dev.type] = (float(m["loss"]), {k: v.cpu() for k, v in new.opt_state.mu.items()},
+                             {k: v.cpu() for k, v in stats.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    (lg, mu_g, st_g), (lc, mu_c, st_c) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    scale = max(float(v.abs().max()) for v in mu_c.values())
+    assert max(float((mu_g[k] - mu_c[k]).abs().max()) for k in mu_c) <= 1e-5 * scale
+    for k, v in st_c.items():
+        assert torch.allclose(st_g[k].float(), v.float(), rtol=1e-5, atol=1e-5), k
+
+
+def test_augmentation_on_the_card_equals_the_cpu(cuda):
+    """The same draws crop, flip and cut out the same pixels on the card."""
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.train import augment
+
+    fn = augment.make_augment_fn(augment.AugmentConfig(pad=4, flip=True, cutout=8))
+    x = torch.rand((16, 32, 32, 3), generator=torch.Generator().manual_seed(2))
+    got = fn(generator_from_seed(5), x.to(cuda))
+    assert got.is_cuda and torch.equal(got.cpu(), fn(generator_from_seed(5), x))
+
+
+# Every objective, float32 with TF32 off, card against CPU.  Each step runs
+# on the card, then on the CPU in float32 and in float64 (the step's float32
+# casts lifted) from the card's state (parameters, moments, step) with the
+# card's draws and inner iterates replayed (the PGD start, TRADES's start,
+# each pgd_step output, the free delta), so that only rounding parts them.
+# The card is held to the float64 step within FLOAT32_FACTOR times the CPU
+# float32 step's own distance from it, or OBJ_REL_TOL where that is larger:
+# the loss and every other metric relative, AdamW's first moment relative to
+# its largest entry.  (Where the float32 arithmetic cancels, as TRADES's KL
+# gradient does once the clean and adversarial predictions nearly agree,
+# the CPU's own float32 step lies far from float64 too.)  An accuracy is held to the CPU float32's within one sample.  At most
+# SIGN_FLIP_FRAC of the entries of an inner update and of the free delta
+# differ from the CPU float32's (a sign() of an input gradient within
+# float32 noise of zero may flip), and a parameter update differs from it by
+# more than 1e-3 lr only where the first moment lies within the first
+# moment's limit of zero: AdamW's update is about lr * sign(mu) wherever
+# |mu| is well above its eps, so only such an entry may take the other sign.
+OBJ_REL_TOL, FLOAT32_FACTOR, SIGN_FLIP_FRAC = 1e-4, 10.0, 1e-3
+OBJECTIVES = {
+    "pgd-at": dict(attack_steps=3),
+    "pgd-at-train_bn-augment": dict(attack_steps=3, train_bn=True, aug_pad=4, aug_flip=True,
+                                    aug_cutout=8),
+    "trades": dict(attack_steps=3, train_bn=True, aug_pad=4, aug_flip=True),
+    "mart": dict(attack_steps=3, train_bn=True),
+    "free": dict(free_replays=1, train_bn=True),
+    "ibp": dict(ibp_ramp_steps=1),
+    "crown-ibp": dict(ibp_ramp_steps=1, ibp_bound="crown"),
+}
+
+
+def _objective_pair(device, name, cfg, dtype=torch.float32):
+    """(step, state) of ``name`` on ``device`` from seeded weights held in
+    ``dtype``, and a float32 batch."""
+    import dataclasses
+
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model, zoo
+    from image_recognition_adversarial_example_attack_tpu_torch.models.wideresnet import wrn_tiny
+    from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.rand((8, 32, 32, 3), generator=g).to(device)
+    y = torch.randint(0, 10, (8,), generator=g).to(device)
+    if "ibp" in name:
+        bundle = load_model("ibp_tiny", dtype=torch.float32, device=device)
+    else:
+        model = zoo.random_init_(wrn_tiny()).requires_grad_(False).eval()
+        bundle = zoo.ModelBundle(name="wrn_tiny", model=model.to(device), source="random",
+                                 dtype=torch.float32, device=device, input_size=32,
+                                 mean=zoo.model_meta("wrn_tiny")["mean"].copy(),
+                                 std=zoo.model_meta("wrn_tiny")["std"].copy())
+    bundle.model.to(dtype)
+    bundle = dataclasses.replace(bundle, dtype=dtype)
+    state = adversarial.train_state_from_bundle(bundle, cfg)
+    if "ibp" in name:
+        return adversarial.make_ibp_step(cfg, bundle.model.spec, bundle.mean,
+                                         bundle.std), state, x, y
+    make = {"trades": adversarial.make_trades_step, "mart": adversarial.make_mart_step,
+            "free": adversarial.make_free_step}.get(name, adversarial.make_train_step)
+    return make(cfg, bundle.mean, bundle.std), state, x, y
+
+
+@pytest.mark.parametrize("name", sorted(OBJECTIVES))
+def test_every_objective_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import pgd
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import chunk_generator
+    from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
+    from image_recognition_adversarial_example_attack_tpu_torch.train.optim import AdamState
+
+    cfg = adversarial.AdvTrainConfig(**OBJECTIVES[name])
+    lr, cpu = cfg.learning_rate, torch.device("cpu")
+    tape, flips = [], []
+    real = {"pgd_step": ew.pgd_step, "draw_start": pgd.draw_start,
+            "draw_trades_start": adversarial.draw_trades_start}
+    homes = {"pgd_step": ew, "draw_start": pgd, "draw_trades_start": adversarial}
+
+    def recorded(key):
+        def fn(*a):
+            out = real[key](*a)
+            tape.append(out.detach().clone())
+            return out
+        return fn
+
+    def replayed(key, at, count_flips):
+        def fn(*a):
+            card = tape[at[0]].cpu()
+            at[0] += 1
+            if count_flips and key == "pgd_step":  # the CPU's own update, same iterate
+                flips.append(float((real[key](*a) != card).float().mean()))
+            return card
+        return fn
+
+    def run(step, args, wrap):
+        for key, home in homes.items():
+            monkeypatch.setattr(home, key, wrap(key))
+        try:
+            return step(*args)
+        finally:
+            for key, home in homes.items():
+                monkeypatch.setattr(home, key, real[key])
+
+    def moved_to(template, st):
+        dt = next(iter(template.params.values())).dtype
+        to = lambda t: {k: v.to(cpu, dt) for k, v in t.items()}  # noqa: E731
+        return template.replace(
+            params=to(st.params), extra_variables=to(st.extra_variables), step=st.step,
+            opt_state=AdamState(st.opt_state.count, to(st.opt_state.mu), to(st.opt_state.nu)))
+
+    def err(a, b):
+        return max(float((a[k].to(cpu, torch.float64) - v).abs().max()) for k, v in b.items())
+
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        step_g, state_g, x, y = _objective_pair(cuda, name, cfg)
+        step_c, tmpl_c, _, _ = _objective_pair(cpu, name, cfg)
+        step_d, tmpl_d, _, _ = _objective_pair(cpu, name, cfg, torch.float64)
+        delta = torch.zeros_like(x)
+        for s in range(2):
+            extra = (delta,) if name == "free" else ()
+            tape.clear()
+            out_g = run(step_g, (state_g, x, y, chunk_generator(0, "train:0", s), *extra),
+                        recorded)
+            at = [0]
+            out_c = run(step_c, (moved_to(tmpl_c, state_g), x.cpu(), y.cpu(),
+                                 chunk_generator(0, "train:0", s), *(e.cpu() for e in extra)),
+                        lambda key: replayed(key, at, True))
+            assert at[0] == len(tape), f"step {s}: {len(tape) - at[0]} card draws not replayed"
+            at = [0]
+            monkeypatch.setattr(adversarial, "LOSS_DTYPE", torch.float64)
+            out_d = run(step_d, (moved_to(tmpl_d, state_g), x.cpu(), y.cpu(),
+                                 chunk_generator(0, "train:0", s), *(e.cpu() for e in extra)),
+                        lambda key: replayed(key, at, False))
+            monkeypatch.setattr(adversarial, "LOSS_DTYPE", torch.float32)
+            (new_g, m_g), (new_c, m_c), (new_d, m_d) = out_g[:2], out_c[:2], out_d[:2]
+            assert set(m_g) == set(m_c) == set(m_d)
+            for k in m_d:
+                a, b, want = float(m_g[k]), float(m_c[k]), float(m_d[k])
+                if "accuracy" in k:
+                    assert abs(a - b) <= 1.0 / x.shape[0] + 1e-6, (s, k, a, b)
+                    continue
+                tol = max(OBJ_REL_TOL * abs(want), FLOAT32_FACTOR * abs(b - want)) + 1e-7
+                assert abs(a - want) <= tol, (s, k, a, b, want)
+            mu_d = new_d.opt_state.mu
+            band = max(OBJ_REL_TOL * max(float(v.abs().max()) for v in mu_d.values()),
+                       FLOAT32_FACTOR * err(new_c.opt_state.mu, mu_d))
+            assert err(new_g.opt_state.mu, mu_d) <= band, s
+            for k, v in new_c.params.items():
+                differ = (new_g.params[k].cpu() - v).abs() > 1e-3 * lr
+                assert bool((mu_d[k][differ].abs() <= band).all()), (s, k)
+            if name == "free":
+                assert float((out_g[2].cpu() != out_c[2]).float().mean()) <= SIGN_FLIP_FRAC
+                delta = out_g[2]
+            state_g = new_g
+        assert max(flips, default=0.0) <= SIGN_FLIP_FRAC
+        want = {"pgd-at": 6, "pgd-at-train_bn-augment": 6, "trades": 6, "mart": 6}.get(name, 0)
+        assert len(flips) == want
+        assert state_g.step == 2 and all(p.is_cuda for p in state_g.params.values())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
