@@ -63,7 +63,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    and ``timings.json``, the wall time and each cell's seconds; the same
    command with ``--resume`` (nine cells resumed); pgd ``--adaptive
    --detector mahalanobis``; fgsm and pgd ``--detector_aware --detector
-   squeezing``.
+   squeezing`` (these three started together, printed).
 9. stream -- 600 generated PNGs (256x300): (a) the defense_experiments CLI
    in a subprocess with ``--max_batch 128 --attacks fgsm pgd`` (5 chunks, the
    last with 88 valid): the "Streaming evaluation" line, six summary lines,
@@ -100,7 +100,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    noise launches, x_adv in the eps-ball and [0,1], success vectors in {0,1},
    its seconds, the seconds by model and a profile; (b) the same from the
    ResNet-50 + DenseNet-121 logit ensemble to VGG19, ViT and Swin; (c) the
-   blackbox_transfer CLI in a subprocess at its defaults (fgsm, pgd, cw-200)
+   blackbox_transfer CLI in a subprocess at its defaults (fgsm, pgd, cw-200;
+   started together with (d) and (f), printed)
    on phase 8's 128 PNGs: the table's header and three rows, nine panels;
    (d) the transferability CLI at its defaults (pgd-20, 3 eps): its JSON,
    summary table and heatmap; (e) on 300 PNGs, fgsm in float32 streamed in
@@ -279,6 +280,28 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    cuda tests of ``tests/test_torch_cuda.py`` run in a subprocess beside
    (b) (every objective's float32 step on the card against the CPU's
    float64 one, with the card's draws and PGD iterates replayed).
+24. serve -- serving and weight import on ResNet-50 bf16 at 224x224, random
+   weights, phase 8's PNGs; six subprocesses start together and each waits
+   until driven: (a) the serve CLI in file mode (``--input`` a FIFO, so the
+   requests come after the ready line) over 256 PNGs and a missing path
+   with ``--defend --detector squeezing --detector_threshold 0.5`` at
+   ``--batch 8``, ``--batch 128`` and ``--batch 128 --overlap``: 256 ok
+   lines and one error line, requests/s after the ready line, latency_ms
+   p50/p99, decode_ms, exactly 2 x (chunks + 1) quantize launches, the
+   overlap run's top-1s equal to the sequential run's and its scores within
+   1e-6; (b) ``--http 0`` under 8 client threads x 16 POSTs (paths and
+   image_b64, one bad body: 400): no error response, ``/metrics`` with fewer
+   batches than requests, requests/s and the clients' p50/p99, SIGTERM:
+   the shutdown line, exit 0, 2 x (batches + 1) quantize launches; (c)
+   SIGTERM while streaming on stdin: the shutdown line last, exit 0; (d) the
+   service function in float32 card vs CPU on 8 PNGs (probabilities and
+   scores within 1e-5, the defended top-1 equal but at printed near-ties),
+   quantize bit-exact at [8,224,224,3] and [128,224,224,3], and the CLI's
+   main in process on 64 PNGs at batch 8 with exactly 18 quantize launches;
+   (e) import_weights on a float32 ResNet-50 ``.pth`` with ``--verify``, the
+   file reloaded bit-equal, and a weights dir holding only the ``.pth``
+   getting its ``.msgpack`` (the import's bytes), the second load
+   ``source="cache"``.
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -319,6 +342,19 @@ CW_C = 10.0
 N_STREAM, STREAM_CHUNK, N_F32 = 600, 128, 300
 FAMILIES = ("vgg19", "densenet121", "vit_b_16", "swin_t")
 TRANSFER_STEPS = 20  # the transferability CLI's default --steps
+# phase 8's --resume, adaptive and detector-aware grids (after the default
+# grid, whose cell seconds phase 9 compares with), started together to make
+# room for phase 24 (printed)
+EXPERIMENTS_TRIM = ("the --resume, --adaptive and --detector_aware grids start together after "
+                    "the default grid (one after another until PR 13: 11.3 + 11.0 + 14.0 s in "
+                    "its final run); their wall and cell s now include each other's load, "
+                    "and each wall s runs until this script collects it (an upper bound)")
+# phase 13's three CLI subprocesses, started together to make room for phase
+# 24 (printed); each keeps its arguments and checks
+TRANSFER_TRIM = ("the blackbox_transfer, transferability and dataset_check CLIs start "
+                 "together (one after another until PR 13: 28.1 + 20.9 + 10.6 s in its final "
+                 "run); each CLI's wall s now includes the other two's load on the card, "
+                 "and runs until this script collects it (an upper bound)")
 # the key layout of the JAX visualize CLI's attack_report.json (without
 # --gradcam); the metric keys are the reference's, in its order
 REPORT_KEYS = {"image", "model", "clean_prediction", "params", "attacks"}
@@ -378,6 +414,35 @@ def graph_ms(fn, iters: int = 20) -> float:
     end.synchronize()
     del graph
     return start.elapsed_time(end) / iters
+
+
+# about 25 ms of a 2 GHz clock: longer than the host takes to queue
+# QUEUED_LAUNCHES calls of a wrapper
+QUEUE_SLEEP_CYCLES, QUEUED_LAUNCHES = 50_000_000, 200
+
+
+def queued_ms(fn, n: int = QUEUED_LAUNCHES) -> float:
+    """Mean device milliseconds per call of ``fn``, its launches back to
+    back: a sleep kernel holds the card while the host queues ``n`` calls
+    between two CUDA events, so the host's time per call (Python, the
+    wrapper, ctypes) does not count, as it does in ``time_ms``.  Raises if
+    the card reached the first timed launch before the last was queued."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    if start.query():
+        raise AssertionError("queued_ms: the sleep ended before the launches were queued")
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def bound_ms(name: str, numel: int) -> float:
@@ -1030,12 +1095,21 @@ SUMMARY_RE = (r"^attack=(fgsm|pgd|cw), eps=(\d\.\d{5}), attack_success=\d\.\d{3}
               r"detector_adv_flag_rate=\d\.\d{3}, detector_attack_success=\d\.\d{3}$")
 
 
+def _start_experiments(image_dir: Path, out_dir: Path, *args: str,
+                       env: dict | None = None) -> tuple:
+    return _start_cli_module("defense_experiments", "--image_dir", str(image_dir),
+                             "--output_dir", str(out_dir), *args, env=env)
+
+
 def _run_experiments(image_dir: Path, out_dir: Path, *args: str,
                      env: dict | None = None) -> tuple[str, float]:
+    return _finish_experiments(_start_experiments(image_dir, out_dir, *args, env=env))
+
+
+def _finish_experiments(started: tuple) -> tuple[str, float]:
     import re
 
-    out, seconds = _run_cli_module("defense_experiments", "--image_dir", str(image_dir),
-                                   "--output_dir", str(out_dir), *args, env=env)
+    out, seconds = _finish_cli_module(started)
     lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
     if not lines or not all(re.match(SUMMARY_RE, ln) for ln in lines):
         raise AssertionError(f"defense_experiments summary lines malformed: {lines}")
@@ -1096,13 +1170,6 @@ def phase_experiments() -> dict:
         for ln in lines:
             log(f"[experiments] {ln}")
 
-        out, seconds = _run_experiments(image_dir, grid_dir, *grid, "--resume")
-        resumed = out.count("(resumed from partial results)")
-        if resumed != 9:
-            raise AssertionError(f"--resume resumed {resumed} cells, want 9")
-        res["resume"] = {"wall_s": seconds, "resumed": resumed}
-        log(f"[experiments] --resume: {resumed} cells resumed, exit 0 in {seconds:.1f} s")
-
         runs = {
             "adaptive_mahalanobis": ["--attacks", "pgd", "--eps_list", "0.03137", "--adaptive",
                                      "--detector", "mahalanobis", "--viz_samples", "0"],
@@ -1110,9 +1177,20 @@ def phase_experiments() -> dict:
                                 "--detector_aware", "--detector", "squeezing",
                                 "--viz_samples", "0"],
         }
+        log(f"[experiments] cut (room for phase 24): {EXPERIMENTS_TRIM}")
+        started = {"resume": _start_experiments(image_dir, grid_dir, *grid, "--resume"),
+                   **{name: _start_experiments(image_dir, Path(tmp) / name, *args)
+                      for name, args in runs.items()}}
+        out, seconds = _finish_experiments(started["resume"])
+        resumed = out.count("(resumed from partial results)")
+        if resumed != 9:
+            raise AssertionError(f"--resume resumed {resumed} cells, want 9")
+        res["resume"] = {"wall_s": seconds, "resumed": resumed}
+        log(f"[experiments] --resume: {resumed} cells resumed, exit 0 in {seconds:.1f} s")
+
         for name, args in runs.items():
             out_dir = Path(tmp) / name
-            out, seconds = _run_experiments(image_dir, out_dir, *args)
+            out, seconds = _finish_experiments(started[name])
             lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
             timings = json.loads((out_dir / "timings.json").read_text())
             if len(lines) != len(args[args.index("--attacks") + 1:args.index("--eps_list")]):
@@ -1630,18 +1708,31 @@ def _transfer_cell(name: str, src, targets: dict, x) -> dict:
             "by_model_s": by_model, "timed_total_s": total, "profile": prof}
 
 
-def _run_cli_module(module: str, *args: str, env: dict | None = None) -> tuple[str, float]:
-    """``python -m <package>.cli.<module> args`` from the repo: its stdout
-    and wall seconds; fails unless it exits 0 having run on the card."""
+def _start_cli_module(module: str, *args: str, env: dict | None = None) -> tuple:
+    """``python -m <package>.cli.<module> args`` from the repo, started:
+    (the process, its start time, its label)."""
     cmd = [sys.executable, "-m", f"{PKG}.cli.{module}", *args]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
-                          env=None if env is None else {**os.environ, **env})
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=None if env is None else {**os.environ, **env})
+    return proc, time.perf_counter(), f"{module} {' '.join(args)}"
+
+
+def _finish_cli_module(started: tuple) -> tuple[str, float]:
+    """Wait for ``_start_cli_module``'s process: its stdout and wall seconds;
+    fails unless it exits 0 having run on the card."""
+    proc, t0, label = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        proc.kill()
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0 or "Using device: cuda" not in proc.stdout:
-        raise AssertionError(f"{module} {' '.join(args)} exit {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-4000:]}")
-    return proc.stdout, seconds
+    if proc.returncode != 0 or "Using device: cuda" not in out:
+        raise AssertionError(f"{label} exit {proc.returncode}:\n{out[-3000:]}\n{err[-4000:]}")
+    return out, seconds
+
+
+def _run_cli_module(module: str, *args: str, env: dict | None = None) -> tuple[str, float]:
+    return _finish_cli_module(_start_cli_module(module, *args, env=env))
 
 
 def phase_transfer(state: dict, pngs: list[Path], jpegs: list[Path]) -> dict:
@@ -1675,8 +1766,16 @@ def phase_transfer(state: dict, pngs: list[Path], jpegs: list[Path]) -> dict:
 
     with tempfile.TemporaryDirectory() as tmp:
         img128 = _linked(pngs[:SHAPE[0]], Path(tmp) / "png128")
+        out_dir = Path(tmp) / "transfer"
+        log(f"[transfer] cut (room for phase 24): {TRANSFER_TRIM}")
+        started = {
+            "blackbox": _start_cli_module("blackbox_transfer", "--image_dir", str(img128)),
+            "transferability": _start_cli_module("transferability", "--image_dir", str(img128),
+                                                 "--output_dir", str(out_dir)),
+            "dataset_check": _start_cli_module("dataset_check", "--test_dir",
+                                               str(jpegs[0].parent))}
         # (c) the blackbox CLI at its defaults
-        out, seconds = _run_cli_module("blackbox_transfer", "--image_dir", str(img128))
+        out, seconds = _finish_cli_module(started["blackbox"])
         lines = out.strip().splitlines()[-4:]
         rows_ok = all(re.fullmatch(rf"{a}(\t\d+\.\d%){{3}}", ln)
                       for a, ln in zip(("FGSM", "PGD", "CW"), lines[1:]))
@@ -1689,9 +1788,7 @@ def phase_transfer(state: dict, pngs: list[Path], jpegs: list[Path]) -> dict:
             f"{len(panels)} panels; " + " | ".join(ln.replace("\t", " ") for ln in lines))
 
         # (d) the transferability CLI at its defaults
-        out_dir = Path(tmp) / "transfer"
-        out, seconds = _run_cli_module("transferability", "--image_dir", str(img128),
-                                       "--output_dir", str(out_dir))
+        out, seconds = _finish_cli_module(started["transferability"])
         data = json.loads((out_dir / "transfer_results.json").read_text())
         cells = data.get("pgd", {})
         want_targets = ["vgg19", "densenet121", "vit_b_16"]
@@ -1710,7 +1807,7 @@ def phase_transfer(state: dict, pngs: list[Path], jpegs: list[Path]) -> dict:
             log(f"[transfer]   {ln}")
 
         # (f) dataset_check on 128 JPEGs
-        out, seconds = _run_cli_module("dataset_check", "--test_dir", str(jpegs[0].parent))
+        out, seconds = _finish_cli_module(started["dataset_check"])
         if f"Total images: {len(jpegs)}" not in out or "Low-confidence ratio:" not in out:
             raise AssertionError(f"dataset_check printed:\n{out[-2000:]}")
         res["dataset_check"] = {"wall_s": seconds}
@@ -3420,7 +3517,12 @@ def _grid_kernels() -> dict:
                 "quantize_ms": time_ms(lambda: ew.quantize(xq, LEVELS)),
                 "quantize_bound_ms": bound_ms("quantize", numel),
                 "uniform_noise_ms": time_ms(lambda: ew.uniform_noise(shape, EPS, g3, "cuda")),
-                "uniform_noise_bound_ms": bound_ms("uniform_noise", numel)})
+                "uniform_noise_bound_ms": bound_ms("uniform_noise", numel),
+                # the same launches back to back: the kernels' device time
+                "pgd_step_queued_ms": queued_ms(lambda: ew.pgd_step(x, grad, x0, EPS, ALPHA)),
+                "quantize_queued_ms": queued_ms(lambda: ew.quantize(xq, LEVELS)),
+                "uniform_noise_queued_ms": queued_ms(
+                    lambda: ew.uniform_noise(shape, EPS, g3, "cuda"))})
         res[str(list(shape))] = rec
         log(f"[certified] kernels at {list(shape)}: pgd_step bit-exact at eps "
             f"{', '.join(CERT_GRID_EPS)} (alpha +-2/255), quantize bit-exact with ties, noise in "
@@ -3429,7 +3531,10 @@ def _grid_kernels() -> dict:
                f"; pgd_step {rec['pgd_step_ms']:.4f} ms (bound {rec['pgd_step_bound_ms']:.5f}), "
                f"quantize {rec['quantize_ms']:.4f} ms (bound {rec['quantize_bound_ms']:.5f}), "
                f"noise {rec['uniform_noise_ms']:.4f} ms (bound "
-               f"{rec['uniform_noise_bound_ms']:.5f})"))
+               f"{rec['uniform_noise_bound_ms']:.5f}), one call at a time; "
+               f"{QUEUED_LAUNCHES} launches back to back: pgd_step "
+               f"{rec['pgd_step_queued_ms']:.5f} ms, quantize {rec['quantize_queued_ms']:.5f} ms, "
+               f"noise {rec['uniform_noise_queued_ms']:.5f} ms a launch"))
     return res
 
 
@@ -4572,6 +4677,496 @@ def phase_train() -> dict:
     return res
 
 
+# phase 24: serving.  (a) the serve CLI in file mode at batch 8 and 128
+# (and 128 with --overlap), (b) its HTTP front end under 8 client threads,
+# (c) SIGTERM while streaming on stdin, (d) the service function card vs CPU,
+# quantize at the serving shapes and the counted run in process, (e)
+# import_weights and the zoo's msgpack cache
+SERVE_N, SERVE_F32_N, SERVE_COUNTED_N = 256, 8, 64
+SERVE_FLAGS = ("--defend", "--detector", "squeezing", "--detector_threshold", "0.5")
+SERVE_RUNS = {"batch 8": ("--batch", "8"), "batch 128": ("--batch", "128"),
+              "batch 128 --overlap": ("--batch", "128", "--overlap")}
+HTTP_CLIENTS, HTTP_POSTS = 8, 16
+# the model and device the subprocesses and the in-process runs serve: the
+# CLI's defaults on the card (ResNet-50, bf16)
+SERVE_MODEL, SERVE_DEV, SERVE_CLI_EXTRA = "resnet50", "cuda", ()
+# the service card vs CPU in float32: probabilities and scores, relative to
+# max(1, |value|) (F32_REL_TOL's reading), and the defended logits' top-2
+# margin below which the defended top-1 may differ (printed)
+SERVE_TOL = 1e-5
+# the overlap run against the sequential one at batch 128: equal top-1s,
+# scores within this
+OVERLAP_SCORE_TOL = 1e-6
+
+
+def _serve_launches(chunks: int) -> dict:
+    """--defend and --detector squeezing launch one quantize each a service
+    call: every chunk served and the warm-up."""
+    return {"pgd_step": 0, "quantize": 2 * (chunks + 1), "uniform_noise": 0}
+
+
+def _start_serve(tmp: Path, tag: str, *args: str, stdin: bool = False):
+    """The serve CLI under LAUNCH_WRAPPER (its launches print last), its
+    stderr to a file."""
+    cmd = [sys.executable, "-c", LAUNCH_WRAPPER, f"{PKG}.cli.serve", *SERVE_CLI_EXTRA, *args]
+    err = open(tmp / f"{tag}.err", "w")
+    proc = subprocess.Popen(cmd, cwd=REPO, stdin=subprocess.PIPE if stdin else subprocess.DEVNULL,
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    err.close()
+    return proc, time.perf_counter(), tag
+
+
+def _read_ready(started, tmp: Path) -> dict:
+    proc, t0, tag = started
+    line = proc.stdout.readline()
+    if not line.startswith("{"):
+        proc.kill()
+        raise AssertionError(f"serve {tag}: no ready line ({line!r}):\n"
+                             f"{(tmp / f'{tag}.err').read_text()[-4000:]}")
+    ready = json.loads(line)
+    want_dev = "cpu" if SERVE_DEV == "cpu" else "cuda:0"
+    if not (ready.get("ready") is True and ready["sharded"] is False
+            and ready["device"] == want_dev):
+        proc.kill()
+        raise AssertionError(f"serve {tag}: ready line {ready}")
+    ready["startup_s"] = time.perf_counter() - t0
+    return ready
+
+
+def _finish_serve(started, tmp: Path) -> tuple[list[dict], dict]:
+    """Read the rest of the protocol with arrival times; wait for exit 0;
+    -> (the JSON lines, each with its arrival "t"), the launches."""
+    proc, _, tag = started
+    rows, launches = [], None
+    for line in proc.stdout:
+        t = time.perf_counter()
+        if line.startswith("LAUNCHES "):
+            launches = json.loads(line[len("LAUNCHES "):])
+        elif line.strip():
+            rows.append({**json.loads(line), "t": t})
+    code = proc.wait(timeout=600)
+    if code != 0 or launches is None:
+        raise AssertionError(f"serve {tag}: exit {code}, launches {launches}:\n"
+                             f"{(tmp / f'{tag}.err').read_text()[-4000:]}")
+    return rows, launches
+
+
+def _write_fifo(path: Path, text: str, timeout: float = 120.0) -> None:
+    """Write ``text`` to a FIFO once its reader has opened it (a reader that
+    never comes raises instead of blocking forever)."""
+    import errno
+
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            fd = os.open(path, os.O_WRONLY | os.O_NONBLOCK)
+            break
+        except OSError as e:
+            if e.errno != errno.ENXIO or time.monotonic() > deadline:
+                raise
+            time.sleep(0.01)
+    os.set_blocking(fd, True)
+    with os.fdopen(fd, "w") as f:
+        f.write(text)
+
+
+def _pct(values, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(values, np.float64), q))
+
+
+def _serve_file_runs(started: dict, fifos: dict, lines: list[str], tmp: Path) -> dict:
+    """(a) Each file-mode process in turn: its request file is a FIFO, so the
+    process has warmed up and printed its ready line before the parent writes
+    the requests; requests/s from that write to the last response."""
+    res = {}
+    for name, st in started.items():
+        ready = _read_ready(st, tmp)
+        t_write = time.perf_counter()
+        _write_fifo(fifos[name], "".join(f"{ln}\n" for ln in lines))
+        rows, launches = _finish_serve(st, tmp)
+        ok = [r for r in rows if "error" not in r]
+        bad = [r for r in rows if "error" in r]
+        batch = int(SERVE_RUNS[name][1])
+        want = _serve_launches(-(-len(ok) // batch))
+        if (len(ok) != SERVE_N or len(bad) != 1 or not bad[0]["path"].endswith("missing.png")
+                or [r["path"] for r in rows] != lines or launches != want
+                or ready["batch"] != batch):
+            raise AssertionError(f"serve {name}: {len(ok)} ok, errors {bad}, launches "
+                                 f"{launches} (want {want}), ready {ready}")
+        for r in ok:
+            if not (len(r["topk"]) == 5 and 0.0 <= r["prob"] <= 1.0 and r["latency_ms"] > 0
+                    and "defended_top1" in r and "detector_flag" in r
+                    and math.isfinite(r["detector_score"]) and r["batch_size"] == batch):
+                raise AssertionError(f"serve {name}: response {r}")
+        span = max(r["t"] for r in rows) - t_write
+        lat = [r["latency_ms"] for r in ok]
+        res[name] = {"startup_s": ready["startup_s"], "seconds": span,
+                     "requests_per_s": len(ok) / span, "latency_ms_p50": _pct(lat, 50),
+                     "latency_ms_p99": _pct(lat, 99), "decode_ms": ok[0]["decode_ms"],
+                     "launches": launches,
+                     "top1": [r["top1"] for r in ok], "score": [r["detector_score"] for r in ok]}
+        log(f"[serve] file mode {name} ({SERVE_N} PNGs + 1 missing, {' '.join(SERVE_FLAGS)}): "
+            f"ready after {ready['startup_s']:.1f} s; {res[name]['requests_per_s']:.1f} "
+            f"requests/s after the ready line ({span:.2f} s); latency_ms p50 "
+            f"{res[name]['latency_ms_p50']:.2f}, p99 {res[name]['latency_ms_p99']:.2f}; "
+            f"decode_ms {res[name]['decode_ms']:.1f} (the drain); launches {launches}")
+    seq, ovl = res["batch 128"], res["batch 128 --overlap"]
+    score_diff = max(abs(a - b) for a, b in zip(seq["score"], ovl["score"]))
+    if seq["top1"] != ovl["top1"] or score_diff > OVERLAP_SCORE_TOL:
+        raise AssertionError(f"serve --overlap vs sequential at batch 128: top-1s equal "
+                             f"{seq['top1'] == ovl['top1']}, scores {score_diff:.3e} apart")
+    log(f"[serve] --overlap at batch 128: top-1s equal to the sequential run's, scores "
+        f"{score_diff:.3e} apart (limit {OVERLAP_SCORE_TOL:g})")
+    return res
+
+
+def _serve_drain(started, paths: list[Path], tmp: Path) -> dict:
+    """(c) The line protocol on stdin: 8 requests answered in lockstep, then 8
+    more and SIGTERM at once: the drained requests answered, the shutdown
+    line last, exit 0."""
+    import signal
+
+    proc, _, tag = started
+    _read_ready(started, tmp)
+    for p in paths[:8]:
+        proc.stdin.write(f"{p}\n")
+        proc.stdin.flush()
+        r = json.loads(proc.stdout.readline())
+        if "error" in r or r["request_count"] != 1:
+            raise AssertionError(f"serve {tag}: lockstep response {r}")
+    proc.stdin.write("".join(f"{p}\n" for p in paths[8:16]))
+    proc.stdin.flush()
+    proc.send_signal(signal.SIGTERM)
+    rows, launches = _finish_serve(started, tmp)
+    served = [r for r in rows if "top1" in r]
+    drains, i = 0, 0  # each drain of at most 8 requests is one chunk
+    while i < len(served):
+        i, drains = i + served[i]["request_count"], drains + 1
+    last = {k: v for k, v in rows[-1].items() if k != "t"}
+    want = _serve_launches(8 + drains)
+    if (last != {"shutdown": True, "signal": int(signal.SIGTERM)}
+            or len(served) + 1 != len(rows) or len(served) > 8 or launches != want):
+        raise AssertionError(f"serve {tag}: after SIGTERM {rows}, launches {launches} "
+                             f"(want {want})")
+    log(f"[serve] SIGTERM while streaming on stdin: {len(served)} of the 8 requests in flight "
+        f"answered, then the shutdown line; exit 0")
+    return {"answered_after_signal": len(served), "launches": launches}
+
+
+def _serve_http_load(started, pngs: list[Path], tmp: Path) -> dict:
+    """(b) 8 client threads x 16 POSTs, paths and image_b64 in turn, one bad
+    body; /metrics; SIGTERM drains."""
+    import base64
+    import signal
+    import threading
+    import urllib.error
+    import urllib.request
+
+    proc, _, tag = started
+    ready = _read_ready(started, tmp)
+    url = f"http://{ready['http']['host']}:{ready['http']['port']}"
+    n_req = HTTP_CLIENTS * HTTP_POSTS
+    bodies = []
+    for i, p in enumerate(pngs[:n_req]):
+        body = ({"path": str(p)} if i % 2 == 0
+                else {"image_b64": base64.b64encode(p.read_bytes()).decode()})
+        bodies.append(json.dumps(body).encode())
+    bodies[HTTP_POSTS - 1] = b"{not json"  # client 0's last post
+    results: dict = {}
+
+    def client(c: int) -> None:
+        for i in range(c * HTTP_POSTS, (c + 1) * HTTP_POSTS):
+            req = urllib.request.Request(url + "/classify", data=bodies[i], method="POST",
+                                         headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            try:
+                with urllib.request.urlopen(req, timeout=120) as r:
+                    results[i] = (r.status, json.loads(r.read()), time.perf_counter() - t)
+            except urllib.error.HTTPError as e:
+                results[i] = (e.code, None, time.perf_counter() - t)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(HTTP_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    span = time.perf_counter() - t0
+    with urllib.request.urlopen(url + "/metrics", timeout=30) as r:
+        metrics = {ln.split()[0]: float(ln.split()[1])
+                   for ln in r.read().decode().splitlines() if ln and not ln.startswith("#")}
+    good = [i for i in range(n_req) if i != HTTP_POSTS - 1]
+    bad_ok = results.get(HTTP_POSTS - 1, (None,))[0] == 400
+    errors = [results.get(i) for i in good
+              if i not in results or results[i][0] != 200
+              or "error" in results[i][1]["results"][0]]
+    if any(t.is_alive() for t in threads) or errors or not bad_ok:
+        proc.kill()
+        raise AssertionError(f"serve {tag}: bad body 400 {bad_ok}; failed {errors[:3]}")
+    if not (metrics["serve_images_total"] == len(good)
+            and metrics["serve_batches_total"] < len(good)
+            and metrics["serve_errors_total"] == 0
+            and metrics["serve_decode_errors_total"] == 0
+            and metrics["serve_batch_capacity"] == ready["batch"]):
+        proc.kill()
+        raise AssertionError(f"serve {tag}: /metrics {metrics}")
+    proc.send_signal(signal.SIGTERM)
+    rows, launches = _finish_serve(started, tmp)
+    want = _serve_launches(int(metrics["serve_batches_total"]))
+    if rows[-1]["shutdown"] is not True or launches != want:
+        raise AssertionError(f"serve {tag}: last line {rows[-1]}, launches {launches} "
+                             f"(want {want})")
+    lat_ms = [results[i][2] * 1e3 for i in good]
+    per = [results[i][1]["results"][0]["request_count"] for i in good]
+    res = {"startup_s": ready["startup_s"], "seconds": span, "requests": len(good),
+           "requests_per_s": len(good) / span, "client_ms_p50": _pct(lat_ms, 50),
+           "client_ms_p99": _pct(lat_ms, 99), "metrics": metrics, "launches": launches,
+           "requests_per_batch": len(good) / metrics["serve_batches_total"],
+           "request_count_max": max(per)}
+    log(f"[serve] HTTP --http 0, {HTTP_CLIENTS} clients x {HTTP_POSTS} POSTs (paths and "
+        f"image_b64, one bad body -> 400): {res['requests_per_s']:.1f} requests/s; client ms "
+        f"p50 {res['client_ms_p50']:.1f}, p99 {res['client_ms_p99']:.1f}; /metrics "
+        f"serve_batches_total {metrics['serve_batches_total']:.0f} for "
+        f"{metrics['serve_images_total']:.0f} images ({res['requests_per_batch']:.2f} a batch, "
+        f"device ms {metrics['serve_device_ms_sum']:.1f}); SIGTERM: shutdown line, exit 0; "
+        f"launches {launches}")
+    return res
+
+
+def _serve_card_vs_cpu(pngs: list[Path]) -> dict:
+    """(d) The service function in float32 on the card against the CPU on
+    SERVE_F32_N PNGs (--defend --detector squeezing, and --detector
+    feature); quantize bit-exact at the serving shapes."""
+    import argparse
+    import copy
+    import dataclasses
+
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import serve
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.images import load_image_batch
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses.preprocess import (
+        defend_input, defense_smoothing)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    cpu = load_model(SERVE_MODEL, dtype=torch.float32, device="cpu")
+    card = dataclasses.replace(cpu, model=copy.deepcopy(cpu.model).to(SERVE_DEV),
+                               device=torch.device(SERVE_DEV))
+    x = torch.from_numpy(load_image_batch(pngs[:SERVE_F32_N]))
+    res: dict = {}
+    for mode, (defend, detector) in {"defend+squeezing": (True, "squeezing"),
+                                     "feature": (False, "feature")}.items():
+        args = argparse.Namespace(defend=defend, detector=detector, transfer_uint8=False)
+        on_card = serve._device_get(serve._make_service_fn(*make_fns(card), args)(
+            x.to(SERVE_DEV)))
+        on_cpu = serve._device_get(serve._make_service_fn(*make_fns(cpu), args)(x))
+        diffs = {k: float(max(abs(a - b) / max(1.0, abs(b)) for a, b in
+                              zip(on_card[k].ravel().tolist(), on_cpu[k].ravel().tolist())))
+                 for k in ("probs", "score")}
+        if max(diffs.values()) > SERVE_TOL:
+            raise AssertionError(f"serve card vs CPU {mode}: {diffs} (limit {SERVE_TOL:g})")
+        rec = {"max_rel_diff": diffs}
+        if defend:
+            with torch.no_grad():
+                lg = make_fns(cpu)[0](defend_input(x)).sort(dim=-1).values
+            margin = (lg[:, -1] - lg[:, -2]).tolist()
+            differ = [i for i in range(SERVE_F32_N)
+                      if on_card["defended_pred"][i] != on_cpu["defended_pred"][i]]
+            near = [i for i in differ if margin[i] <= SERVE_TOL * max(1.0, abs(float(lg[i, -1])))]
+            if differ != near:
+                raise AssertionError(f"serve card vs CPU: defended top-1 differs at {differ}, "
+                                     f"margins {margin}")
+            rec.update({"defended_differ": differ, "defended_margin_min": min(margin)})
+        res[mode] = rec
+        log(f"[serve] service card vs CPU, float32, {SERVE_F32_N} PNGs, {mode}: probabilities "
+            f"{diffs['probs']:.2e}, scores {diffs['score']:.2e} apart (limit {SERVE_TOL:g})"
+            + ("" if not defend else f"; defended top-1 equal but at near-ties "
+               f"{rec['defended_differ']} (smallest margin {rec['defended_margin_min']:.3e})"))
+
+    if SERVE_DEV == "cuda":  # the kernel against its plain version, outside the counted run
+        for b in (8, SHAPE[0]):
+            shape = (b, 224, 224, 3)
+            xq = torch.rand(shape, generator=generator_from_seed(24 + b, "cuda"), device="cuda")
+            xq = defense_smoothing(xq * 1.2 - 0.1)  # what --defend quantizes, out of range too
+            ties = (torch.arange(xq.numel() // 13, device="cuda") % (LEVELS - 1)).float()
+            xq.view(-1)[::13][:ties.numel()] = (ties + 0.5) / (LEVELS - 1)
+            if not torch.equal(ew.quantize(xq, LEVELS), ew.quantize_plain(xq, LEVELS)):
+                raise AssertionError(f"quantize at {list(shape)} differs from its plain version")
+            res[f"quantize {list(shape)}"] = "bit-exact"
+        log("[serve] quantize at [8,224,224,3] and [128,224,224,3]: bit-exact with ties and "
+            "values outside [0,1]")
+    return res
+
+
+def _serve_counted(pngs: list[Path], tmp: Path) -> dict:
+    """(d) The serve CLI's main in this process, file mode at --batch 8 on
+    SERVE_COUNTED_N PNGs and a missing path: exactly 2 x (chunks + 1)
+    quantize launches (the counted run of the kernels line)."""
+    import contextlib
+    import io
+    import signal
+
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli import serve
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    req = tmp / "counted.txt"
+    req.write_text("".join(f"{p}\n" for p in pngs[:SERVE_COUNTED_N]) + f"{tmp}/missing.png\n")
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    buf = io.StringIO()
+    ew.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            code = serve.main([*SERVE_CLI_EXTRA, "--batch", "8", *SERVE_FLAGS,
+                               "--input", str(req)])
+        if SERVE_DEV == "cuda":
+            torch.cuda.synchronize()
+    finally:
+        for s, h in handlers.items():  # main() installs its own
+            signal.signal(s, h)
+    seconds = time.perf_counter() - t0
+    launches = ew.launch_counts()
+    rows = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    ok = [r for r in rows[1:] if "error" not in r]
+    want = _serve_launches(SERVE_COUNTED_N // 8)
+    if (code != 0 or len(ok) != SERVE_COUNTED_N or len(rows) != SERVE_COUNTED_N + 2
+            or launches != want):
+        raise AssertionError(f"serve main in process: exit {code}, {len(ok)} ok of "
+                             f"{len(rows) - 1}, launches {launches} (want {want})")
+    log(f"[serve] the CLI's main in process, file mode, --batch 8 {' '.join(SERVE_FLAGS)} on "
+        f"{SERVE_COUNTED_N} PNGs + 1 missing: {seconds:.1f} s with its warm-up; launches "
+        f"{launches} = 2 x ({SERVE_COUNTED_N // 8} chunks + 1 warm-up) quantize")
+    return {"seconds": seconds, "launches": launches}
+
+
+def _import_weights_start(tmp: Path):
+    """(e) A float32 ResNet-50 .pth from the seeded random init, and the
+    import_weights CLI on it with --verify, started."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.models import zoo
+
+    sd = zoo.random_init_(zoo.build_model(SERVE_MODEL)).state_dict()
+    pth = tmp / f"{SERVE_MODEL}.pth"
+    torch.save(sd, pth)
+    out = tmp / "imported.msgpack"
+    cmd = [sys.executable, "-m", f"{PKG}.cli.import_weights", SERVE_MODEL, str(pth), "--out",
+           str(out), "--verify", *(["--device", "cpu"] if SERVE_DEV == "cpu" else [])]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return {"proc": proc, "t0": time.perf_counter(), "sd": sd, "pth": pth, "out": out}
+
+
+def _import_weights_finish(st: dict, tmp: Path) -> dict:
+    """(e) The CLI's lines; the file reloaded through the zoo bit-equal to
+    the .pth; a weights dir holding only the .pth gets its .msgpack (the
+    import's bytes) and the second load says source="cache"."""
+    import re
+
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import make_logits_fn
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+
+    out, err = st["proc"].communicate(timeout=600)
+    seconds = time.perf_counter() - st["t0"]
+    lines = out.strip().splitlines()
+    verify = [(int(i), float(q)) for i, q in re.findall(r"\((\d+), ([0-9.e-]+)\)", lines[-1])]
+    if (st["proc"].returncode != 0 or lines[0] != f"converted {st['pth']} -> {st['out']}"
+            or not lines[-1].startswith("verify: top-5 on a white image: ") or len(verify) != 5):
+        raise AssertionError(f"import_weights exit {st['proc'].returncode}:\n{out}\n{err[-3000:]}")
+
+    def same(bundle) -> bool:
+        got = bundle.model.state_dict()
+        return set(got) == set(st["sd"]) and all(torch.equal(got[k].cpu(), st["sd"][k])
+                                                 for k in got)
+
+    t0 = time.perf_counter()
+    b = load_model(SERVE_MODEL, dtype=torch.float32, weights=st["out"], device=SERVE_DEV)
+    load_s = time.perf_counter() - t0
+    if b.source != "cache" or not same(b):
+        raise AssertionError(f"the imported msgpack: source {b.source}, tensors bit-equal "
+                             f"{same(b)}")
+    with torch.no_grad():
+        x = torch.ones((1, 224, 224, 3), device=SERVE_DEV)
+        probs = torch.softmax(make_logits_fn(b.model, b.mean, b.std)(x), -1)[0].cpu().numpy()
+    top5 = np.argsort(-probs)[:5]
+    if any(abs(q - float(probs[i])) > 1e-4 for i, q in verify):
+        raise AssertionError(f"--verify printed {verify}; this process reads "
+                             f"{[(int(i), float(probs[i])) for i in top5]}")
+    wdir = tmp / "weights"
+    wdir.mkdir()
+    (wdir / f"{SERVE_MODEL}.pth").symlink_to(st["pth"])
+    saved = os.environ.get("ADV_TPU_WEIGHTS_DIR")
+    os.environ["ADV_TPU_WEIGHTS_DIR"] = str(wdir)
+    try:
+        t0 = time.perf_counter()
+        first = load_model(SERVE_MODEL, dtype=torch.float32, device=SERVE_DEV)
+        convert_s = time.perf_counter() - t0
+        cache = wdir / f"{SERVE_MODEL}.msgpack"
+        written = cache.is_file() and cache.read_bytes() == st["out"].read_bytes()
+        t0 = time.perf_counter()
+        second = load_model(SERVE_MODEL, dtype=torch.float32, device=SERVE_DEV)
+        cache_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del os.environ["ADV_TPU_WEIGHTS_DIR"]
+        else:
+            os.environ["ADV_TPU_WEIGHTS_DIR"] = saved
+    if not (first.source == "converted" and written and second.source == "cache"
+            and same(first) and same(second)):
+        raise AssertionError(f"the zoo's cache: sources {first.source} / {second.source}, the "
+                             f"import's bytes written {written}")
+    res = {"cli_s": seconds, "reload_s": load_s, "convert_and_cache_s": convert_s,
+           "cache_load_s": cache_s, "verify": verify}
+    log(f"[serve] import_weights {SERVE_MODEL} float32 .pth -> msgpack --verify (subprocess): "
+        f"exit 0 in {seconds:.1f} s; {lines[-1]}; reloaded through the zoo in {load_s:.2f} s, "
+        f"every tensor bit-equal to the .pth; a weights dir with only the .pth: 'converted' in "
+        f"{convert_s:.2f} s writing the import's bytes, then 'cache' in {cache_s:.2f} s")
+    return res
+
+
+def phase_serve(pngs: list[Path]) -> dict:
+    """Phase 24: serving and weight import."""
+    res: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        lines = [str(p) for p in pngs[:SERVE_N // 2]] + [str(tmp / "missing.png")] + [
+            str(p) for p in pngs[SERVE_N // 2:SERVE_N]]
+        # every process starts at once; each then waits (on its FIFO, stdin or
+        # socket) until the parent drives it, one at a time
+        fifos, started = {}, {}
+        for i, (name, args) in enumerate(SERVE_RUNS.items()):
+            fifos[name] = tmp / f"requests{i}"
+            os.mkfifo(fifos[name])
+            started[name] = _start_serve(tmp, f"file{i}", *args, *SERVE_FLAGS, "--input",
+                                         str(fifos[name]))
+        http = _start_serve(tmp, "http", "--http", "0", *SERVE_FLAGS)
+        drain = _start_serve(tmp, "drain", "--batch", "8", *SERVE_FLAGS, stdin=True)
+        imported = _import_weights_start(tmp)
+        try:
+            res["d"] = _serve_card_vs_cpu(pngs)
+            res["d"]["counted"] = _serve_counted(pngs, tmp)
+            res["e"] = _import_weights_finish(imported, tmp)
+            res["a"] = _serve_file_runs(started, fifos, lines, tmp)
+            res["c"] = _serve_drain(drain, pngs, tmp)
+            res["b"] = _serve_http_load(http, pngs, tmp)
+        finally:
+            for proc in [st[0] for st in started.values()] + [http[0], drain[0],
+                                                             imported["proc"]]:
+                proc.kill()
+                proc.wait()
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=str, default=None,
@@ -4641,8 +5236,9 @@ def main(argv=None) -> int:
         record["certified"] = run("certified", phase_certified, state, pngs)
         record["detector_corruption"] = run("detector_corruption", phase_detector_corruption,
                                             state, pngs)
-    record["cifar"] = run("cifar", phase_cifar, smi)
-    record["train"] = run("train", phase_train)
+        record["cifar"] = run("cifar", phase_cifar, smi)
+        record["train"] = run("train", phase_train)
+        record["serve"] = run("serve", phase_serve, pngs)
 
     # the elementwise kernels' main path: PGD-10, the eight cells, the
     # streamed pgd cell, the visualize path's PGD-20 and trajectory, the
@@ -4656,7 +5252,9 @@ def main(argv=None) -> int:
     # phase 22's WRN-28-10 PGD-10 and cell, its grid CLI (launches printed by
     # the subprocess) and its in-process robust_eval, phase 23's PGD-AT steps,
     # its in-process WRN-28-10 TRADES CLI and the MART, free, IBP and
-    # CROWN-IBP steps; the conv's: the probe's entry point
+    # CROWN-IBP steps, phase 24's serve CLIs (file mode, HTTP and the drain
+    # in subprocesses that print their launches, and main in process); the
+    # conv's: the probe's entry point
     detector_cells = ("adaptive", "detector_aware", "squeezing", "mahalanobis")
     ta, zoo, bb = record["transfer_attacks"], record["zoo"], record["black_box"]
     cert, p21, p22 = record["certified"], record["detector_corruption"], record["cifar"]
@@ -4677,7 +5275,9 @@ def main(argv=None) -> int:
             p21["cli"]["detector_f32_resident"], p21["cli"]["detector_f32_streamed"],
             p22["wrn"]["pgd"], p22["wrn"]["cell"], p22["cli"]["grid_cli"],
             p22["cli"]["robust_eval"],
-            record["train"]["a"], record["train"]["c"], *record["train"]["d"].values()]
+            record["train"]["a"], record["train"]["c"], *record["train"]["d"].values(),
+            *record["serve"]["a"].values(), record["serve"]["b"], record["serve"]["c"],
+            record["serve"]["d"]["counted"]]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

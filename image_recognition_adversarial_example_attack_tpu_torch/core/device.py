@@ -21,6 +21,17 @@ def resolve_device(device: torch.device | str | None = None) -> torch.device:
     return dev
 
 
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A CPU tensor on ``device``: itself on the CPU; on a card copied into
+    a fresh pinned buffer and sent with ``non_blocking=True``, so the copy
+    overlaps the card's work.  The buffer comes from PyTorch's pinned-memory
+    cache, which hands it out again only once the copy reading it has
+    finished."""
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the work queued on ``device`` (a no-op on the CPU): a host
     clock that ends here measures the work, not its enqueueing."""

@@ -13,6 +13,7 @@ the rows the native decoder cannot.
 
 from __future__ import annotations
 
+import io
 import os
 import sys
 from pathlib import Path
@@ -56,6 +57,14 @@ def load_image(path: str | Path, size: int = IMAGE_SIZE) -> np.ndarray:
     with Image.open(path) as img:
         arr = preprocess_pil(img, crop=size, resize=_resize_for(size))
     return arr[None]
+
+
+def load_image_bytes(raw: bytes, size: int = IMAGE_SIZE) -> np.ndarray:
+    """Encoded image bytes -> [size, size, 3] float32 in [0,1], with
+    ``load_image``'s resize and crop at every size, so that serve's
+    ``image_b64`` requests see the pixels a path request sees."""
+    with Image.open(io.BytesIO(raw)) as img:
+        return preprocess_pil(img, crop=size, resize=_resize_for(size))
 
 
 def list_images(image_dir: str | Path) -> list[Path]:
@@ -114,6 +123,17 @@ def load_image_batch_tolerant(paths: Sequence[str | Path],
     if not arrays:
         raise ValueError("no readable images in batch")
     return np.concatenate(arrays, axis=0), good
+
+
+def pad_batch(x: np.ndarray, multiple: int) -> tuple[np.ndarray, int]:
+    """Pad the batch dim up to a multiple of ``multiple`` by repeating the
+    last image (for an even split over devices). Returns (padded, n_valid);
+    callers slice results back to ``n_valid``."""
+    n = x.shape[0]
+    if multiple <= 1 or n % multiple == 0:
+        return x, n
+    pad = multiple - (n % multiple)
+    return np.concatenate([x, np.repeat(x[-1:], pad, axis=0)], axis=0), n
 
 
 def save_image_01(x, path: str | Path) -> None:

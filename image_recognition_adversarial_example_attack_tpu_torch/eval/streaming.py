@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from ..core.constants import IMAGE_SIZE
-from ..core.device import synchronize
+from ..core.device import synchronize, to_device
 from ..core.rng import chunk_generator
 from ..utils.pipeline import EvalBatchPipeline
 from .defense_eval import STAT_KEYS, DefenseEvalConfig, evaluate_defenses_batch
@@ -73,10 +73,9 @@ def _merge_labels(y_np: np.ndarray | None, pseudo: torch.Tensor) -> torch.Tensor
 def make_placer(device: torch.device | str, transfer_uint8: bool | None = None) -> Placer:
     """host chunk (numpy float32 NHWC) -> float32 tensor on ``device``.
 
-    On a card each chunk is copied into a fresh pinned buffer and sent with
-    ``non_blocking=True``.  The buffer comes from PyTorch's pinned-memory
-    cache, which hands it out again only once the copy reading it has
-    finished, so a later chunk never overwrites a copy in flight.
+    On a card each chunk goes through ``core.device.to_device``: a fresh
+    pinned buffer sent with ``non_blocking=True``, so a later chunk never
+    overwrites a copy in flight.
 
     ``transfer_uint8`` (default: the ``ADV_TPU_TRANSFER_UINT8`` environment
     variable, on only for ``1``/``on``/``true``) ships ``round(x*255)`` as
@@ -89,10 +88,7 @@ def make_placer(device: torch.device | str, transfer_uint8: bool | None = None) 
             "1", "on", "true")
 
     def put(a: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if device.type == "cpu":
-            return t
-        return t.pin_memory().to(device, non_blocking=True)
+        return to_device(torch.from_numpy(np.ascontiguousarray(a)), device)
 
     if not transfer_uint8:
         return put

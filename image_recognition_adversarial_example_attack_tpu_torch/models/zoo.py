@@ -22,8 +22,14 @@ Weight resolution for ``load_model(name)``, the JAX zoo's order:
    attack's randomness, never the weights.
 
 Both file kinds load with ``strict=True``: a file with missing or extra
-entries raises instead of loading part of a model.  Unlike the JAX zoo, a
-``.pth`` load writes no ``.msgpack`` cache beside it.
+entries raises instead of loading part of a model.  As in the JAX zoo, a
+``.pth`` load (``cache_converted=True``, the default) then writes the
+converted weights as a Flax msgpack file to
+``$ADV_TPU_WEIGHTS_DIR/<name>.msgpack``, so the next load finds the cache
+(``source="cache"``) in either package; ``cli/import_weights.py`` loads with
+``cache_converted=False`` and writes the file itself.  A ``.pth`` is
+refused (ValueError) for a name that the JAX package has no converter for
+(``CONVERTIBLE``: not ``tiny``, ``wrn_tiny`` or the IBP nets).
 
 The random init draws Flax's default distributions (LeCun-normal kernels,
 the packed qkv projection's with fan-in D; unit BatchNorm and LayerNorm
@@ -65,11 +71,11 @@ from torch import nn
 from ..core.constants import (CIFAR10_MEAN, CIFAR10_STD, IMAGE_SIZE, IMAGENET_MEAN,
                               IMAGENET_STD)
 from ..core.device import resolve_device
-from .convert import from_jax_variables, load_torch_checkpoint
+from .convert import from_jax_variables, load_torch_checkpoint, to_jax_variables
 from .convnext import CNBlock, convnext_tiny
 from .densenet import densenet121
 from .efficientnet import efficientnet_b0
-from .flax_msgpack import read_variables
+from .flax_msgpack import read_variables, save_variables
 from .ibp import IBPNet, ibp_cnn7, ibp_tiny
 from .mobilenet import mobilenet_v2
 from .preactresnet import preact_resnet18
@@ -142,6 +148,15 @@ _META: dict[str, dict] = {
     "ibp_tiny": {"input_size": 32, "mean": np.zeros(3, np.float32),
                  "std": np.ones(3, np.float32)},
 }
+
+
+# the names a torchvision ``.pth`` converts for: the keys of the JAX
+# package's ``models/convert.py::RENAMES``
+CONVERTIBLE = frozenset({
+    "resnet50", "resnet50_robust", "resnet_tiny", "vgg19", "vit_b_16", "swin_t",
+    "densenet121", "efficientnet_b0", "mobilenet_v2", "convnext_tiny", "wrn28_10",
+    "wrn34_10", "wrn28_10_robust", "preact_resnet18",
+})
 
 
 def model_meta(name: str) -> dict:
@@ -225,9 +240,9 @@ def set_compute_dtype(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 def load_model(name: str, dtype: torch.dtype = torch.float32,
                weights: str | Path | None = None,
                device: torch.device | str | None = "cuda",
-               int8: bool = False) -> ModelBundle:
+               int8: bool = False, cache_converted: bool = True) -> ModelBundle:
     """Resolve a model by name; see the module docstring for the order
-    (and for ``int8``).
+    (and for ``int8`` and ``cache_converted``).
 
     float32 means float32 on the card too: TF32 is turned off for cuDNN
     convolutions and cuBLAS matmuls, which PyTorch otherwise allows for
@@ -253,10 +268,16 @@ def load_model(name: str, dtype: torch.dtype = torch.float32,
         if path.suffix == ".msgpack":
             state, source = from_jax_variables(read_variables(path), model_family(name)), "cache"
         elif path.suffix in (".pth", ".pt"):
+            if name not in CONVERTIBLE:
+                raise ValueError(f"no torch->flax converter registered for '{name}'")
             state, source = load_torch_checkpoint(path), "converted"
         else:
             continue
         model.load_state_dict(state, strict=True)
+        if source == "converted" and cache_converted:
+            # still float32 here: the cache holds the checkpoint's values
+            save_variables(to_jax_variables(model, model_family(name)),
+                           weights_dir() / f"{name}.msgpack")
         break
     else:
         warnings.warn(

@@ -181,7 +181,8 @@ def test_search_order_and_source_as_jax(layout, want, tmp_path, monkeypatch):
         winner = cache
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
-        bundle = zoo.load_model("resnet_tiny", weights=weights, device="cpu")
+        bundle = zoo.load_model("resnet_tiny", weights=weights, device="cpu",
+                                cache_converted=False)
         theirs = jax_zoo.load_model("resnet_tiny", weights=weights, cache_converted=False)
     assert bundle.source == theirs.source == want
     if winner is not None:

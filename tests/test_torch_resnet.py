@@ -113,14 +113,16 @@ def test_bridge_layouts(tiny64):
                                   variables["params"]["layer1_0"]["bn3"]["scale"])
 
 
-def test_zoo_loads_a_pth_with_wrapper_prefixes(tmp_path, tiny64):
+def test_zoo_loads_a_pth_with_wrapper_prefixes(tmp_path, tiny64, monkeypatch):
     _, variables = tiny64
     sd = {f"module.{k}": v.float() if v.is_floating_point() else v
           for k, v in from_jax_variables(variables, "resnet").items()}
     path = tmp_path / "tiny.pth"
     torch.save(sd, path)
+    monkeypatch.setenv("ADV_TPU_WEIGHTS_DIR", str(tmp_path))  # where the cache goes
     b = load_model("resnet_tiny", weights=path, device="cpu")
     assert b.source == "converted" and b.device.type == "cpu"
+    assert (tmp_path / "resnet_tiny.msgpack").is_file()
     want = strip_prefixes(sd)
     got = b.model.state_dict()
     assert set(got) == set(want)
