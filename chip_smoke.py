@@ -154,9 +154,10 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    and (b) run twice from the same generator, bit-equal; the float32 input
    gradient at batch 32 three times with cuDNN's default and deterministic
    algorithms (equal with the latter, the suite CLI's setting); (d) the
-   attack_suite CLI in a subprocess on 32 of phase 8's PNGs with the eleven
-   new names and fgsm, budgets cut to ``--steps 5 --n_target_classes 3
-   --deepfool_steps 5 --cw_steps 10 --jsma_steps 10 --stadv_steps 20``
+   attack_suite CLI in a subprocess (started with the phase) on 32 of
+   phase 8's PNGs with the eleven new names and fgsm, budgets cut to
+   ``--steps 5 --n_target_classes 3 --deepfool_steps 5 --cw_steps 10
+   --jsma_steps 10 --stadv_steps 20``
    (printed; the JAX CLI's header, rows and JSON keys); the same command
    in this process with and without deterministic cuDNN (reruns still
    bit-equal, each attack's steady seconds beside the subprocess's); in
@@ -178,7 +179,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    ``steps`` pgd_step launches for nes, spsa and bandits and none else,
    rerun from the same generator bit-equal; the EOT wrapper's host read
    (wrapped calls against the same calls with no read); (c) the robust_eval
-   CLI in three subprocesses started together, ``--protocol lite``,
+   CLI in three subprocesses started together with the phase, ``--protocol lite``,
    ``standard`` and ``rand`` at two eps on 32 PNGs, budgets cut to
    ``--apgd_steps 10 --square_steps 100 --fab_steps 10 --n_target_classes 3
    --deepfool_steps 10 --eot_samples 4`` (printed): the console lines, the
@@ -194,8 +195,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    attack_suite CLI on 32, in this process, with ``--attacks square simba
    hsja`` at cut budgets (printed): six summary lines, simba's cell
    computed once, one quantize launch a computed cell, no other launch;
-   then the group's 14 cuda tests (``tests/test_torch_cuda.py``) in a
-   subprocess, every one passed.
+   and the group's 14 cuda tests (``tests/test_torch_cuda.py``) in a
+   subprocess started with the phase, every one passed.
 20. certified -- universal threat models and certification at full width:
    (a) ``uap_attack`` on ResNet-50 bf16, 128 images in batches of 32, 4
    epochs, eps 10/255: |delta|inf <= eps, the fooling rate in [0,1], s per
@@ -302,6 +303,33 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    file reloaded bit-equal, and a weights dir holding only the ``.pth``
    getting its ``.msgpack`` (the import's bytes), the second load
    ``source="cache"``.
+25. scale-out -- on the one card, (a)-(b) in subprocesses started with
+   (c)-(d) in this process: (a) a process joined through the env contract
+   (``maybe_initialize_distributed``: NCCL at world size 1) runs the pgd ->
+   smoothing + quantization -> feature detector cell on ResNet-50 bf16 at
+   [128,224,224,3] over a data mesh of two slots of the card (20 pgd_step, 2
+   noise, 2 quantize launches), each 64-row shard bit-equal (cuDNN
+   deterministic) to a one-device run on its rows with its rows of the
+   whole batch's draws, the summed counters equal to theirs and all-reduced
+   through NCCL; pgd_step and quantize bit-exact and the noise's offset
+   draws bit-equal to the whole draw at [64,224,224,3]; PGD-10 ex/s over two
+   slots beside one slot's (the sharded path's overhead on one card); (b)
+   two ranks on the card over gloo: one PGD-AT step of ResNet-50 bf16 at
+   batch 32 (16 rows a rank, 7 pgd_step and 1 noise launches each) against
+   the one-process step on the 32 rows (the summed gradient within 0.1 of
+   its norm, the parameters within 0.6 of the step's move: limits between
+   the sound and the planted faults' readings,
+   ``scripts/scaleout_fault_readings.py``), the ranks' and the one-process
+   step's ms, FGSM counters summed over the ranks equal to the one-process
+   ones; (c) ViT-B/16 and ResNet-50 float32 (TF32 off) at
+   [32,224,224,3] over a 1x2 mesh of the card: the cut layers' shards half
+   their weights, logits within 1e-4 (abs + rel) of the replicated
+   model's, ViT's PGD-3 within 2e-5 but at pixels whose gradient sign
+   flipped (at most 1e-4 of them), TP forward ms beside replicated; (d)
+   ``entry.dryrun_multichip(4)`` and its JSON line, its launches counted.
+   Room for it: phase 18's attack_suite subprocess, phase 19's cuda tests
+   and its three robust_eval subprocesses now start with their phases
+   (printed).
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -311,6 +339,7 @@ package beside it, it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -565,7 +594,7 @@ def phase_kernels() -> dict:
                      "of eps^2/3, |corr| < 1e-3, 101 quantiles within 5e-3 eps",
         "mean": mean, "var": var, "corr": corr,
         "ms": time_ms(lambda: lib.uniform_noise_launch(
-            out.data_ptr(), numel, 12345, EPS, stream)),
+            out.data_ptr(), numel, 12345, EPS, 0, stream)),
         "plain_ms": time_ms(lambda: ew.uniform_noise_plain(shape, EPS, g3)),
         "library_ms": time_ms(lambda: torch.empty(shape, device=dev).uniform_(-EPS, EPS)),
         "library_call": "torch.Tensor.uniform_",
@@ -2517,6 +2546,29 @@ def phase_white_box_zoo(state: dict, pngs: list[Path]) -> dict:
     threat models, launches and bit-equal reruns, then the attack_suite CLI
     (with and without deterministic cuDNN; float32) and the grid CLI with
     four of them."""
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+
+    x, y = state["x"], state["y"]
+    lf = make_fns(state["bundle"])[0]
+    res: dict = {"a": {}, "b": {}}
+    zero = {"pgd_step": 0, "quantize": 0, "uniform_noise": 0}
+    # (d)'s subprocess starts first and runs beside (a)-(c) (phase 25's trim)
+    with tempfile.TemporaryDirectory() as tmp:
+        img32 = _linked(pngs[:SUITE_N], Path(tmp) / "png32")
+        out_json = Path(tmp) / "suite.json"
+        suite = _start_cli_module("attack_suite", "--image_dir", str(img32), "--attacks",
+                                  *SUITE_ATTACKS, *SUITE_CUT, "--output", str(out_json))
+        try:
+            _zoo_rest(state, pngs, res, lf, zero, x, y, tmp, img32, out_json, suite)
+        finally:
+            suite[0].kill()
+            suite[0].wait()
+    return res
+
+
+def _zoo_rest(state: dict, pngs: list[Path], res: dict, lf, zero: dict, x, y, tmp: str,
+              img32: Path, out_json: Path, suite: tuple) -> None:
+    """Phase 18 beside its attack_suite subprocess ``suite``: (a)-(e)."""
     import contextlib
     import re
     from unittest import mock
@@ -2527,12 +2579,6 @@ def phase_white_box_zoo(state: dict, pngs: list[Path]) -> dict:
         ATTACK_THREAT, AttackParams, pgd_multi_restart, run_attack)
     from image_recognition_adversarial_example_attack_tpu_torch.cli import (
         attack_suite, defense_experiments)
-    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
-
-    x, y, batch = state["x"], state["y"], state["x"].shape[0]
-    lf = make_fns(state["bundle"])[0]
-    res: dict = {"a": {}, "b": {}}
-    zero = {"pgd_step": 0, "quantize": 0, "uniform_noise": 0}
 
     # (a) batch 128
     for name, (eps, alpha, noise) in ZOO_A.items():
@@ -2565,139 +2611,134 @@ def phase_white_box_zoo(state: dict, pngs: list[Path]) -> dict:
 
     # (d) the suite CLI: bf16 in a subprocess, then without deterministic
     # cuDNN and in float32 in process
-    with tempfile.TemporaryDirectory() as tmp:
-        img32 = _linked(pngs[:SUITE_N], Path(tmp) / "png32")
-        out_json = Path(tmp) / "suite.json"
-        log(f"[zoo] cut: the suite CLI runs {' '.join(SUITE_CUT)} (defaults {STEPS}, 9, 50, "
-            f"100, 100, 200)")
-        out, seconds = _run_cli_module("attack_suite", "--image_dir", str(img32), "--attacks",
-                                       *SUITE_ATTACKS, *SUITE_CUT, "--output", str(out_json))
-        rows = _suite_rows(out, SUITE_ATTACKS)
-        data = json.loads(out_json.read_text())
-        if (set(data) != SUITE_KEYS or data["count"] != SUITE_N
-                or any(set(r) != SUITE_ROW_KEYS for r in data["results"])):
-            raise AssertionError(f"attack_suite JSON keys {sorted(data)}")
-        res["suite_cli"] = {"seconds": seconds, "rows": list(rows.values()),
-                            "results": data["results"]}
-        log(f"[zoo] attack_suite CLI (subprocess), {SUITE_N} PNGs, 12 attacks, "
-            f"cudnn.deterministic: exit 0 in {seconds:.1f} s")
-        for ln in rows.values():
-            log(f"[zoo]   {ln}")
+    log(f"[zoo] cut: the suite CLI runs {' '.join(SUITE_CUT)} (defaults {STEPS}, 9, 50, "
+        f"100, 100, 200); trim: it started with the phase")
+    out, seconds = _finish_cli_module(suite)
+    rows = _suite_rows(out, SUITE_ATTACKS)
+    data = json.loads(out_json.read_text())
+    if (set(data) != SUITE_KEYS or data["count"] != SUITE_N
+            or any(set(r) != SUITE_ROW_KEYS for r in data["results"])):
+        raise AssertionError(f"attack_suite JSON keys {sorted(data)}")
+    res["suite_cli"] = {"seconds": seconds, "rows": list(rows.values()),
+                        "results": data["results"]}
+    log(f"[zoo] attack_suite CLI (subprocess), {SUITE_N} PNGs, 12 attacks, "
+        f"cudnn.deterministic: exit 0 in {seconds:.1f} s")
+    for ln in rows.values():
+        log(f"[zoo]   {ln}")
 
-        # the same command twice in process, as shipped and with cuDNN's
-        # default algorithms: the setting's cost row by row (steady_s, each
-        # attack's second call), both runs in one process state
-        if torch.backends.cudnn.deterministic:
-            raise AssertionError("cudnn.deterministic left on before the suite's comparison")
-        inproc = {}
-        for mode, ctx in (("deterministic", attack_suite._deterministic_cudnn),
-                          ("default", contextlib.nullcontext)):
-            path = Path(tmp) / f"suite_{mode}.json"
-            with mock.patch.object(attack_suite, "_deterministic_cudnn", ctx):
-                out, seconds, counts = _in_process_cli(attack_suite.main, [
-                    "--image_dir", str(img32), "--attacks", *SUITE_ATTACKS, *SUITE_CUT,
-                    "--output", str(path)])
-            # two calls each of apgd, apgd_dlr and pgd_l1 (1 start) and of
-            # apgd_t and fab (3 targets)
-            want = {**zero, "uniform_noise": 2 * (3 + 2 * 3)}
-            if counts != want:
-                raise AssertionError(f"attack_suite in process, cuDNN {mode}: launches {counts} "
-                                     f"(want {want})")
-            inproc[mode] = {"seconds": seconds, "launches": counts,
-                            "rows": list(_suite_rows(out, SUITE_ATTACKS).values()),
-                            "results": json.loads(path.read_text())["results"]}
-        steady = {r["attack"]: (r["steady_s"], d["steady_s"], n["steady_s"]) for r, d, n in zip(
-            data["results"], inproc["deterministic"]["results"], inproc["default"]["results"])}
-        res["suite_inproc"] = inproc
-        res["suite_steady_s"] = steady
-        log(f"[zoo] attack_suite CLI in process: {inproc['deterministic']['seconds']:.1f} s "
-            f"with cudnn.deterministic, {inproc['default']['seconds']:.1f} s without (reruns "
-            f"bit-equal); steady s subprocess / in process with / without: " + ", ".join(
-                f"{k} {a:.3f}/{d:.3f}/{n:.3f}" for k, (a, d, n) in steady.items())
-            + "; sums " + "/".join(f"{sum(v[i] for v in steady.values()):.3f}" for i in range(3)))
-
-        three = ("fgsm", "apgd", "pgd_l1")
-        f32 = {}
-        for mode, extra, want_noise in (("one batch", [], 4),
-                                        ("streamed", ["--max_batch", str(SUITE_CHUNK)], 4)):
-            path = Path(tmp) / f"suite_{mode[0]}.json"
+    # the same command twice in process, as shipped and with cuDNN's
+    # default algorithms: the setting's cost row by row (steady_s, each
+    # attack's second call), both runs in one process state
+    if torch.backends.cudnn.deterministic:
+        raise AssertionError("cudnn.deterministic left on before the suite's comparison")
+    inproc = {}
+    for mode, ctx in (("deterministic", attack_suite._deterministic_cudnn),
+                      ("default", contextlib.nullcontext)):
+        path = Path(tmp) / f"suite_{mode}.json"
+        with mock.patch.object(attack_suite, "_deterministic_cudnn", ctx):
             out, seconds, counts = _in_process_cli(attack_suite.main, [
-                "--image_dir", str(img32), "--attacks", *three, "--model-dtype", "float32",
-                "--output", str(path), *extra])
-            data = json.loads(path.read_text())
-            want_keys = SUITE_STREAM_KEYS if extra else SUITE_KEYS
-            # apgd's and pgd_l1's starts: two calls one batch, two chunks streamed
-            want = {**zero, "uniform_noise": want_noise}
-            if set(data) != want_keys or counts != want:
-                raise AssertionError(f"attack_suite {mode}: keys {sorted(data)}, launches "
-                                     f"{counts} (want {want})")
-            f32[mode] = {"seconds": seconds, "launches": counts,
-                         "rows": list(_suite_rows(out, three).values()),
-                         "results": data["results"]}
-            log(f"[zoo] attack_suite CLI float32 {mode} (fgsm apgd pgd_l1, {SUITE_N} PNGs"
-                + (f", chunks of {SUITE_CHUNK}" if extra else "") + f"): {seconds:.1f} s in "
-                f"process; launches {counts}")
-            for ln in f32[mode]["rows"]:
-                log(f"[zoo]   {ln}")
-        asr = {m: f32[m]["results"][0]["asr"] for m in f32}
-        # float32 reruns of the six attacks no run above checks there: the
-        # CLI raises unless each attack's two calls are bit-equal
-        log(f"[zoo] cut: float32 {' '.join(SUITE_F32_REST)} run {' '.join(SUITE_F32_CUT)}")
-        path = Path(tmp) / "suite_f32_rest.json"
-        out, seconds, counts = _in_process_cli(attack_suite.main, [
-            "--image_dir", str(img32), "--attacks", *SUITE_F32_REST, *SUITE_F32_CUT,
-            "--model-dtype", "float32", "--output", str(path)])
-        want = {**zero, "uniform_noise": 2 * 2}  # fab's 2 targets, two calls
+                "--image_dir", str(img32), "--attacks", *SUITE_ATTACKS, *SUITE_CUT,
+                "--output", str(path)])
+        # two calls each of apgd, apgd_dlr and pgd_l1 (1 start) and of
+        # apgd_t and fab (3 targets)
+        want = {**zero, "uniform_noise": 2 * (3 + 2 * 3)}
         if counts != want:
-            raise AssertionError(f"attack_suite float32 {' '.join(SUITE_F32_REST)}: launches "
-                                 f"{counts} (want {want})")
-        f32["rest"] = {"seconds": seconds, "launches": counts,
-                       "rows": list(_suite_rows(out, SUITE_F32_REST).values()),
-                       "results": json.loads(path.read_text())["results"]}
-        log(f"[zoo] attack_suite CLI float32 {' '.join(SUITE_F32_REST)}: {seconds:.1f} s in "
-            f"process, every rerun bit-equal; launches {counts}")
-        for ln in f32["rest"]["rows"]:
-            log(f"[zoo]   {ln}")
-        if asr["one batch"] != asr["streamed"]:
-            raise AssertionError(f"float32 fgsm ASR streamed {asr['streamed']} != one batch "
-                                 f"{asr['one batch']}")
-        res["suite_f32"] = f32
-        log(f"[zoo] float32 fgsm ASR streamed = one batch: {asr['streamed']:.6f}")
+            raise AssertionError(f"attack_suite in process, cuDNN {mode}: launches {counts} "
+                                 f"(want {want})")
+        inproc[mode] = {"seconds": seconds, "launches": counts,
+                        "rows": list(_suite_rows(out, SUITE_ATTACKS).values()),
+                        "results": json.loads(path.read_text())["results"]}
+    steady = {r["attack"]: (r["steady_s"], d["steady_s"], n["steady_s"]) for r, d, n in zip(
+        data["results"], inproc["deterministic"]["results"], inproc["default"]["results"])}
+    res["suite_inproc"] = inproc
+    res["suite_steady_s"] = steady
+    log(f"[zoo] attack_suite CLI in process: {inproc['deterministic']['seconds']:.1f} s "
+        f"with cudnn.deterministic, {inproc['default']['seconds']:.1f} s without (reruns "
+        f"bit-equal); steady s subprocess / in process with / without: " + ", ".join(
+            f"{k} {a:.3f}/{d:.3f}/{n:.3f}" for k, (a, d, n) in steady.items())
+        + "; sums " + "/".join(f"{sum(v[i] for v in steady.values()):.3f}" for i in range(3)))
 
-        # (e) the grid CLI with four of them, its budgets cut (printed) to
-        # keep the phase near two minutes; (a) and (b) ran the defaults
-        img128 = _linked(pngs[:SHAPE[0]], Path(tmp) / "png128")
-        out_dir = Path(tmp) / "grid"
-        log(f"[zoo] cut: the grid CLI runs --steps {GRID_STEPS} (default {STEPS}) and "
-            f"--deepfool_steps {GRID_DEEPFOOL_STEPS} (default 50)")
-        out, seconds, counts = _in_process_cli(defense_experiments.main, [
-            "--image_dir", str(img128), "--attacks", *GRID_ATTACKS, "--eps_list", *GRID_EPS,
-            "--steps", str(GRID_STEPS), "--deepfool_steps", str(GRID_DEEPFOOL_STEPS),
-            "--viz_samples", "0", "--output_dir", str(out_dir)])
-        summary = re.compile(
-            r"^attack=(apgd|fab|deepfool|pgd_l1), eps=(\d\.\d{5}), attack_success=\d\.\d{3}, "
-            r"preproc_defense_acc=\d\.\d{3}, detector_clean_pass_rate=\d\.\d{3}, "
-            r"detector_adv_flag_rate=\d\.\d{3}, detector_attack_success=\d\.\d{3}$")
-        lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
-        computed = 3 * len(GRID_EPS) + 1  # deepfool: one cell for both eps
-        want = {"pgd_step": 0, "quantize": computed,
-                "uniform_noise": len(GRID_EPS) * (1 + 9 + 1)}
-        reused = out.count("(deepfool is eps-independent: reusing the computed cell)")
-        if (len(lines) != len(GRID_ATTACKS) * len(GRID_EPS)
-                or not all(summary.match(ln) for ln in lines) or counts != want or reused != 1):
-            raise AssertionError(f"grid --attacks {' '.join(GRID_ATTACKS)}: lines {lines}, "
-                                 f"launches {counts} (want {want}), deepfool reused {reused}")
-        cell_s = _cells_s(out_dir)
-        res["grid_cli"] = {"seconds": seconds, "launches": counts, "lines": lines,
-                           "cell_s": cell_s}
-        log(f"[zoo] grid CLI --attacks {' '.join(GRID_ATTACKS)} --eps_list "
-            f"{' '.join(GRID_EPS)} --steps {GRID_STEPS} --deepfool_steps {GRID_DEEPFOOL_STEPS} "
-            f"on {SHAPE[0]} PNGs: {seconds:.1f} s in process; launches "
-            f"{counts} (1 quantize a computed cell); cells " + ", ".join(
-                f"{k} {v:.2f} s" for k, v in cell_s.items()))
-        for ln in lines:
+    three = ("fgsm", "apgd", "pgd_l1")
+    f32 = {}
+    for mode, extra, want_noise in (("one batch", [], 4),
+                                    ("streamed", ["--max_batch", str(SUITE_CHUNK)], 4)):
+        path = Path(tmp) / f"suite_{mode[0]}.json"
+        out, seconds, counts = _in_process_cli(attack_suite.main, [
+            "--image_dir", str(img32), "--attacks", *three, "--model-dtype", "float32",
+            "--output", str(path), *extra])
+        data = json.loads(path.read_text())
+        want_keys = SUITE_STREAM_KEYS if extra else SUITE_KEYS
+        # apgd's and pgd_l1's starts: two calls one batch, two chunks streamed
+        want = {**zero, "uniform_noise": want_noise}
+        if set(data) != want_keys or counts != want:
+            raise AssertionError(f"attack_suite {mode}: keys {sorted(data)}, launches "
+                                 f"{counts} (want {want})")
+        f32[mode] = {"seconds": seconds, "launches": counts,
+                     "rows": list(_suite_rows(out, three).values()),
+                     "results": data["results"]}
+        log(f"[zoo] attack_suite CLI float32 {mode} (fgsm apgd pgd_l1, {SUITE_N} PNGs"
+            + (f", chunks of {SUITE_CHUNK}" if extra else "") + f"): {seconds:.1f} s in "
+            f"process; launches {counts}")
+        for ln in f32[mode]["rows"]:
             log(f"[zoo]   {ln}")
-    return res
+    asr = {m: f32[m]["results"][0]["asr"] for m in f32}
+    # float32 reruns of the six attacks no run above checks there: the
+    # CLI raises unless each attack's two calls are bit-equal
+    log(f"[zoo] cut: float32 {' '.join(SUITE_F32_REST)} run {' '.join(SUITE_F32_CUT)}")
+    path = Path(tmp) / "suite_f32_rest.json"
+    out, seconds, counts = _in_process_cli(attack_suite.main, [
+        "--image_dir", str(img32), "--attacks", *SUITE_F32_REST, *SUITE_F32_CUT,
+        "--model-dtype", "float32", "--output", str(path)])
+    want = {**zero, "uniform_noise": 2 * 2}  # fab's 2 targets, two calls
+    if counts != want:
+        raise AssertionError(f"attack_suite float32 {' '.join(SUITE_F32_REST)}: launches "
+                             f"{counts} (want {want})")
+    f32["rest"] = {"seconds": seconds, "launches": counts,
+                   "rows": list(_suite_rows(out, SUITE_F32_REST).values()),
+                   "results": json.loads(path.read_text())["results"]}
+    log(f"[zoo] attack_suite CLI float32 {' '.join(SUITE_F32_REST)}: {seconds:.1f} s in "
+        f"process, every rerun bit-equal; launches {counts}")
+    for ln in f32["rest"]["rows"]:
+        log(f"[zoo]   {ln}")
+    if asr["one batch"] != asr["streamed"]:
+        raise AssertionError(f"float32 fgsm ASR streamed {asr['streamed']} != one batch "
+                             f"{asr['one batch']}")
+    res["suite_f32"] = f32
+    log(f"[zoo] float32 fgsm ASR streamed = one batch: {asr['streamed']:.6f}")
+
+    # (e) the grid CLI with four of them, its budgets cut (printed) to
+    # keep the phase near two minutes; (a) and (b) ran the defaults
+    img128 = _linked(pngs[:SHAPE[0]], Path(tmp) / "png128")
+    out_dir = Path(tmp) / "grid"
+    log(f"[zoo] cut: the grid CLI runs --steps {GRID_STEPS} (default {STEPS}) and "
+        f"--deepfool_steps {GRID_DEEPFOOL_STEPS} (default 50)")
+    out, seconds, counts = _in_process_cli(defense_experiments.main, [
+        "--image_dir", str(img128), "--attacks", *GRID_ATTACKS, "--eps_list", *GRID_EPS,
+        "--steps", str(GRID_STEPS), "--deepfool_steps", str(GRID_DEEPFOOL_STEPS),
+        "--viz_samples", "0", "--output_dir", str(out_dir)])
+    summary = re.compile(
+        r"^attack=(apgd|fab|deepfool|pgd_l1), eps=(\d\.\d{5}), attack_success=\d\.\d{3}, "
+        r"preproc_defense_acc=\d\.\d{3}, detector_clean_pass_rate=\d\.\d{3}, "
+        r"detector_adv_flag_rate=\d\.\d{3}, detector_attack_success=\d\.\d{3}$")
+    lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
+    computed = 3 * len(GRID_EPS) + 1  # deepfool: one cell for both eps
+    want = {"pgd_step": 0, "quantize": computed,
+            "uniform_noise": len(GRID_EPS) * (1 + 9 + 1)}
+    reused = out.count("(deepfool is eps-independent: reusing the computed cell)")
+    if (len(lines) != len(GRID_ATTACKS) * len(GRID_EPS)
+            or not all(summary.match(ln) for ln in lines) or counts != want or reused != 1):
+        raise AssertionError(f"grid --attacks {' '.join(GRID_ATTACKS)}: lines {lines}, "
+                             f"launches {counts} (want {want}), deepfool reused {reused}")
+    cell_s = _cells_s(out_dir)
+    res["grid_cli"] = {"seconds": seconds, "launches": counts, "lines": lines,
+                       "cell_s": cell_s}
+    log(f"[zoo] grid CLI --attacks {' '.join(GRID_ATTACKS)} --eps_list "
+        f"{' '.join(GRID_EPS)} --steps {GRID_STEPS} --deepfool_steps {GRID_DEEPFOOL_STEPS} "
+        f"on {SHAPE[0]} PNGs: {seconds:.1f} s in process; launches "
+        f"{counts} (1 quantize a computed cell); cells " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in cell_s.items()))
+    for ln in lines:
+        log(f"[zoo]   {ln}")
 
 # phase 19: the black-box group.  (a) at batch 128: name -> (AttackParams
 # fields, eps, pgd_step launches, queries a sample); (b) at batch 32, the
@@ -2790,13 +2831,9 @@ def _eot_read_cost(lf, x) -> dict:
     return out
 
 
-def _robust_eval_clis(img32: Path, tmp: Path) -> dict:
+def _start_robust_eval_clis(img32: Path, tmp: Path) -> dict:
     """The robust_eval CLI in three subprocesses started together, one per
-    protocol, at two eps: the console lines, the JSON and the figure."""
-    import re
-
-    from PIL import Image
-
+    protocol, at two eps: protocol -> (the process, its start time)."""
     procs = {}
     for protocol in RE_ARMS:
         cmd = [sys.executable, "-m", f"{PKG}.cli.robust_eval", "--image_dir", str(img32),
@@ -2806,6 +2843,16 @@ def _robust_eval_clis(img32: Path, tmp: Path) -> dict:
         procs[protocol] = (subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
                                             stderr=subprocess.PIPE, text=True),
                            time.perf_counter())
+    return procs
+
+
+def _finish_robust_eval_clis(procs: dict, tmp: Path) -> dict:
+    """Wait for ``_start_robust_eval_clis``'s processes: the console lines,
+    the JSON and the figure of each protocol."""
+    import re
+
+    from PIL import Image
+
     res = {}
     for protocol, (proc, t0) in procs.items():
         out, err = proc.communicate(timeout=600)
@@ -2826,7 +2873,7 @@ def _robust_eval_clis(img32: Path, tmp: Path) -> dict:
         res[protocol] = {"seconds": seconds, "lines": lines, "results": data["results"],
                          "plot_size": size}
         log(f"[black-box] robust_eval --protocol {protocol} (subprocess, {RE_N} PNGs, eps "
-            f"{' '.join(RE_EPS)}): exit 0 in {seconds:.1f} s, the three started together; "
+            f"{' '.join(RE_EPS)}): exit 0 in {seconds:.1f} s, the three started with the phase; "
             f"--plot {size[0]}x{size[1]}")
         for ln in lines:
             log(f"[black-box]   {ln}")
@@ -2982,22 +3029,36 @@ def _finish_cuda_tests(tag: str, started: tuple, count: int) -> dict:
     return {"seconds": seconds, "summary": tail}
 
 
-def _cuda_tests(tag: str, expr: str, count: int) -> dict:
-    return _finish_cuda_tests(tag, _start_cuda_tests(expr), count)
-
-
-def _black_box_cuda_tests() -> dict:
-    """The black-box group's cuda tests in a subprocess: every one passes."""
-    return _cuda_tests("black-box", BB_CUDA_TESTS, BB_CUDA_TEST_COUNT)
-
-
 def phase_black_box(state: dict, pngs: list[Path]) -> dict:
     """Phase 19: the black-box attacks at batch 128 and 32 with their
     threat models, queries/s, pgd_step launches and bit-equal reruns; the
     EOT wrapper's host read; the robust_eval CLI (three protocols, a
     subprocess each; streamed against resident in process); the
     query_curves CLI one batch and streamed; the grid and attack_suite
-    CLIs with square, simba and hsja."""
+    CLIs with square, simba and hsja.  The group's cuda tests and (c)'s
+    robust_eval subprocesses start with the phase and run beside (a)-(b)
+    (phase 25's trim)."""
+    log("[black-box] trim (room for phase 25): the group's cuda tests and robust_eval's three "
+        "subprocesses start with the phase, beside (a) and (b) (the tests ran after the "
+        "phase, the three subprocesses after (b), before this trim)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        img32 = _linked(pngs[:RE_N], tmp / "png32")
+        tests = _start_cuda_tests(BB_CUDA_TESTS)
+        robust = _start_robust_eval_clis(img32, tmp)
+        try:
+            res = _black_box_body(state, pngs, tmp, img32, robust)
+        except BaseException:
+            for proc in [tests[0], *(p for p, _ in robust.values())]:
+                proc.kill()
+                proc.wait()
+            raise
+    res["cuda_tests"] = _finish_cuda_tests("black-box", tests, BB_CUDA_TEST_COUNT)
+    return res
+
+
+def _black_box_body(state: dict, pngs: list[Path], tmp: Path, img32: Path,
+                    robust_procs: dict) -> dict:
     import re
 
     import torch
@@ -3035,58 +3096,55 @@ def phase_black_box(state: dict, pngs: list[Path]) -> dict:
         run_one("b", name, fields, EPS, pgd, queries, xb, yb)
     res["eot"] = _eot_read_cost(lf, xb)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        img32 = _linked(pngs[:RE_N], tmp / "png32")
-        # (c) the robust_eval CLI, then streamed against resident in process
-        log(f"[black-box] cut: robust_eval runs {' '.join(RE_CUT)} (defaults 100, 1000, 100, 9, "
-            "30, 20)")
-        res["robust_eval_cli"] = _robust_eval_clis(img32, tmp)
-        res["robust_stream"] = _robust_stream_vs_resident(lf, pngs, dev)
-        # (d) the query_curves CLI
-        res["query_curves"] = _query_curves(lf, img32, pngs, tmp, dev)
+    # (c) the robust_eval CLI (started with the phase), then streamed
+    # against resident in process
+    log(f"[black-box] cut: robust_eval runs {' '.join(RE_CUT)} (defaults 100, 1000, 100, 9, "
+        "30, 20)")
+    res["robust_eval_cli"] = _finish_robust_eval_clis(robust_procs, tmp)
+    res["robust_stream"] = _robust_stream_vs_resident(lf, pngs, dev)
+    # (d) the query_curves CLI
+    res["query_curves"] = _query_curves(lf, img32, pngs, tmp, dev)
 
-        # (e) the grid and suite CLIs with three of them, budgets cut
-        img128 = _linked(pngs[:SHAPE[0]], tmp / "png128")
-        log(f"[black-box] cut: the grid runs {' '.join(BB_GRID_CUT)}, the suite "
-            f"{' '.join(BB_SUITE_CUT)} (defaults 1000, 1000, 10)")
-        out, seconds, counts = _in_process_cli(defense_experiments.main, [
-            "--image_dir", str(img128), "--attacks", "square", "simba", "hsja",
-            "--eps_list", *GRID_EPS, *BB_GRID_CUT, "--viz_samples", "0",
-            "--output_dir", str(tmp / "grid")])
-        summary = re.compile(
-            r"^attack=(square|simba|hsja), eps=(\d\.\d{5}), attack_success=\d\.\d{3}, "
-            r"preproc_defense_acc=\d\.\d{3}, detector_clean_pass_rate=\d\.\d{3}, "
-            r"detector_adv_flag_rate=\d\.\d{3}, detector_attack_success=\d\.\d{3}$")
-        lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
-        computed = 2 * len(GRID_EPS) + 1  # simba: one cell for both eps
-        want = {**zero, "quantize": computed}
-        reused = out.count("(simba is eps-independent: reusing the computed cell)")
-        if (len(lines) != 3 * len(GRID_EPS) or not all(summary.match(ln) for ln in lines)
-                or counts != want or reused != 1):
-            raise AssertionError(f"grid --attacks square simba hsja: lines {lines}, launches "
-                                 f"{counts} (want {want}), simba reused {reused}")
-        res["grid_cli"] = {"seconds": seconds, "launches": counts, "lines": lines,
-                           "cell_s": _cells_s(tmp / "grid")}
-        log(f"[black-box] grid CLI --attacks square simba hsja on {SHAPE[0]} PNGs: "
-            f"{seconds:.1f} s in process; launches {counts} (simba's cell computed once); "
-            "cells " + ", ".join(f"{k} {v:.2f} s" for k, v in res["grid_cli"]["cell_s"].items()))
-        for ln in lines:
-            log(f"[black-box]   {ln}")
-        three = ("square", "simba", "hsja")
-        out, seconds, counts = _in_process_cli(attack_suite.main, [
-            "--image_dir", str(img32), "--attacks", *three, *BB_SUITE_CUT,
-            "--output", str(tmp / "suite.json")])
-        if counts != zero:
-            raise AssertionError(f"attack_suite square simba hsja: launches {counts}")
-        rows = list(_suite_rows(out, three).values())
-        res["suite_cli"] = {"seconds": seconds, "launches": counts, "rows": rows,
-                            "results": json.loads((tmp / "suite.json").read_text())["results"]}
-        log(f"[black-box] attack_suite CLI square simba hsja ({RE_N} PNGs): {seconds:.1f} s in "
-            f"process, every rerun bit-equal; launches {counts}")
-        for ln in rows:
-            log(f"[black-box]   {ln}")
-    res["cuda_tests"] = _black_box_cuda_tests()
+    # (e) the grid and suite CLIs with three of them, budgets cut
+    img128 = _linked(pngs[:SHAPE[0]], tmp / "png128")
+    log(f"[black-box] cut: the grid runs {' '.join(BB_GRID_CUT)}, the suite "
+        f"{' '.join(BB_SUITE_CUT)} (defaults 1000, 1000, 10)")
+    out, seconds, counts = _in_process_cli(defense_experiments.main, [
+        "--image_dir", str(img128), "--attacks", "square", "simba", "hsja",
+        "--eps_list", *GRID_EPS, *BB_GRID_CUT, "--viz_samples", "0",
+        "--output_dir", str(tmp / "grid")])
+    summary = re.compile(
+        r"^attack=(square|simba|hsja), eps=(\d\.\d{5}), attack_success=\d\.\d{3}, "
+        r"preproc_defense_acc=\d\.\d{3}, detector_clean_pass_rate=\d\.\d{3}, "
+        r"detector_adv_flag_rate=\d\.\d{3}, detector_attack_success=\d\.\d{3}$")
+    lines = [ln for ln in out.splitlines() if ln.startswith("attack=")]
+    computed = 2 * len(GRID_EPS) + 1  # simba: one cell for both eps
+    want = {**zero, "quantize": computed}
+    reused = out.count("(simba is eps-independent: reusing the computed cell)")
+    if (len(lines) != 3 * len(GRID_EPS) or not all(summary.match(ln) for ln in lines)
+            or counts != want or reused != 1):
+        raise AssertionError(f"grid --attacks square simba hsja: lines {lines}, launches "
+                             f"{counts} (want {want}), simba reused {reused}")
+    res["grid_cli"] = {"seconds": seconds, "launches": counts, "lines": lines,
+                       "cell_s": _cells_s(tmp / "grid")}
+    log(f"[black-box] grid CLI --attacks square simba hsja on {SHAPE[0]} PNGs: "
+        f"{seconds:.1f} s in process; launches {counts} (simba's cell computed once); "
+        "cells " + ", ".join(f"{k} {v:.2f} s" for k, v in res["grid_cli"]["cell_s"].items()))
+    for ln in lines:
+        log(f"[black-box]   {ln}")
+    three = ("square", "simba", "hsja")
+    out, seconds, counts = _in_process_cli(attack_suite.main, [
+        "--image_dir", str(img32), "--attacks", *three, *BB_SUITE_CUT,
+        "--output", str(tmp / "suite.json")])
+    if counts != zero:
+        raise AssertionError(f"attack_suite square simba hsja: launches {counts}")
+    rows = list(_suite_rows(out, three).values())
+    res["suite_cli"] = {"seconds": seconds, "launches": counts, "rows": rows,
+                        "results": json.loads((tmp / "suite.json").read_text())["results"]}
+    log(f"[black-box] attack_suite CLI square simba hsja ({RE_N} PNGs): {seconds:.1f} s in "
+        f"process, every rerun bit-equal; launches {counts}")
+    for ln in rows:
+        log(f"[black-box]   {ln}")
     return res
 
 
@@ -5167,6 +5225,544 @@ def phase_serve(pngs: list[Path]) -> dict:
     return res
 
 
+# phase 25: scale-out.  (a) in a subprocess joined through the env contract
+# (NCCL, world size 1): the grid's pgd cell on ResNet-50 bf16 at
+# [128,224,224,3] over a data mesh of two slots on the one card, each 64-row
+# shard bit-equal to a one-device run on its rows; (b) two ranks on the one
+# card over gloo: one PGD-AT step and FGSM counters against one process; (c)
+# tensor parallelism over a 1x2 mesh on the card: ViT-B/16 and ResNet-50 in
+# float32; (d) entry.dryrun_multichip(4)
+SO_B, SO_SLOTS, SO_TRAIN_B, SO_RANKS, SO_VIT_B, SO_TIMED = 128, 2, 32, 2, 32, 3
+# TP against the replicated model, float32 with TF32 off: numpy's
+# assert_allclose(atol, rtol), as JAX's tests/test_sharding.py holds them
+TP_LOGITS_TOL, TP_PGD_ATOL, TP_PGD_RTOL, TP_PGD_STEPS = 1e-4, 2e-5, 1e-5, 3
+# PGD's sign(): a gradient entry within float32 reassociation of zero can take
+# the other sign under TP, and its pixel then moves by 2 alpha.  At 4.8 M
+# pixels some do (66 on an NVIDIA H100 80GB HBM3 at 700 W): every other pixel stays
+# within 2e-5, and at most this share of the pixels may flip, each by no more
+# than one alpha a step
+TP_PGD_FLIP_SHARE = 1e-4
+# the two-rank PGD-AT step against the one-process step
+# (scripts/scaleout_fault_readings.py, NVIDIA H100 80GB HBM3 at 700 W): the parameters
+# |two - one| / |one - init| (Euclidean) read 0.384 on sound runs, because
+# AdamW's first update is +-lr on every entry and bf16 forwards at batch 16
+# and 32 flip the sign of the near-zero gradient entries; planted faults
+# read 0.425 (each rank's start from the first rows), 0.829 (no sum over the
+# ranks) and 0.831 (both ranks on the same rows).  The summed gradient (the
+# first moment, |two - one| / |one|) reads 2.79e-2 sound, 0.542 and 0.618
+# for the last two faults: the limits sit between the sound and the faulted
+# readings of each.  The first fault reads 3.00e-2 there, at the sound
+# level, so each rank's PGD start is also held bit-equal to its rows of the
+# one-process step's start
+RANKS_APART_TOL, RANKS_MU_TOL = 0.6, 0.1
+# what phase 25's room was taken from (printed)
+SCALEOUT_TRIM = ("phase 18's attack_suite CLI subprocess starts with the phase and runs beside "
+                 "(a)-(c), collected at (d); phase 19's 14 cuda tests and its three robust_eval "
+                 "subprocesses start with the phase, beside (a)-(b), collected at its end and at "
+                 "(c) (all ran one after another before); their seconds and the rates of the "
+                 "attacks beside them now include each other's load")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_child(code: str, world: int, rank: int, port: int) -> subprocess.Popen:
+    """``python -c code`` from the repo, joined to a process group through
+    the env contract (``parallel/distributed.py``)."""
+    env = {**os.environ, "ADV_TPU_COORDINATOR": f"127.0.0.1:{port}",
+           "ADV_TPU_NUM_PROCESSES": str(world), "ADV_TPU_PROCESS_ID": str(rank)}
+    return subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish_child(proc: subprocess.Popen, what: str, timeout: float = 300.0) -> str:
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()
+        proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: exit {proc.returncode}\n{out[-3000:]}\n{err[-3000:]}")
+    return out
+
+
+def scaleout_nccl_child(out_path: str) -> None:
+    """25(a), in a process joined through the env contract at world size 1:
+    NCCL on cuda:0, the pgd -> smoothing + quantization -> feature detector
+    cell sharded over two slots of the card, each shard bit-equal (cuDNN
+    deterministic) to a one-device run on its 64 rows, the counters summed
+    and all-reduced; pgd_step, quantize and the noise at [64,224,224,3]
+    against their plain versions; two-slot and one-slot PGD-10 ex/s."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.pgd import (
+        pgd_linf_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
+        cell_generator, generator_from_seed, seed_draw, shard_generators)
+    from image_recognition_adversarial_example_attack_tpu_torch.defenses import (
+        calibrate_feature_threshold)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.defense_eval import (
+        STAT_KEYS, DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel import (
+        maybe_initialize_distributed)
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel.data_parallel import (
+        evaluate_defenses_sharded, sharded_counts, sharded_pgd_linf_attack, sharded_predict)
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel.mesh import (
+        make_mesh, shard_batch)
+
+    t_start = time.perf_counter()
+    if not maybe_initialize_distributed():
+        raise AssertionError("the env contract did not start a process group")
+    backend, world = dist.get_backend(), dist.get_world_size()
+    if backend != "nccl" or world != 1:
+        raise AssertionError(f"process group {backend} of {world}, want nccl of 1")
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    bundle = load_model("resnet50", dtype=torch.bfloat16)
+    lf, ff = make_fns(bundle)
+    x_np = np.random.RandomState(25).rand(SO_B, 224, 224, 3).astype(np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    mesh = make_mesh(n_data=SO_SLOTS, n_model=1, devices=[dev] * SO_SLOTS)
+    xs = shard_batch(x_np, mesh)
+    ys = sharded_predict(lf, xs)
+    thr = calibrate_feature_threshold(ff, x, n=SO_B, verbose=False)
+    cfg = DefenseEvalConfig(attack_name="pgd", eps=EPS, alpha=ALPHA, steps=STEPS)
+
+    ew.reset_launches()
+    out = evaluate_defenses_sharded(lf, ff, xs, ys, thr, cfg, cell_generator(0, "scaleout"))
+    counts = sharded_counts(out)
+    torch.cuda.synchronize()
+    launches = ew.launch_counts()
+    want = {"pgd_step": SO_SLOTS * STEPS, "quantize": SO_SLOTS, "uniform_noise": SO_SLOTS}
+    if launches != want:
+        raise AssertionError(f"sharded cell: launches {launches} (want {want})")
+    summed = torch.tensor([counts[k] for k in STAT_KEYS], device=dev)
+    dist.all_reduce(summed)  # NCCL at world size 1
+    if summed.tolist() != [counts[k] for k in STAT_KEYS]:
+        raise AssertionError(f"NCCL all_reduce at world 1 changed the counters: {summed}")
+
+    # each shard against a one-device run on its rows, its draws the rows of
+    # the whole batch's
+    per_shard = []
+    views = shard_generators(cell_generator(0, "scaleout"), xs.row_ranges(), SO_B)
+    for i, ((lo, hi), g) in enumerate(zip(xs.row_ranges(), views)):
+        one = evaluate_defenses_batch(lf, ff, x[lo:hi].contiguous(), ys.data_shards()[i], thr,
+                                      cfg, g)
+        for k, v in one.items():
+            if not torch.equal(v, out[k].data_shards()[i]):
+                raise AssertionError(f"shard {i}: {k} differs from a one-device run on rows "
+                                     f"[{lo}, {hi})")
+        per_shard.append(aggregate_stats(one))
+    want_counts = {k: sum(s[k] for s in per_shard) for k in STAT_KEYS}
+    if {k: counts[k] for k in STAT_KEYS} != want_counts or counts["count"] != SO_B:
+        raise AssertionError(f"sharded counters {counts} != the shards' sum {want_counts}")
+
+    # the three kernels at the shard shape, against their plain versions
+    shape = (SO_B // SO_SLOTS, 224, 224, 3)
+    gen = generator_from_seed(250, "cuda")
+    x0 = x[:shape[0]].contiguous()
+    xa = torch.clamp(x0 + (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * EPS, 0, 1)
+    grad = torch.randn(shape, generator=gen, device=dev)
+    grad.view(-1)[::7] = 0.0
+    for a in (ALPHA, -ALPHA):
+        if not torch.equal(ew.pgd_step(xa, grad, x0, EPS, a),
+                           ew.pgd_step_plain(xa, grad if a > 0 else -grad, x0, EPS, abs(a))):
+            raise AssertionError(f"pgd_step at {list(shape)}, alpha {a}")
+    xq = (torch.rand(shape, generator=gen, device=dev) * 1.2 - 0.1)
+    if not torch.equal(ew.quantize(xq, LEVELS), ew.quantize_plain(xq, LEVELS)):
+        raise AssertionError(f"quantize at {list(shape)}")
+    seed = seed_draw(generator_from_seed(251))
+    whole = ew.uniform_noise_at((SO_B, 224, 224, 3), EPS, seed, dev)
+    row = 224 * 224 * 3
+    parts = [ew.uniform_noise_at(shape, EPS, seed, dev, offset=i * shape[0] * row)
+             for i in range(SO_SLOTS)]
+    odd = ew.uniform_noise_at((3, 5, 7, 3), EPS, seed, dev, offset=1)
+    if not (torch.equal(torch.cat(parts), whole)
+            and torch.equal(odd.flatten(), whole.flatten()[1:1 + odd.numel()])):
+        raise AssertionError("the noise kernel's offset draws differ from the whole draw")
+    noise = parts[1].double()
+    eps32 = float(np.float32(EPS))
+    mean, var = float(noise.mean()), float(noise.var())
+    if not (float(noise.min()) >= -eps32 and float(noise.max()) <= eps32
+            and abs(mean) < 1e-2 * EPS and abs(var / (EPS ** 2 / 3) - 1) < 2e-2):
+        raise AssertionError(f"noise shard at {list(shape)}: mean {mean}, var {var}")
+
+    # two-slot PGD-10 against one slot (the sharded path's overhead on one card)
+    def timed(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SO_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        return SO_B * SO_TIMED / (time.perf_counter() - t0)
+
+    y_one = torch.cat(ys.data_shards())
+    one_slot = timed(lambda: pgd_linf_attack(lf, x, y_one, eps=EPS, alpha=ALPHA, steps=STEPS,
+                                             generator=generator_from_seed(3)))
+    two_slot = timed(lambda: sharded_pgd_linf_attack(lf, xs, ys, eps=EPS, alpha=ALPHA,
+                                                     steps=STEPS,
+                                                     generator=generator_from_seed(3)))
+    res = {"backend": backend, "world": world, "launches": launches, "counts": counts,
+           "per_shard": per_shard, "threshold": thr, "pgd10_ex_s_two_slots": two_slot,
+           "pgd10_ex_s_one_slot": one_slot, "noise_mean": mean,
+           "noise_var_ratio": var / (EPS ** 2 / 3), "seconds": time.perf_counter() - t_start}
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(res))
+
+
+def scaleout_rank_child(out_dir: str) -> None:
+    """25(b), one of two ranks on the one card over gloo: one PGD-AT step
+    of ResNet-50 bf16 on this rank's 16 of 32 rows (the gradients summed
+    over the ranks), then the step timed; FGSM counters summed over the
+    ranks.  Rank 0 writes the new parameters."""
+    import torch
+    import torch.distributed as dist
+
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel.distributed import (
+        make_dcn_mesh, maybe_initialize_distributed, process_local_batch)
+
+    # gloo, joined before cli.common's import joins with the default (NCCL,
+    # which refuses two ranks on one card)
+    if not maybe_initialize_distributed(backend="gloo"):
+        raise AssertionError("the env contract did not start a process group")
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
+        cell_generator, chunk_generator)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.defense_eval import (
+        DefenseEvalConfig)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel.data_parallel import (
+        evaluate_defenses_sharded, sharded_counts)
+    from image_recognition_adversarial_example_attack_tpu_torch.train.adversarial import (
+        AdvTrainConfig, make_train_step, train_state_from_bundle)
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", 0)
+    mesh = make_dcn_mesh(n_model=1, devices=[dev])
+    x_np, y_np = _scaleout_train_batch()
+    x, y = process_local_batch(x_np, mesh), process_local_batch(y_np, mesh)
+    cfg = AdvTrainConfig(eps=EPS, alpha=ALPHA, attack_steps=TRAIN_PGD, learning_rate=TRAIN_LR,
+                         weight_decay=1e-4)
+    bundle = load_model("resnet50", dtype=torch.float32)
+    state = train_state_from_bundle(bundle, cfg, torch.bfloat16)
+    step = make_train_step(cfg, bundle.mean, bundle.std)
+    ew.reset_launches()
+    with _recorded_pgd_starts() as starts:
+        new, m = step(state, x, y, chunk_generator(0, "scaleout:train", 0))
+    torch.cuda.synchronize()
+    launches = ew.launch_counts()
+    torch.save(starts, Path(out_dir) / f"start{rank}.pt")
+    dist.barrier()
+    t0 = time.perf_counter()
+    for s in range(1, SO_TIMED + 1):
+        step(state, x, y, chunk_generator(0, "scaleout:train", s))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / SO_TIMED
+    lf, ff = make_fns(load_model("resnet50", dtype=torch.bfloat16))
+    fgsm = DefenseEvalConfig(attack_name="fgsm", eps=EPS, alpha=ALPHA, steps=STEPS)
+    counts = sharded_counts(evaluate_defenses_sharded(lf, ff, x, y, 1.0, fgsm,
+                                                      cell_generator(0, "scaleout:fgsm")))
+    res = {"rank": rank, "world": world, "backend": dist.get_backend(), "launches": launches,
+           "loss": float(m["loss"]), "step_ms": ms, "fgsm": counts,
+           "rows": x.row_ranges()}
+    if rank == 0:
+        torch.save({"params": {k: v.detach().cpu() for k, v in new.params.items()},
+                    "mu": {k: v.detach().cpu() for k, v in new.opt_state.mu.items()}},
+                   Path(out_dir) / "params.pt")
+    dist.destroy_process_group()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+@contextlib.contextmanager
+def _recorded_pgd_starts():
+    """While open, every PGD start ``attacks.pgd.draw_start`` returns is
+    also kept (on the host) in the list this yields."""
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import pgd
+
+    real, starts = pgd.draw_start, []
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        starts.append(out.detach().cpu())
+        return out
+
+    pgd.draw_start = record
+    try:
+        yield starts
+    finally:
+        pgd.draw_start = real
+
+
+def _scaleout_train_batch():
+    import numpy as np
+
+    rng = np.random.RandomState(26)
+    return (rng.rand(SO_TRAIN_B, 224, 224, 3).astype(np.float32),
+            rng.randint(0, 1000, SO_TRAIN_B).astype(np.int64))
+
+
+def _scaleout_one_process(ranks: list[dict], out_dir: Path) -> dict:
+    """25(b)'s reference in this process: the same step on the 32 rows
+    unsharded, and the FGSM counters unsharded and over two slots of the
+    card; the two-rank parameters' distance from the one-process ones."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
+        cell_generator, chunk_generator)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.defense_eval import (
+        DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel.data_parallel import (
+        evaluate_defenses_sharded, shard_labels, sharded_counts)
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel.mesh import (
+        make_mesh, shard_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.train.adversarial import (
+        AdvTrainConfig, make_train_step, train_state_from_bundle)
+
+    prior = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        dev = torch.device("cuda", 0)
+        x_np, y_np = _scaleout_train_batch()
+        x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+        cfg = AdvTrainConfig(eps=EPS, alpha=ALPHA, attack_steps=TRAIN_PGD,
+                             learning_rate=TRAIN_LR, weight_decay=1e-4)
+        bundle = load_model("resnet50", dtype=torch.float32)
+        init = {k: v.detach().cpu() for k, v in bundle.model.state_dict().items()}
+        state = train_state_from_bundle(bundle, cfg, torch.bfloat16)
+        step = make_train_step(cfg, bundle.mean, bundle.std)
+        with _recorded_pgd_starts() as starts:
+            new, m = step(state, x, y, chunk_generator(0, "scaleout:train", 0))
+        torch.cuda.synchronize()
+        # each rank's PGD start: its rows of the one-process start, bit for bit
+        own_start = []
+        for r in ranks:
+            got = torch.load(out_dir / f"start{r['rank']}.pt", weights_only=True)
+            (lo, hi), = r["rows"]
+            own_start.append(len(got) == len(starts) == 1
+                             and torch.equal(got[0], starts[0][lo:hi]))
+        t0 = time.perf_counter()
+        for s in range(1, SO_TIMED + 1):
+            step(state, x, y, chunk_generator(0, "scaleout:train", s))
+        torch.cuda.synchronize()
+        one_ms = 1e3 * (time.perf_counter() - t0) / SO_TIMED
+        one = {k: v.detach().cpu() for k, v in new.params.items()}
+        mu = {k: v.detach().cpu() for k, v in new.opt_state.mu.items()}
+        two = torch.load(out_dir / "params.pt", weights_only=True)
+
+        def norm(tree):
+            return math.sqrt(sum(float((v.double() ** 2).sum()) for v in tree.values()))
+
+        apart = norm({k: two["params"][k] - one[k] for k in one}) / norm(
+            {k: one[k] - init[k] for k in one})
+        mu_rel = norm({k: two["mu"][k] - mu[k] for k in mu}) / norm(mu)
+        del state, new, step, bundle
+        lf, ff = make_fns(load_model("resnet50", dtype=torch.bfloat16))
+        fgsm = DefenseEvalConfig(attack_name="fgsm", eps=EPS, alpha=ALPHA, steps=STEPS)
+        flat = aggregate_stats(evaluate_defenses_batch(lf, ff, x, y, 1.0, fgsm,
+                                                       cell_generator(0, "scaleout:fgsm")))
+        mesh = make_mesh(n_data=SO_RANKS, n_model=1, devices=[dev] * SO_RANKS)
+        slots = sharded_counts(evaluate_defenses_sharded(
+            lf, ff, shard_batch(x_np, mesh), shard_labels(y_np, mesh), 1.0, fgsm,
+            cell_generator(0, "scaleout:fgsm")))
+    finally:
+        torch.backends.cudnn.deterministic = prior
+    return {"apart": apart, "mu_rel": mu_rel, "start_equal": own_start,
+            "loss": float(m["loss"]), "step_ms": one_ms,
+            "fgsm": flat, "fgsm_two_slots": slots}
+
+
+def _scaleout_tp() -> dict:
+    """25(c): ViT-B/16 and ResNet-50 in float32 (TF32 off) over a 1x2 mesh
+    of the card: the cut layers' shards half their weights, the logits
+    within 1e-4 of the replicated model's, and ViT's PGD-3 within 2e-5;
+    each forward's ms beside the replicated one's."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.api import (
+        make_logits_fn)
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.pgd import (
+        pgd_linf_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
+        generator_from_seed)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import (
+        load_model, model_family)
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel.mesh import make_mesh
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel.tensor_parallel import (
+        shard_fractions, tensor_parallel_model)
+
+    dev = torch.device("cuda", 0)
+    mesh = make_mesh(n_data=1, n_model=2, devices=[dev, dev])
+    x = torch.from_numpy(np.random.RandomState(27).rand(SO_VIT_B, 224, 224, 3)
+                         .astype(np.float32)).to(dev)
+    res: dict = {"runs": []}
+    for name in ("vit_b_16", "resnet50"):
+        bundle = load_model(name, dtype=torch.float32)  # turns TF32 off
+        tp = tensor_parallel_model(bundle.model, mesh, model_family(name))
+        fracs = shard_fractions(tp, bundle.model)
+        lf = make_logits_fn(bundle.model, bundle.mean, bundle.std)
+        lf_tp = make_logits_fn(tp, bundle.mean, bundle.std)
+        with torch.no_grad():
+            want, got = lf(x), lf_tp(x)
+        err = float((got - want).abs().max())
+        if (not bool(((got - want).abs() <= TP_LOGITS_TOL * (1 + want.abs())).all())
+                or not fracs or max(fracs.values()) > 0.5):
+            raise AssertionError(f"{name} TP: logits {err} apart, shard fractions {fracs}")
+        rec = {"logits_err": err, "cut": len(fracs), "shard_frac": max(fracs.values()),
+               "forward_ms": time_ms(lambda: lf(x), iters=5, warmup=1),
+               "tp_forward_ms": time_ms(lambda: lf_tp(x), iters=5, warmup=1)}
+        if name == "vit_b_16":
+            for key in ("encoder.layers.encoder_layer_0.self_attention.in_proj_weight",
+                        "encoder.layers.encoder_layer_0.mlp.0.weight",
+                        "encoder.layers.encoder_layer_0.mlp.3.weight", "heads.head.weight"):
+                if fracs.get(key) != 0.5:
+                    raise AssertionError(f"ViT TP: {key} shard fraction {fracs.get(key)}")
+            y = torch.argmax(want, -1)
+            adv = {}
+            for tag, fn in (("replicated", lf), ("tp", lf_tp)):
+                ew.reset_launches()
+                adv[tag] = pgd_linf_attack(fn, x, y, eps=EPS, alpha=ALPHA, steps=TP_PGD_STEPS,
+                                           generator=generator_from_seed(28))
+                torch.cuda.synchronize()
+                counts = ew.launch_counts()
+                if counts != {"pgd_step": TP_PGD_STEPS, "quantize": 0, "uniform_noise": 1}:
+                    raise AssertionError(f"ViT PGD-{TP_PGD_STEPS} ({tag}): launches {counts}")
+                res["runs"].append({"launches": counts})
+            diff = (adv["tp"] - adv["replicated"]).abs()
+            beyond = int((diff > TP_PGD_ATOL + TP_PGD_RTOL * adv["replicated"].abs()).sum())
+            rec.update(pgd_max_diff=float(diff.max()), pgd_beyond=beyond,
+                       pgd_pixels=diff.numel())
+            if (beyond > TP_PGD_FLIP_SHARE * diff.numel()
+                    or float(diff.max()) > 2 * TP_PGD_STEPS * ALPHA + TP_PGD_ATOL):
+                raise AssertionError(f"ViT TP PGD-{TP_PGD_STEPS}: {beyond} of {diff.numel()} "
+                                     f"pixels beyond {TP_PGD_ATOL} (max {float(diff.max())})")
+        res[name] = rec
+        del bundle, tp
+        torch.cuda.empty_cache()
+    return res
+
+
+def _scaleout_dryrun() -> dict:
+    """25(d): ``entry.dryrun_multichip(4)`` on the card, its JSON line read
+    back from what it prints; its counted launches."""
+    import contextlib
+    import io
+
+    from image_recognition_adversarial_example_attack_tpu_torch.entry import dryrun_multichip
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+
+    buf = io.StringIO()
+    ew.reset_launches()
+    with contextlib.redirect_stdout(buf):
+        line = dryrun_multichip(4)
+    counts = ew.launch_counts()
+    printed = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    if printed != [line] or line["platform"] != "gpu" or line["mesh"] != {"data": 2, "model": 2}:
+        raise AssertionError(f"dryrun_multichip(4) printed {buf.getvalue()!r}")
+    # PGD-2 on two data shards (2 x (2 pgd_step + 1 noise), 2 quantize) and
+    # one PGD-AT step with grad_accum 2 (2 micro-batches x 2 shards x (2 + 1))
+    want = {"pgd_step": 12, "quantize": 2, "uniform_noise": 6}
+    if counts != want:
+        raise AssertionError(f"dryrun_multichip(4): launches {counts} (want {want})")
+    for ln in buf.getvalue().splitlines():
+        log(f"[scale-out]   {ln}")
+    return {"line": line, "launches": counts}
+
+
+def phase_scaleout(card: str) -> dict:
+    """Phase 25: scale-out on the one card (see the module docstring)."""
+    out_a = Path(tempfile.mkdtemp(prefix="p25a_")) / "a.json"
+    out_b = Path(tempfile.mkdtemp(prefix="p25b_"))
+    log(f"[scale-out] trim: {SCALEOUT_TRIM}")
+    a = _start_child(f"import chip_smoke as cs; cs.scaleout_nccl_child({str(out_a)!r})", 1, 0,
+                     _free_port())
+    port = _free_port()
+    ranks = [_start_child(f"import chip_smoke as cs; cs.scaleout_rank_child({str(out_b)!r})",
+                          SO_RANKS, r, port) for r in range(SO_RANKS)]
+    res: dict = {}
+    try:
+        res["c"] = _scaleout_tp()
+        res["d"] = _scaleout_dryrun()
+        _finish_child(a, "25(a) the NCCL process")
+        for r, p in enumerate(ranks):
+            _finish_child(p, f"25(b) rank {r}")
+    finally:
+        for p in (a, *ranks):
+            p.kill()
+            p.wait()
+    res["a"] = json.loads(out_a.read_text())
+    rank = [json.loads((out_b / f"rank{r}.json").read_text()) for r in range(SO_RANKS)]
+    ref = _scaleout_one_process(rank, out_b)
+    res["b"] = {"ranks": rank, "one_process": ref}
+    a_, c = res["a"], res["c"]
+    log(f"[scale-out] (a) {card}; NCCL at world size 1 in a subprocess; pgd cell on ResNet-50 "
+        f"bf16 {SO_B}x224x224x3 over {SO_SLOTS} slots of the card: launches {a_['launches']}, "
+        f"each 64-row shard bit-equal to a one-device run on its rows (cuDNN deterministic), "
+        f"counters {a_['counts']} = the shards' sum, all-reduced; kernels at "
+        f"[{SO_B // SO_SLOTS},224,224,3]: pgd_step and quantize bit-exact, noise offset draws "
+        f"bit-equal to the whole draw (mean {a_['noise_mean']:.2e}, var/(eps^2/3) "
+        f"{a_['noise_var_ratio']:.4f}); {a_['seconds']:.1f} s")
+    log(f"[scale-out]   PGD-10 {a_['pgd10_ex_s_two_slots']:.1f} ex/s over two slots of the card "
+        f"against {a_['pgd10_ex_s_one_slot']:.1f} on one: the sharded path's overhead on one "
+        "card, not a speed-up across cards (not measured: one card)")
+    fgsm = {r["rank"]: r["fgsm"] for r in rank}
+    if not (fgsm[0] == fgsm[1] == ref["fgsm"] == ref["fgsm_two_slots"]):
+        raise AssertionError(f"25(b) FGSM counters: ranks {fgsm}, one process {ref['fgsm']}, "
+                             f"two slots {ref['fgsm_two_slots']}")
+    want = {"pgd_step": TRAIN_PGD, "quantize": 0, "uniform_noise": 1}
+    if any(r["launches"] != want or r["backend"] != "gloo" for r in rank):
+        raise AssertionError(f"25(b) ranks: {rank}")
+    if (not all(ref["start_equal"]) or ref["apart"] > RANKS_APART_TOL
+            or ref["mu_rel"] > RANKS_MU_TOL
+            or abs(rank[0]["loss"] - ref["loss"]) > 1e-2 * abs(ref["loss"])):
+        raise AssertionError(f"25(b) two-rank PGD-AT step: PGD starts equal to the "
+                             f"one-process start's rows {ref['start_equal']}, "
+                             f"parameters {ref['apart']:.3e} apart "
+                             f"(limit {RANKS_APART_TOL}), first moment {ref['mu_rel']:.3e} "
+                             f"(limit {RANKS_MU_TOL}), loss {rank[0]['loss']} / {ref['loss']}")
+    log(f"[scale-out] (b) {card}; two ranks on the one card over gloo, PGD-AT ResNet-50 "
+        f"bf16 batch {SO_TRAIN_B} ({SO_TRAIN_B // SO_RANKS} rows a rank), PGD-{TRAIN_PGD}: "
+        f"each rank's PGD start bit-equal to its rows of the one-process start; "
+        f"the summed gradient (first moment) {ref['mu_rel']:.3e} of its norm from the "
+        f"one-process step's (limit {RANKS_MU_TOL}), parameters {ref['apart']:.3e} of the "
+        f"one-process step's move apart (limit {RANKS_APART_TOL}), "
+        f"loss {rank[0]['loss']:.5f} / {ref['loss']:.5f}; step {rank[0]['step_ms']:.1f} / "
+        f"{rank[1]['step_ms']:.1f} ms a rank against {ref['step_ms']:.1f} ms in one process "
+        f"(two ranks share one card: not a speed-up); FGSM counters equal: {ref['fgsm']}")
+    for name in ("vit_b_16", "resnet50"):
+        r = c[name]
+        log(f"[scale-out] (c) {card}; {name} float32 TP over 1x2 slots of the card: "
+            f"{r['cut']} layers cut, shards {r['shard_frac']:.2f} of their weights, logits "
+            f"{r['logits_err']:.2e} from the replicated model's (limit {TP_LOGITS_TOL} + rel); "
+            "forward at "
+            f"{SO_VIT_B}x224x224x3 {r['tp_forward_ms']:.2f} ms TP against "
+            f"{r['forward_ms']:.2f} ms replicated"
+            + (f"; PGD-{TP_PGD_STEPS} x_adv within {TP_PGD_ATOL} but {r['pgd_beyond']} of "
+               f"{r['pgd_pixels']} pixels (a sign flip, at most {r['pgd_max_diff']:.4f}; "
+               f"limit {TP_PGD_FLIP_SHARE:g} of the pixels)" if "pgd_max_diff" in r else ""))
+    log(f"[scale-out] (d) dryrun_multichip(4): {json.dumps(res['d']['line'])}, launches "
+        f"{res['d']['launches']}")
+    res["runs"] = [{"launches": a_["launches"]}, *({"launches": r["launches"]} for r in rank),
+                   *c["runs"], {"launches": res["d"]["launches"]}]
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=str, default=None,
@@ -5239,6 +5835,7 @@ def main(argv=None) -> int:
         record["cifar"] = run("cifar", phase_cifar, smi)
         record["train"] = run("train", phase_train)
         record["serve"] = run("serve", phase_serve, pngs)
+    record["scaleout"] = run("scaleout", phase_scaleout, smi)
 
     # the elementwise kernels' main path: PGD-10, the eight cells, the
     # streamed pgd cell, the visualize path's PGD-20 and trajectory, the
@@ -5277,7 +5874,7 @@ def main(argv=None) -> int:
             p22["cli"]["robust_eval"],
             record["train"]["a"], record["train"]["c"], *record["train"]["d"].values(),
             *record["serve"]["a"].values(), record["serve"]["b"], record["serve"]["c"],
-            record["serve"]["d"]["counted"]]
+            record["serve"]["d"]["counted"], *record["scaleout"]["runs"]]
     main_path = {k: sum(r["launches"][k] for r in runs) for k in ew.LAUNCHES}
     kernels = []
     for name, (replaces, _) in KERNELS.items():

@@ -18,6 +18,7 @@ from ..core.constants import (DEFAULT_ALPHA, DEFAULT_CW_C, DEFAULT_CW_KAPPA, DEF
                               DEFAULT_EPS, DEFAULT_STEPS)
 from ..core.normalize import normalize_batch
 from ..core.rng import generator_from_seed
+from ..parallel.collective import shard_grad
 
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -109,11 +110,12 @@ def success_history(hist: list, x: torch.Tensor) -> torch.Tensor:
 
 def input_grad(logits_fn: LogitsFn, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """d(CE)/dx only. With the model's parameters frozen, autograd records
-    only the input-gradient chain."""
+    only the input-gradient chain.  In a shard of a coupled sharded step
+    (``parallel/collective.py``) it is the gradient of every shard's CE."""
     xg = x.detach().requires_grad_(True)
     with torch.enable_grad():
         loss = cross_entropy_sum(logits_fn(xg), y)
-        (grad,) = torch.autograd.grad(loss, xg)
+        (grad,) = shard_grad(loss, [xg])
     return grad
 
 

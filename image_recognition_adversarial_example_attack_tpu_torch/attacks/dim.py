@@ -28,6 +28,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.rng import uniform
 from .api import LogitsFn
 from .mifgsm import momentum_attack, signed_grad
 
@@ -48,7 +49,7 @@ def draw_diversity(generator: torch.Generator, height: int, width: int, *,
     generators live on the CPU, so no card is waited for): ``apply = u0 <
     p``, ``s ~ U[min_scale, 1)``, ``tx = u2 * W(1 - s)``, ``ty = u3 * H(1 - s)``,
     in the JAX package's float32 arithmetic."""
-    u = torch.rand(4, generator=generator, dtype=torch.float32, device=generator.device).cpu()
+    u = uniform((4,), generator, generator.device, axis=None).cpu()  # one draw for the batch
     s = min_scale + (1.0 - min_scale) * u[1]
     tx = u[2] * (width * (1.0 - s))
     ty = u[3] * (height * (1.0 - s))

@@ -23,7 +23,7 @@ from typing import Callable
 
 import torch
 
-from ..core.rng import device_generator, standard_normal
+from ..core.rng import device_generator, standard_normal, uniform
 from .api import LogitsFn
 
 
@@ -38,7 +38,7 @@ def _expand(v: torch.Tensor) -> torch.Tensor:
 
 def draw_init(shape, generator: torch.Generator, device: torch.device | str) -> torch.Tensor:
     """One start trial's Uniform[0, 1) image batch, float32 on ``device``."""
-    return torch.rand(tuple(shape), generator=generator, dtype=torch.float32, device=device)
+    return uniform(shape, generator, device)
 
 
 def draw_direction(shape, generator: torch.Generator,

@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.rng import device_generator
+from ..core.rng import device_generator, randint
 from .api import LogitsFn, cross_entropy_sum
 
 
@@ -43,10 +43,10 @@ def sample_placements(generator: torch.Generator, n: int, image_hw: tuple[int, i
     without ``rotations``)."""
     h, w = image_hw
     g = device_generator(generator, device)
-    rows = torch.randint(0, h - patch_size + 1, (n,), generator=g, device=device)
-    cols = torch.randint(0, w - patch_size + 1, (n,), generator=g, device=device)
+    rows = randint(h - patch_size + 1, (n,), g, device)
+    cols = randint(w - patch_size + 1, (n,), g, device)
     if rotations:
-        rots = torch.randint(0, 4, (n,), generator=g, device=device)
+        rots = randint(4, (n,), g, device)
     else:
         rots = torch.zeros((n,), dtype=torch.int64, device=device)
     return rows, cols, rots

@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.rng import standard_normal
+from ..core.rng import standard_normal, uniform
 from ..kernels import elementwise
 from .api import LogitsFn, input_grad, per_sample_ce
 
@@ -44,8 +44,7 @@ def draw_l2_start(shape, generator: torch.Generator, device: torch.device | str)
     """pgd_l2's start: (a standard normal of ``shape``, a [B,1,1,1] radius
     fraction in [0,1)), float32 on ``device``."""
     normal = standard_normal(shape, generator, device)
-    radius = torch.rand((shape[0], 1, 1, 1), generator=generator, dtype=torch.float32,
-                        device=generator.device).to(device)
+    radius = uniform((shape[0], 1, 1, 1), generator, generator.device).to(device)
     return normal, radius
 
 
@@ -53,8 +52,7 @@ def draw_l1_start(shape, generator: torch.Generator, device: torch.device | str)
     """pgd_l1's start: (Uniform(-1, 1) of ``shape`` from the noise kernel, a
     [B,1,1,1] scale in [0,1)), float32 on ``device``."""
     noise = draw_start(shape, 1.0, generator, device)
-    scale = torch.rand((shape[0], 1, 1, 1), generator=generator, dtype=torch.float32,
-                       device=generator.device).to(device)
+    scale = uniform((shape[0], 1, 1, 1), generator, generator.device).to(device)
     return noise, scale
 
 

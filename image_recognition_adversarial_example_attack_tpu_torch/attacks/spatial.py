@@ -22,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.rng import uniform
 from .api import LogitsFn, per_sample_ce
 from .stadv import gather_corners
 
@@ -82,8 +83,7 @@ def _grid_axis(n: int, bound: float, dtype, device=None) -> torch.Tensor:
 def draw_candidates(candidates: int, batch: int, generator: torch.Generator,
                     dtype: torch.dtype, device: torch.device | str) -> torch.Tensor:
     """[K,B,3] Uniform(-1, 1) from ``generator`` (on its device), on ``device``."""
-    u = torch.rand((int(candidates), batch, 3), generator=generator, dtype=dtype,
-                   device=generator.device)
+    u = uniform((int(candidates), batch, 3), generator, generator.device, axis=1, dtype=dtype)
     return (u * 2.0 - 1.0).to(device)
 
 

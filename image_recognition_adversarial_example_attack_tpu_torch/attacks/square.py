@@ -57,7 +57,7 @@ def draw_square(steps: int, b: int, h: int, w: int, c: int, sides: np.ndarray,
     hi = torch.as_tensor(np.asarray(sides, np.int64), device=device)
     r0 = randint_below(h - hi + 1, b, g)
     c0 = randint_below(w - hi + 1, b, g)
-    signs = rademacher((steps, b, c), g, device)
+    signs = rademacher((steps, b, c), g, device, axis=1)
     return stripes, r0, c0, signs
 
 
@@ -137,7 +137,7 @@ def draw_square_l2(steps: int, b: int, grid: tuple[int, int], h: int, w: int, c:
     c1 = randint_below(w - hi + 1, b, g)
     r2 = randint_below(h - hi + 1, b, g)
     c2 = randint_below(w - hi + 1, b, g)
-    signs = rademacher((steps, b, c), g, device)
+    signs = rademacher((steps, b, c), g, device, axis=1)
     return sign0, r1, c1, r2, c2, signs
 
 

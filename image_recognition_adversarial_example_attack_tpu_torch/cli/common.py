@@ -4,7 +4,8 @@ flags, bundle loading, top-k printing, image and label inputs, ImageNet-val
 ground truth, and the grid's resume fingerprint and per-cell randomness.
 
 ``--device`` defaults to ``cuda``; where CUDA is absent the run fails unless
-``--device cpu`` is given.
+``--device cpu`` is given.  Importing this module joins a multi-process run
+from the environment (``parallel.distributed.maybe_initialize_distributed``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
+from ..parallel.distributed import maybe_initialize_distributed
+
+# Join a multi-process run when the launcher provides the coordinates
+# (ADV_TPU_COORDINATOR, ADV_TPU_NUM_PROCESSES, ADV_TPU_PROCESS_ID).
+maybe_initialize_distributed()
 
 
 def add_model_args(parser: argparse.ArgumentParser, default_model: str = "resnet50") -> None:

@@ -53,14 +53,19 @@ import torch
 
 from ..core.constants import (DEFAULT_ALPHA, DEFAULT_CW_C, DEFAULT_CW_KAPPA, DEFAULT_CW_LR,
                               DEFAULT_EPS_LIST, DEFAULT_STEPS)
-from ..core.device import resolve_device
-from ..core.images import list_images, load_image_batch_tolerant
+from ..core.device import resolve_device, to_device
+from ..core.images import list_images, load_image_batch_tolerant, pad_batch
 from ..core.rng import cell_generator, generator_from_seed
 from ..defenses.detector import calibrate_feature_threshold, calibrate_squeezing_threshold
 from ..defenses.preprocess import DefenseConfig, defend_input
 from ..eval.defense_eval import (DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch,
                                  summary_line)
-from ..eval.streaming import _merge_labels, make_placer, round_up, stream_defense_cell
+from ..eval.engine import Engine
+from ..eval.streaming import make_placer, merge_labels, round_up, stream_defense_cell
+from ..parallel.data_parallel import (evaluate_defenses_sharded, replicate_fns, sharded_counts,
+                                      sharded_predict)
+from ..parallel.distributed import all_reduce_sum
+from ..parallel.mesh import ShardedTensor, data_sharding
 from .common import (ATTACK_CHOICES, EPS_INDEPENDENT_ATTACKS, add_extended_attack_args,
                      add_imagenet_val_arg, add_model_args, apply_imagenet_val, cell_rng_id,
                      check_label_range, cifar10_inputs, config_fingerprint,
@@ -263,22 +268,62 @@ def main(argv=None) -> int:
         with torch.no_grad():
             return torch.argmax(logits_fn(xx), dim=-1)
 
+    # one padded batch on the device, or sharded over the mesh's 'data' axis
+    # when more than one card is visible (one model replica a card; the
+    # counters are summed over the shards and trimmed to the valid rows)
+    engine = Engine(use_mesh=True, device=device)
+    mesh = engine.mesh
+    # the host codec cannot sit inside a sharded adaptive attack loop (the
+    # JAX CLI refuses it too); single-device adaptive+host works (BPDA)
+    if args.adaptive and args.use_jpeg and args.jpeg_mode == "host" and mesh is not None:
+        raise SystemExit(
+            "--adaptive with the host JPEG codec cannot run on a mesh "
+            "(the codec must sit inside the sharded attack loop); "
+            "use --jpeg_mode dct")
+    if mesh is None:
+        cell_fns = (logits_fn, features_fn)
+    else:
+        cell_fns = replicate_fns(bundle, make_fns)
+
+    def pseudo_any(xx):
+        if isinstance(xx, ShardedTensor):
+            return sharded_predict(cell_fns[0], xx)
+        return pseudo_fn(xx)
+
     max_batch = int(args.max_batch)
     # the CIFAR-10 archive is decoded already: always one resident batch
     streaming = not cifar and max_batch > 0 and len(image_paths) > max_batch
     if streaming:
-        chunk = round_up(max_batch, 1)  # one card: no mesh axis to round to
-        place = make_placer(device)
+        chunk = round_up(max_batch, mesh.shape["data"] if mesh is not None else 1)
+        place = make_placer(mesh if mesh is not None else device)
         n = len(image_paths)
         print(f"Streaming evaluation: {n} images in fixed chunks of {chunk} "
               "(constant memory; decode overlaps the device step)")
+        if mesh is not None:
+            print(f"Mesh: {dict(mesh.shape)} (chunks of {chunk} sharded over 'data')")
     else:
         if cifar:
             x_np = x_cifar
         else:
             x_np, image_paths = load_image_batch_tolerant(image_paths, size=bundle.input_size)
-        x = torch.from_numpy(x_np).to(device)
-        n = int(x.shape[0])
+        batch = engine.batch_from_array(x_np, paths=list(image_paths))
+        x, n = batch.x, batch.n_valid
+        if mesh is not None:
+            print(f"Mesh: {dict(mesh.shape)} (batch {batch.padded_size} sharded over 'data')")
+
+    def leading(k: int) -> torch.Tensor:
+        """The first k resident images on one device (the calibration and
+        the sample figure run there)."""
+        if not isinstance(x, ShardedTensor):
+            return x[:k]
+        return to_device(torch.from_numpy(np.ascontiguousarray(x_np[:k])), device)
+
+    def place_labels(labels: np.ndarray):
+        """Per-image labels placed as the resident batch is."""
+        if mesh is None:
+            return torch.from_numpy(labels.astype(np.int64)).to(device)
+        padded, _ = pad_batch(labels.astype(np.int64), mesh.shape["data"])
+        return data_sharding(mesh).place(padded)
 
     # --- detector threshold ---
     if args.detector_threshold is not None and args.detector != "mahalanobis":
@@ -311,7 +356,7 @@ def main(argv=None) -> int:
                                                    size=bundle.input_size)
             x_cal, n_cal = torch.from_numpy(head_np).to(device), head_np.shape[0]
         else:
-            x_cal, n_cal = x, min(100, n)
+            x_cal, n_cal = leading(min(100, n)), min(100, n)
         detector_threshold, detector_params = _calibrate(
             args, logits_fn, features_fn, x_cal, n_cal, pseudo_fn, n_classes)
         if args.detector_threshold is not None:
@@ -341,23 +386,23 @@ def main(argv=None) -> int:
         if labels_np is not None:
             check_label_range(labels_np, n_classes)
     elif cifar:
-        # the archive's labels (one card: no padded rows to label)
-        y_pseudo = pseudo_fn(x)
-        pseudo = y_pseudo.cpu().numpy()
+        # the archive's labels
+        y_pseudo = pseudo_any(x)
+        pseudo = _host(y_pseudo)[:n]
         labels = y_cifar.astype(np.int64)
         check_label_range(labels, n_classes)
         print(f"clean accuracy vs CIFAR-10 {args.cifar10_split} labels: "
               f"{float(np.mean(labels == pseudo)):.3f}")
-        y_true = torch.from_numpy(labels).to(device)
+        y_true = place_labels(labels)
     elif args.labels_json:
-        y_pseudo = pseudo_fn(x)
-        pseudo = y_pseudo.cpu().numpy()
+        y_pseudo = pseudo_any(x)
+        pseudo = _host(y_pseudo)[:n]
         labels = resolve_labels(args.labels_json, list(image_paths), pseudo)
         check_label_range(labels, n_classes)
         print(f"clean accuracy vs ground truth: {float(np.mean(labels == pseudo)):.3f}")
-        y_true = torch.from_numpy(labels.astype(np.int64)).to(device)
+        y_true = place_labels(labels)
     else:
-        y_true = y_pseudo = pseudo_fn(x)
+        y_true = y_pseudo = pseudo_any(x)
 
     output_dir = Path(args.output_dir)
     partial = _load_partial(output_dir) if args.resume else {}
@@ -417,10 +462,15 @@ def main(argv=None) -> int:
                 with timer.phase(cell_id):
                     if streaming:
                         stats = stream_defense_cell(
-                            logits_fn, features_fn, cfg, image_paths, detector_threshold,
+                            *cell_fns, cfg, image_paths, detector_threshold,
                             seed=args.seed, cell_id=rng_id, eps=float(eps), chunk_size=chunk,
-                            place=place, size=bundle.input_size, pseudo_label_fn=pseudo_fn,
+                            place=place, size=bundle.input_size, pseudo_label_fn=pseudo_any,
                             labels=labels_np, clean_cache=stream_clean_cache)
+                    elif mesh is not None:
+                        out = evaluate_defenses_sharded(
+                            *cell_fns, x, y_true, detector_threshold, cfg,
+                            cell_generator(args.seed, rng_id), eps_override=float(eps))
+                        stats = sharded_counts(out, n_valid=n)  # waits for the devices
                     else:
                         out = evaluate_defenses_batch(
                             logits_fn, features_fn, x, y_true, detector_threshold, cfg,
@@ -451,7 +501,7 @@ def main(argv=None) -> int:
 
     # --- certified rows beside the empirical ones: same images, same labels ---
     if args.certified != "off":
-        _certified_summary(args, bundle, pseudo_fn, image_paths=image_paths,
+        _certified_summary(args, bundle, pseudo_any, image_paths=image_paths,
                            streaming=streaming, x=None if streaming else x, n=n,
                            y_true=y_true, labels_np=labels_np,
                            chunk=chunk if streaming else 0,
@@ -468,6 +518,9 @@ def main(argv=None) -> int:
             # a resident slice of just the drawn samples
             viz_np, _ = load_image_batch_tolerant(image_paths[:n_viz], size=bundle.input_size)
             x_viz = torch.from_numpy(viz_np).to(device)
+            y_viz = pseudo_fn(x_viz)
+        elif mesh is not None:
+            x_viz = leading(n_viz)
             y_viz = pseudo_fn(x_viz)
         else:
             x_viz, y_viz = x[:n_viz], y_pseudo[:n_viz]
@@ -504,6 +557,7 @@ def _certified_summary(args, bundle, pseudo_fn, *, image_paths, streaming, x, n,
 
     make = make_crown_verify_fn if args.certified == "crown-ibp" else make_verify_fn
     verify = make(ibp_params(bundle.model), bundle.model.spec, bundle.mean, bundle.std)
+    home = next(iter(bundle.model.parameters())).device
     eps_list = [float(e) for e in args.eps_list]
     print("-" * 60)
     counts = {eps: [0, 0, 0] for eps in eps_list}  # verified, correct, images
@@ -514,12 +568,18 @@ def _certified_summary(args, bundle, pseudo_fn, *, image_paths, streaming, x, n,
     else:
         batches = [(x, None, n)]
     for xc, y_np, n_valid in batches:
-        yc = y_true if not streaming else _merge_labels(y_np, pseudo_fn(xc))
+        yc = y_true if not streaming else merge_labels(y_np, pseudo_fn(xc))
         for eps in eps_list:
-            out = verify(xc, yc, eps)
-            counts[eps][0] += int(out["verified"][:n_valid].sum())
-            counts[eps][1] += int(out["correct"][:n_valid].sum())
+            # a sharded batch: each shard's rows below n_valid, moved to the
+            # bounds' device
+            for xs, ys, take in _valid_shards(xc, yc, n_valid, home):
+                out = verify(xs, ys, eps)
+                counts[eps][0] += int(out["verified"][:take].sum())
+                counts[eps][1] += int(out["correct"][:take].sum())
             counts[eps][2] += int(n_valid)
+    # on a mesh of several processes each counted its own rows
+    for eps in eps_list:
+        counts[eps][:2] = all_reduce_sum(torch.tensor(counts[eps][:2])).tolist()
     rows = []
     for eps in eps_list:
         nv, nc, tot = counts[eps]
@@ -531,6 +591,20 @@ def _certified_summary(args, bundle, pseudo_fn, *, image_paths, streaming, x, n,
     path.write_text(json.dumps({"method": args.certified, "model": args.model, "rows": rows},
                                indent=2))
     print(f"Certified rows: {path}")
+
+
+def _host(t) -> np.ndarray:
+    """A (sharded) tensor's rows on the host, in order."""
+    return (t.gather() if isinstance(t, ShardedTensor) else t.cpu()).numpy()
+
+
+def _valid_shards(x, y, n_valid: int, device: torch.device):
+    """(x rows, y rows, how many of them are below ``n_valid``) a shard of a
+    sharded batch, each on ``device``, or the one batch itself."""
+    if not isinstance(x, ShardedTensor):
+        return [(x, y, n_valid)]
+    return [(xs.to(device), ys.to(device), max(0, min(hi, n_valid) - lo))
+            for xs, ys, (lo, hi) in zip(x.data_shards(), y.data_shards(), x.row_ranges())]
 
 
 def _visualize_samples(logits_fn, x, y_pred, eps, defense_cfg, output_dir, generator):

@@ -14,7 +14,7 @@
 // Design: one thread per element in a grid-stride loop with a masked tail,
 // so any contiguous float32 tensor is taken as it is; the TPU version's
 // [rows, 128] pad/unpad (ops/pallas_ops.py:41-51) has no counterpart.  The
-// scalars (alpha, eps, levels-1, seed) are kernel arguments, so one build
+// scalars (alpha, eps, levels-1, seed, offset) are kernel arguments, so one build
 // serves every eps of a sweep.  No launcher allocates or synchronises: the
 // Python wrapper allocates the output and launches on PyTorch's current
 // stream, and each launcher returns cudaGetLastError().
@@ -97,29 +97,36 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t bits, float eps) {
   return (u * 2.0f - 1.0f) * eps;
 }
 
-// One Philox call gives four elements: thread t owns elements 4t .. 4t+3,
-// counter = (t, 0), key = seed.
+// One Philox call gives four elements: group G holds the elements 4G ..
+// 4G+3 of the whole tensor, counter = (G, 0), key = seed.  `offset` is the
+// whole tensor's index of out[0], so a shard (a contiguous run of rows)
+// draws exactly the elements of the unsharded draw; offset 0 is the whole
+// tensor.  Thread t owns group offset/4 + t.
 __global__ void uniform_noise_kernel(float* __restrict__ out, long long n,
-                                     unsigned long long seed, float eps) {
-  const long long groups = (n + 3) / 4;
+                                     unsigned long long seed, float eps,
+                                     long long offset) {
+  const long long g0 = offset / 4;
+  const long long groups = (offset + n + 3) / 4 - g0;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   const uint2 key = make_uint2(static_cast<uint32_t>(seed),
                                static_cast<uint32_t>(seed >> 32));
+  const bool aligned = (offset % 4) == 0;
   for (long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
        t < groups; t += stride) {
-    const uint4 ctr = make_uint4(static_cast<uint32_t>(t),
-                                 static_cast<uint32_t>(t >> 32), 0u, 0u);
+    const long long g = g0 + t;
+    const uint4 ctr = make_uint4(static_cast<uint32_t>(g),
+                                 static_cast<uint32_t>(g >> 32), 0u, 0u);
     const uint4 r = philox4x32_10(ctr, key);
-    const float v0 = bits_to_uniform(r.x, eps), v1 = bits_to_uniform(r.y, eps);
-    const float v2 = bits_to_uniform(r.z, eps), v3 = bits_to_uniform(r.w, eps);
-    const long long i = 4 * t;
-    if (i + 3 < n) {
-      // the wrapper allocates `out`, so it is 16-byte aligned
-      reinterpret_cast<float4*>(out)[t] = make_float4(v0, v1, v2, v3);
+    const float v[4] = {bits_to_uniform(r.x, eps), bits_to_uniform(r.y, eps),
+                        bits_to_uniform(r.z, eps), bits_to_uniform(r.w, eps)};
+    const long long i = 4 * g - offset;  // out's index of v[0]
+    if (aligned && i + 3 < n) {
+      // the wrapper allocates `out`, so it is 16-byte aligned, and i % 4 == 0
+      reinterpret_cast<float4*>(out)[i / 4] = make_float4(v[0], v[1], v[2], v[3]);
     } else {
-      out[i] = v0;
-      if (i + 1 < n) out[i + 1] = v1;
-      if (i + 2 < n) out[i + 2] = v2;
+      for (int j = 0; j < 4; ++j) {
+        if (i + j >= 0 && i + j < n) out[i + j] = v[j];
+      }
     }
   }
 }
@@ -147,10 +154,11 @@ int quantize_launch(const float* x, float* out, long long n, float scale,
 }
 
 int uniform_noise_launch(float* out, long long n, unsigned long long seed,
-                         float eps, cudaStream_t stream) {
+                         float eps, long long offset, cudaStream_t stream) {
   if (n > 0) {
-    uniform_noise_kernel<<<grid_for((n + 3) / 4), kThreads, 0, stream>>>(
-        out, n, seed, eps);
+    const long long groups = (offset + n + 3) / 4 - offset / 4;
+    uniform_noise_kernel<<<grid_for(groups), kThreads, 0, stream>>>(
+        out, n, seed, eps, offset);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.rng import device_generator
+from ..core.rng import device_generator, uniform
 
 
 def weight_matrix(in_size: int, out_size: int, scale: torch.Tensor,
@@ -72,7 +72,7 @@ def draw_geometry(b: int, min_scale: float, generator: torch.Generator,
     ``device``: the scales, uniform over [min_scale, 1), and two uniforms
     in [0, 1) that place the shrunk image within the slack."""
     g = device_generator(generator, device)
-    u = torch.rand((3, int(b)), generator=g, dtype=torch.float32, device=device).to(dtype)
+    u = uniform((3, int(b)), g, device, axis=1).to(dtype)
     scales = min_scale + (1.0 - min_scale) * u[0]
     return scales, u[1], u[2]
 

@@ -56,8 +56,9 @@ def _n_chunks(n: int, chunk: int) -> int:
 
 
 def draw_noise(shape, generator: torch.Generator, device: torch.device | str) -> torch.Tensor:
-    """One chunk's N(0, 1) noise, float32 of ``shape`` on ``device``."""
-    return standard_normal(shape, generator, device)
+    """One chunk's N(0, 1) noise, float32 of ``shape`` ``[chunk, B, ...]``
+    on ``device``."""
+    return standard_normal(shape, generator, device, axis=1)
 
 
 def make_counts_fn(logits_fn: LogitsFn, chunk: int):

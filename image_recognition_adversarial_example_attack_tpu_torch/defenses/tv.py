@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..core.rng import device_generator
+from ..core.rng import device_generator, uniform
 
 TV_WEIGHT = 0.03   # the paper's lambda_TV
 TV_STEPS = 30      # Chambolle-Pock iterations (static; O(1/k) gap)
@@ -100,7 +100,7 @@ def draw_keep_mask(shape, keep_prob: float, generator: torch.Generator,
                    device: torch.device | str) -> torch.Tensor:
     """Bernoulli(keep_prob) float32 of ``shape`` on ``device`` (1 = kept)."""
     g = device_generator(generator, device)
-    u = torch.rand(tuple(shape), generator=g, dtype=torch.float32, device=device)
+    u = uniform(shape, g, device)
     return (u < float(keep_prob)).to(torch.float32)
 
 

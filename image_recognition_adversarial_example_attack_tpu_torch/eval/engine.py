@@ -5,8 +5,10 @@ A directory of images becomes one ``[B, H, W, 3]`` batch, padded up to a
 multiple of the mesh's data-axis size by repeating its last image, and
 placed on the device, or split over the mesh when there is one; results are
 sliced back to the valid count.  As in the JAX package, a mesh is made only
-when more than one device is visible; the device is ``cuda`` unless the
-caller asks for ``cpu``.
+when more than one device is visible, or when the run spans several
+processes (``parallel.distributed``: the mesh then holds every process's
+devices and each process places its rows); the device is ``cuda`` unless
+the caller asks for ``cpu``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 
 from ..core.device import resolve_device, to_device
 from ..core.images import list_images, load_image_batch, pad_batch
-from ..parallel.mesh import Mesh, ShardedTensor, data_sharding, make_mesh, visible_devices
+from ..parallel.distributed import make_dcn_mesh, process_count
+from ..parallel.mesh import Mesh, ShardedTensor, data_sharding, visible_devices
 
 
 @dataclass
@@ -44,8 +47,9 @@ class Engine:
         self.device = resolve_device(device)
         if mesh is None and use_mesh:
             devices = visible_devices(self.device)
-            if len(devices) > 1:
-                mesh = make_mesh(devices=devices)
+            if len(devices) > 1 or process_count() > 1:
+                # every process's devices, this process's rows of each batch
+                mesh = make_dcn_mesh(devices=devices)
         self.mesh = mesh
 
     def batch_from_paths(self, paths: Sequence[str | Path], size: int = 224) -> Batch:

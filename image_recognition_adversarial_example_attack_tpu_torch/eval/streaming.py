@@ -34,6 +34,7 @@ import torch
 from ..core.constants import IMAGE_SIZE
 from ..core.device import synchronize, to_device
 from ..core.rng import chunk_generator
+from ..parallel.mesh import Mesh, ShardedTensor, data_sharding
 from ..utils.pipeline import EvalBatchPipeline
 from .defense_eval import STAT_KEYS, DefenseEvalConfig, evaluate_defenses_batch
 from .transfer import TransferCell
@@ -70,8 +71,10 @@ def _merge_labels(y_np: np.ndarray | None, pseudo: torch.Tensor) -> torch.Tensor
     return torch.where(y < 0, pseudo, y)
 
 
-def make_placer(device: torch.device | str, transfer_uint8: bool | None = None) -> Placer:
-    """host chunk (numpy float32 NHWC) -> float32 tensor on ``device``.
+def make_placer(target, transfer_uint8: bool | None = None) -> Placer:
+    """host chunk (numpy float32 NHWC) -> float32 tensor on ``target``, a
+    device, or a ``ShardedTensor`` sharded over the data axis when
+    ``target`` is a ``parallel.mesh.Mesh`` (the JAX placer's mesh form).
 
     On a card each chunk goes through ``core.device.to_device``: a fresh
     pinned buffer sent with ``non_blocking=True``, so a later chunk never
@@ -82,13 +85,19 @@ def make_placer(device: torch.device | str, transfer_uint8: bool | None = None) 
     uint8, a quarter of the bytes, and divides by 255 on the device.  Pixels
     come back on the 1/255 grid, which a PNG or JPEG decode already is.
     """
-    device = torch.device(device)
     if transfer_uint8 is None:
         transfer_uint8 = os.environ.get("ADV_TPU_TRANSFER_UINT8", "").lower() in (
             "1", "on", "true")
+    if isinstance(target, Mesh):
+        sharding = data_sharding(target)
 
-    def put(a: np.ndarray) -> torch.Tensor:
-        return to_device(torch.from_numpy(np.ascontiguousarray(a)), device)
+        def put(a: np.ndarray):
+            return sharding.place(np.ascontiguousarray(a))
+    else:
+        device = torch.device(target)
+
+        def put(a: np.ndarray):
+            return to_device(torch.from_numpy(np.ascontiguousarray(a)), device)
 
     if not transfer_uint8:
         return put
@@ -96,13 +105,29 @@ def make_placer(device: torch.device | str, transfer_uint8: bool | None = None) 
     # a 0-d tensor on the device: PyTorch divides by a Python scalar (or a
     # CPU scalar) as a product with its reciprocal, which can differ in the
     # last bit from a division
-    scale = torch.tensor(255.0, dtype=torch.float32, device=device)
+    scales: dict = {}
 
-    def place(x_np: np.ndarray) -> torch.Tensor:
-        u8 = np.clip(np.round(np.asarray(x_np, np.float32) * 255.0), 0, 255).astype(np.uint8)
-        return put(u8).to(torch.float32) / scale
+    def to_float(u8: torch.Tensor) -> torch.Tensor:
+        if u8.device not in scales:
+            scales[u8.device] = torch.tensor(255.0, dtype=torch.float32, device=u8.device)
+        return u8.to(torch.float32) / scales[u8.device]
+
+    def place(x_np: np.ndarray):
+        u8 = put(np.clip(np.round(np.asarray(x_np, np.float32) * 255.0), 0, 255).astype(np.uint8))
+        if isinstance(u8, ShardedTensor):
+            return ShardedTensor(tuple(to_float(s) for s in u8.shards), u8.sharding)
+        return to_float(u8)
 
     return place
+
+
+def merge_labels(y_np: np.ndarray | None, pseudo):
+    """``_merge_labels`` for a chunk whose pseudo-labels are sharded: the
+    merged labels sharded the same way."""
+    if not isinstance(pseudo, ShardedTensor):
+        return _merge_labels(y_np, pseudo)
+    merged = _merge_labels(y_np, pseudo.gather())
+    return pseudo.sharding.place(merged)
 
 
 def stream_defense_cell(
@@ -144,8 +169,10 @@ def stream_defense_cell(
     pipe = EvalBatchPipeline(paths, chunk_size, labels=labels, size=size)
     for step, x_np, y_np, n_valid in pipe:
         x = place(x_np)
+        sharded = isinstance(x, ShardedTensor)
         if y_np is not None and not (pseudo_label_fn is not None and np.any(y_np < 0)):
-            y = torch.from_numpy(np.asarray(y_np, np.int64)).to(x.device)
+            y = torch.from_numpy(np.asarray(y_np, np.int64))
+            y = x.sharding.place(y) if sharded else y.to(x.device)
         else:
             if clean_cache is not None and step in clean_cache:
                 pseudo = clean_cache[step]
@@ -154,12 +181,21 @@ def stream_defense_cell(
                     pseudo = pseudo_label_fn(x)
                 if clean_cache is not None:
                     clean_cache[step] = pseudo
-            y = _merge_labels(y_np, pseudo)
-        out = evaluate_defenses_batch(logits_fn, features_fn, x, y, threshold, config,
-                                      chunk_generator(seed, cell_id, step), eps_override=eps)
-        # the chunk's one read from the card: the counter vectors
-        vecs = torch.stack([out[k] for k in STAT_KEYS]).cpu().numpy()
-        totals += vecs[:, :n_valid].sum(axis=1)
+            y = merge_labels(y_np, pseudo)
+        gen = chunk_generator(seed, cell_id, step)
+        if sharded:  # each shard on its device, the counters summed over them
+            from ..parallel.data_parallel import evaluate_defenses_sharded, sharded_counts
+
+            sums = sharded_counts(evaluate_defenses_sharded(
+                logits_fn, features_fn, x, y, threshold, config, gen, eps_override=eps),
+                n_valid=n_valid)
+            totals += np.asarray([sums[k] for k in STAT_KEYS], np.int64)
+        else:
+            out = evaluate_defenses_batch(logits_fn, features_fn, x, y, threshold, config,
+                                          gen, eps_override=eps)
+            # the chunk's one read from the card: the counter vectors
+            vecs = torch.stack([out[k] for k in STAT_KEYS]).cpu().numpy()
+            totals += vecs[:, :n_valid].sum(axis=1)
         count += int(n_valid)
     stats = {k: int(v) for k, v in zip(STAT_KEYS, totals)}
     stats["count"] = count

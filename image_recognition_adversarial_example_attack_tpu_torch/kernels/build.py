@@ -53,7 +53,7 @@ ELEMENTWISE_SIGNATURES = {
                                        ctypes.c_float, _P]),
     "uniform_noise_launch": (ctypes.c_int, [_P, ctypes.c_longlong,
                                             ctypes.c_ulonglong,
-                                            ctypes.c_float, _P]),
+                                            ctypes.c_float, ctypes.c_longlong, _P]),
 }
 # the extern "C" launchers of csrc/conv3x3.cu: (x, w, out, batch, h, w, then
 # the tile plan's rows and buf_rows, an int[4] for the grid, stream)

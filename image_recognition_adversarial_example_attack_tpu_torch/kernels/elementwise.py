@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.rng import seed_draw
+from ..core.rng import ShardGenerator, batch_draw, seed_draw, whole_batch_draw
 from .build import load_library
 
 LAUNCHES: dict[str, int] = {"pgd_step": 0, "quantize": 0, "uniform_noise": 0}
@@ -134,14 +134,44 @@ def uniform_noise(shape, eps: float, generator: torch.Generator,
 
     On a CUDA device the Philox kernel draws it, keyed on a 64-bit seed taken
     from ``generator``; on the CPU ``torch.rand`` draws it from ``generator``.
+    A ``core.rng.ShardGenerator`` (one shard of a sharded batch) gives its
+    rows of the whole batch's draw: the kernel starts at the shard's first
+    element (``offset``) under the whole batch's seed, and the CPU slices
+    the whole batch's uniforms.
     """
     device = torch.device(device)
+    if isinstance(generator, ShardGenerator):
+        return _shard_noise(shape, eps, generator, device)
     if device.type == "cpu":
         return uniform_noise_plain(shape, eps, generator)
-    seed = seed_draw(generator)
+    return uniform_noise_at(shape, eps, seed_draw(generator), device)
+
+
+def uniform_noise_at(shape, eps: float, seed: int, device: torch.device | str,
+                     offset: int = 0) -> torch.Tensor:
+    """The kernel's draw under ``seed``, its element 0 being element
+    ``offset`` of the draw that starts at 0 (CUDA only: the plain version
+    has no counter to offset)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("uniform_noise_at launches the CUDA kernel; the CPU draws "
+                         "through uniform_noise")
     out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
     code = load_library().uniform_noise_launch(
-        out.data_ptr(), out.numel(), seed, float(eps), _stream(device))
+        out.data_ptr(), out.numel(), seed, float(eps), int(offset), _stream(device))
     _raise_on_error("uniform_noise", code)
     LAUNCHES["uniform_noise"] += 1
     return out
+
+
+def _shard_noise(shape, eps: float, g: ShardGenerator, device: torch.device) -> torch.Tensor:
+    if device.type == "cpu":
+        return batch_draw(g, shape, lambda s, p: uniform_noise_plain(s, eps, p)).to(device)
+    shape = tuple(int(s) for s in shape)
+    if shape[0] != g.hi - g.lo:
+        raise ValueError(f"a shard of rows [{g.lo}, {g.hi}) draws {shape[0]} rows")
+    row = 1
+    for s in shape[1:]:
+        row *= s
+    return uniform_noise_at(shape, eps, whole_batch_draw(g, seed_draw), device,
+                            offset=g.lo * row)

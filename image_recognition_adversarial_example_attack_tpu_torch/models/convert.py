@@ -26,7 +26,7 @@ from __future__ import annotations
 import re
 from functools import partial
 from pathlib import Path
-from typing import Any, Callable, Mapping
+from typing import Any, Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
@@ -418,29 +418,35 @@ def from_jax_variables(variables: Mapping[str, Any], family: str) -> dict[str, t
     return sd
 
 
-def to_jax_variables(model: torch.nn.Module, family: str) -> dict[str, dict]:
-    """The port's model of ``family`` -> ``{"params", ["batch_stats"]}``
-    Flax tree of numpy arrays, the inverse of ``from_jax_variables``.
-    bfloat16 tensors are written as float32 (exactly), the dtype of Flax's
-    parameters; a family without BatchNorm has no ``batch_stats``, as its
-    Flax module has none."""
+class FlaxLeaf(NamedTuple):
+    """Where a state-dict entry lives in the Flax tree: its collection
+    (``params`` or ``batch_stats``), its path, and the two re-layouts
+    (torch tensor -> Flax array layout, and back)."""
+
+    collection: str
+    path: tuple[str, ...]
+    to_flax: Callable[[torch.Tensor], torch.Tensor]
+    from_flax: Callable[[torch.Tensor], torch.Tensor]
+
+
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def flax_layout(model: torch.nn.Module, family: str) -> dict[str, FlaxLeaf]:
+    """Each state-dict key of the port's model of ``family`` -> its
+    ``FlaxLeaf``; the static buffers Flax does not store
+    (``num_batches_tracked``, Swin's ``relative_position_index``) are left
+    out.  ``to_jax_variables`` writes through it and
+    ``parallel.mesh.tensor_parallel_spec`` reads the Flax path and shape."""
     to_flax = _paths(family, 1, len(model.features) - 1 if family in _HEADED else None)
-    tree: dict[str, dict] = {"params": {}, "batch_stats": {}}
-
-    def put(collection: str, path: tuple[str, ...], t: torch.Tensor) -> None:
-        node = tree[collection]
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        if t.dtype == torch.bfloat16:
-            t = t.float()
-        node[path[-1]] = np.ascontiguousarray(t.detach().cpu().numpy())
-
+    layout: dict[str, FlaxLeaf] = {}
     for key, t in model.state_dict().items():
         module, _, leaf = key.rpartition(".")
         if leaf in ("num_batches_tracked", "relative_position_index"):
             continue
         if family == "vit" and key in ("class_token", "encoder.pos_embedding"):
-            put("params", (leaf,), t)
+            layout[key] = FlaxLeaf("params", (leaf,), _same, _same)
             continue
         if leaf.startswith("in_proj_") or (family == "swin" and module.endswith(".qkv")):
             # packed [3D, D] / [3D] -> head-aligned [D, 3, H, hd] / [3, H, hd]
@@ -448,29 +454,57 @@ def to_jax_variables(model: torch.nn.Module, family: str) -> dict[str, dict]:
             heads = model.get_submodule(attn).num_heads
             path = to_flax(attn) + ("qkv",) if leaf.startswith("in_proj_") else to_flax(module)
             if leaf.endswith("weight"):
-                put("params", path + ("kernel",), t.T.reshape(t.shape[1], 3, heads, -1))
+                layout[key] = FlaxLeaf(
+                    "params", path + ("kernel",),
+                    lambda w, h=heads: w.T.reshape(w.shape[1], 3, h, -1),
+                    lambda f: f.reshape(f.shape[0], -1).T)
             else:
-                put("params", path + ("bias",), t.reshape(3, heads, -1))
+                layout[key] = FlaxLeaf("params", path + ("bias",),
+                                       lambda b, h=heads: b.reshape(3, h, -1),
+                                       lambda f: f.reshape(-1))
             continue
         path = to_flax(module)
         if leaf == "relative_position_bias_table":
-            put("params", path + (leaf,), t)
+            layout[key] = FlaxLeaf("params", path + (leaf,), _same, _same)
         elif leaf == "layer_scale":  # ConvNeXt's [C,1,1] -> Flax's [C]
-            put("params", path + (leaf,), t.reshape(-1))
+            layout[key] = FlaxLeaf("params", path + (leaf,), lambda s: s.reshape(-1),
+                                   lambda f: f.reshape(-1, 1, 1))
         elif leaf == "weight" and t.ndim == 4:
-            put("params", path + ("kernel",), t.permute(2, 3, 1, 0))
+            layout[key] = FlaxLeaf("params", path + ("kernel",),
+                                   lambda w: w.permute(2, 3, 1, 0),
+                                   lambda f: f.permute(3, 2, 0, 1))
         elif leaf == "weight" and t.ndim == 2:
-            put("params", path + ("kernel",), t.T)
+            layout[key] = FlaxLeaf("params", path + ("kernel",), lambda w: w.T,
+                                   lambda f: f.T)
         elif leaf == "weight" and t.ndim == 1:
-            put("params", path + ("scale",), t)
+            layout[key] = FlaxLeaf("params", path + ("scale",), _same, _same)
         elif leaf == "bias":
-            put("params", path + ("bias",), t)
+            layout[key] = FlaxLeaf("params", path + ("bias",), _same, _same)
         elif leaf == "running_mean":
-            put("batch_stats", path + ("mean",), t)
+            layout[key] = FlaxLeaf("batch_stats", path + ("mean",), _same, _same)
         elif leaf == "running_var":
-            put("batch_stats", path + ("var",), t)
+            layout[key] = FlaxLeaf("batch_stats", path + ("var",), _same, _same)
         else:
             raise ValueError(f"unmapped state-dict entry: {key} with shape {tuple(t.shape)}")
+    return layout
+
+
+def to_jax_variables(model: torch.nn.Module, family: str) -> dict[str, dict]:
+    """The port's model of ``family`` -> ``{"params", ["batch_stats"]}``
+    Flax tree of numpy arrays, the inverse of ``from_jax_variables``.
+    bfloat16 tensors are written as float32 (exactly), the dtype of Flax's
+    parameters; a family without BatchNorm has no ``batch_stats``, as its
+    Flax module has none."""
+    tree: dict[str, dict] = {"params": {}, "batch_stats": {}}
+    state = model.state_dict()
+    for key, (collection, path, to_flax, _) in flax_layout(model, family).items():
+        t = to_flax(state[key])
+        node = tree[collection]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        node[path[-1]] = np.ascontiguousarray(t.detach().cpu().numpy())
     if not tree["batch_stats"]:
         del tree["batch_stats"]
     return tree

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8 import conv2d_class, linear_class
+from ..parallel.collective import batch_rows, coupled, sum_over_shards
 
 
 class FrozenBatchNorm2d(nn.BatchNorm2d):
@@ -40,10 +41,19 @@ class FrozenBatchNorm2d(nn.BatchNorm2d):
 def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-channel (mean, variance) of an NCHW batch as Flax's BatchNorm
     computes them (``use_fast_variance``): ``E[x²] - E[x]²`` clamped at 0,
-    the biased variance, reduced in float32 (float64 stays float64)."""
+    the biased variance, reduced in float32 (float64 stays float64).  In a
+    shard of a sharded ``train_bn`` step (``parallel/collective.py``) the
+    moments are the whole batch's."""
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
-    mean = xf.mean(dim=(0, 2, 3))
-    mean2 = (xf * xf).mean(dim=(0, 2, 3))
+    if coupled():
+        # a shard of a sharded train_bn step: the whole batch's moments, from
+        # the sums of x and x² over every shard
+        sums = sum_over_shards(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
+        count = batch_rows() * xf.shape[2] * xf.shape[3]
+        mean, mean2 = sums[0] / count, sums[1] / count
+    else:
+        mean = xf.mean(dim=(0, 2, 3))
+        mean2 = (xf * xf).mean(dim=(0, 2, 3))
     return mean, torch.clamp_min(mean2 - mean * mean, 0.0)
 
 

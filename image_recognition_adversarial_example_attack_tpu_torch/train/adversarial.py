@@ -41,12 +41,26 @@ With ``train_bn`` (the CIFAR families) every forward of the step, the
 inner attack's and the eval steps' included, normalizes by the batch's own
 statistics (``models.resnet.TrainableBatchNorm2d``), and
 ``calibrate_batch_stats`` computes the running statistics once at export.
+
+Every step also takes a batch sharded over a mesh's data axis
+(``parallel.mesh.ShardedTensor``; the JAX step jitted with the batch over
+'data'): each shard's forward and backward run on its device, its means
+divide by the whole (micro-)batch's row count, its draws are its rows of
+the unsharded step's (``core.rng.shard_generators``), and the gradients are
+summed over the shards and then the processes before one AdamW update.
+``grad_accum``'s micro-batches are the unsharded step's, each split evenly
+over every data row.  Under ``train_bn`` the shards run in lockstep threads
+(``parallel/collective.py``) so that every forward normalizes by the whole
+batch's statistics; remat is refused there.
 """
 
 from __future__ import annotations
 
+import copy
 import os
+import weakref
 from dataclasses import dataclass, replace
+from functools import partial
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Callable
@@ -61,9 +75,12 @@ from ..attacks import pgd
 from ..attacks.eot import make_eot_logits_fn
 from ..core.constants import IMAGENET_MEAN, IMAGENET_STD
 from ..core.normalize import normalize_batch
-from ..core.rng import split_generators, standard_normal
+from ..core.rng import shard_generators, split_generators, standard_normal
 from ..kernels import elementwise
 from ..models.resnet import TrainableBatchNorm2d, batch_moments, set_train_bn
+from ..parallel.collective import batch_rows, run_lockstep, shard_context, shard_grad
+from ..parallel.distributed import all_gather_rows, all_reduce_sum, process_count
+from ..parallel.mesh import ShardedTensor
 from .augment import AugmentConfig, make_augment_fn
 from .optim import AdamState, AdamW, global_norm, make_lr_schedule
 
@@ -191,6 +208,15 @@ def train_state_from_jax(template: TrainState, family: str, *, params, extra_var
         ema_params=None if ema_params is None else tree(ema_params))
 
 
+def _mean_rows(t: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch's rows of a per-row tensor: ``torch.mean``,
+    or, in a shard of a sharded step, the shard's sum over the whole
+    (micro-)batch's row count, so that the shards' values add up to the
+    unsharded mean."""
+    rows = batch_rows()
+    return torch.mean(t) if rows is None else torch.sum(t) / (rows * (t.numel() // t.shape[0]))
+
+
 def _ce_loss(logits: torch.Tensor, y: torch.Tensor, smoothing: float) -> torch.Tensor:
     """Mean cross-entropy; with ``smoothing`` against optax.smooth_labels'
     ``(1 - a) * onehot + a / n``."""
@@ -198,12 +224,12 @@ def _ce_loss(logits: torch.Tensor, y: torch.Tensor, smoothing: float) -> torch.T
     if smoothing > 0.0:
         n = logits.shape[-1]
         target = (1.0 - smoothing) * F.one_hot(y.long(), n).to(logp.dtype) + smoothing / n
-        return -torch.mean(torch.sum(target * logp, dim=-1))
-    return -torch.mean(logp.gather(-1, y.long()[:, None]))
+        return -_mean_rows(torch.sum(target * logp, dim=-1))
+    return -_mean_rows(logp.gather(-1, y.long()[:, None]))
 
 
 def _accuracy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    return torch.mean((torch.argmax(logits, dim=-1) == y).to(LOSS_DTYPE))
+    return _mean_rows((torch.argmax(logits, dim=-1) == y).to(LOSS_DTYPE))
 
 
 def _finish_step(state: TrainState, grads, metrics, ema_decay: float = 0.0):
@@ -230,8 +256,8 @@ def _param_grads(total_loss: Callable, params: dict[str, torch.Tensor], *extra_i
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     with torch.enable_grad():
         loss, aux = total_loss(leaves, *extra_inputs)
-        grads = torch.autograd.grad(loss, [*leaves.values(), *extra_inputs],
-                                    allow_unused=True, materialize_grads=True)
+        grads = shard_grad(loss, [*leaves.values(), *extra_inputs],
+                           allow_unused=True, materialize_grads=True)
     aux = tuple(a.detach() for a in aux) if isinstance(aux, tuple) else aux.detach()
     g = dict(zip(leaves, grads[:len(leaves)]))
     return (loss.detach(), aux, g, *grads[len(leaves):])
@@ -333,10 +359,171 @@ def _step_with(grads_fn, config: AdvTrainConfig):
     grads_full = _with_augment(_with_grad_accum(grads_fn, int(config.grad_accum)), config)
 
     def step(state: TrainState, x01, y, generator):
-        return _finish_step(state, *grads_full(state, x01, y, generator),
-                            ema_decay=config.ema_decay)
+        if isinstance(x01, ShardedTensor):
+            grads = _sharded_grads(grads_fn, config, state, x01, y, generator)
+        else:
+            grads = grads_full(state, x01, y, generator)
+        return _finish_step(state, *grads, ema_decay=config.ema_decay)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# A step over a data-sharded batch (the JAX step jitted with the batch
+# sharded over 'data'): each shard's forward and backward on its device, the
+# gradients summed over the shards and then the processes, one update.
+# ---------------------------------------------------------------------------
+
+# metrics that are no mean over rows (every shard reports the same value)
+_SHARED_METRICS = ("ibp_eps", "ibp_kappa")
+_REPLICAS: "weakref.WeakKeyDictionary[nn.Module, dict]" = weakref.WeakKeyDictionary()
+
+
+def _replica(model: nn.Module, device: torch.device, index: int) -> nn.Module:
+    """A copy of ``model`` on ``device`` for shard ``index`` (``model`` itself
+    for shard 0 on its own device), kept for later steps: shards that run
+    at once (``train_bn``) each need their own module for
+    ``functional_call``."""
+    home = next(iter(model.parameters())).device
+    if index == 0 and device == home:
+        return model
+    cache = _REPLICAS.setdefault(model, {})
+    key = (str(device), index)
+    if key not in cache:
+        cache[key] = copy.deepcopy(model).to(device)
+    return cache[key]
+
+
+def _state_on(state: TrainState, device: torch.device, index: int) -> TrainState:
+    """The state as shard ``index`` on ``device`` uses it (no copy for shard
+    0 on the state's device)."""
+    home = next(iter(state.params.values())).device
+    if index == 0 and device == home:
+        return state
+    return state.replace(params={k: v.to(device) for k, v in state.params.items()},
+                         extra_variables={k: v.to(device)
+                                          for k, v in state.extra_variables.items()},
+                         model=_replica(state.model, device, index))
+
+
+def _run_shards(state: TrainState, devices, rows: int, fn) -> list:
+    """``fn(shard_state, i)`` for every shard i (its batch of ``rows`` rows
+    the whole (micro-)batch): one after another when the shards are
+    independent, in lockstep threads under ``train_bn``."""
+    cross = process_count() > 1
+    if state.train_bn:
+        return run_lockstep([partial(fn, _state_on(state, d, i), i) for i, d in enumerate(devices)],
+                            rows, cross_process=cross)
+    out = []
+    for i, d in enumerate(devices):
+        # the same module serves every shard of one device, one at a time
+        with shard_context(None, i, rows):
+            out.append(fn(_state_on(state, d, 0), i))
+    return out
+
+
+def _reduce_tree(tree: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Each tensor summed over the processes (one all_reduce a dtype)."""
+    if process_count() == 1:
+        return tree
+    groups: dict = {}
+    for k, v in tree.items():
+        groups.setdefault((v.dtype, v.device), []).append(k)
+    out = {}
+    for keys in groups.values():
+        flat = all_reduce_sum(torch.cat([tree[k].reshape(-1) for k in keys]))
+        for k, part in zip(keys, torch.split(flat, [tree[k].numel() for k in keys])):
+            out[k] = part.reshape(tree[k].shape)
+    return out
+
+
+def _sum_shards(results, home: torch.device):
+    """Per-shard (grads, metrics) -> their sums, in shard order on ``home``,
+    then over the processes; the shared metrics are shard 0's."""
+    grads = {k: v.to(home) for k, v in results[0][0].items()}
+    metrics = {k: v.to(home) for k, v in results[0][1].items()}
+    for g, m in results[1:]:
+        grads = {k: t + g[k].to(home) for k, t in grads.items()}
+        metrics = {k: t if k in _SHARED_METRICS else t + m[k].to(home)
+                   for k, t in metrics.items()}
+    shared = {k: metrics.pop(k) for k in _SHARED_METRICS if k in metrics}
+    return _reduce_tree(grads), {**_reduce_tree(metrics), **shared}
+
+
+def _micro_pieces(x: ShardedTensor, xs, ys, micro: int, accum: int):
+    """The micro-batches of a sharded batch, each split evenly over every
+    data row of the mesh (every process's), as the unsharded step splits
+    the batch: for micro-batch i, this process's pieces (x, y, rows within
+    the micro-batch) on its devices.  Several processes first gather the
+    whole batch (``all_gather_rows``)."""
+    mesh = x.sharding.mesh
+    n_rows = mesh.shape["data"]
+    if micro < n_rows:
+        raise ValueError(f"a micro-batch of {micro} rows leaves some of the {n_rows} data "
+                         "shards empty")
+    home = xs[0].device
+    x_all = all_gather_rows(torch.cat([t.to(home) for t in xs]))
+    y_all = all_gather_rows(torch.cat([t.to(home) for t in ys]))
+    devices = [row[0] for row in mesh.devices]
+    edges = [0]
+    for c in torch.tensor_split(torch.arange(micro), n_rows):
+        edges.append(edges[-1] + int(c.numel()))
+    out = []
+    for i in range(accum):
+        pieces = []
+        for j, d in enumerate(devices):
+            k = mesh.first_data_row + j
+            a, b = i * micro + edges[k], i * micro + edges[k + 1]
+            pieces.append((x_all[a:b].to(d), y_all[a:b].to(d), (edges[k], edges[k + 1])))
+        out.append(pieces)
+    return out
+
+
+def _sharded_grads(grads_fn, config: AdvTrainConfig, state: TrainState, x: ShardedTensor, y,
+                   generator: torch.Generator):
+    """The unsharded ``grads_full`` (augment, grad_accum, ``grads_fn``) over
+    a data-sharded batch, equal to it up to float reassociation: every draw
+    is the unsharded run's rows (``core.rng.shard_generators``), every mean
+    divides by the whole (micro-)batch's rows, and under ``train_bn`` the
+    batch statistics are the whole (micro-)batch's."""
+    if config.remat and state.train_bn:
+        raise NotImplementedError(
+            "remat with train_bn on a sharded batch: the recomputed forward would "
+            "need the whole batch's statistics again")
+    from ..parallel.data_parallel import shard_labels
+
+    y = shard_labels(y, x.sharding.mesh)
+    xs, ys, ranges = x.data_shards(), y.data_shards(), x.row_ranges()
+    total = int(x.shape[0])
+    home = next(iter(state.params.values())).device
+    augment = _augment_fn(config)
+    if augment is not None:
+        g_aug, generator = split_generators(generator, 2)
+        xs = [augment(g, xi) for g, xi in zip(shard_generators(g_aug, ranges, total), xs)]
+
+    def one_pass(pieces, rows: int, gen: torch.Generator):
+        gens = shard_generators(gen, [r for _, _, r in pieces], rows)
+        results = _run_shards(state, [p[0].device for p in pieces], rows,
+                              lambda st, i: grads_fn(st, pieces[i][0], pieces[i][1], gens[i]))
+        return _sum_shards(results, home)
+
+    accum = int(config.grad_accum)
+    if accum <= 1:
+        return one_pass(list(zip(xs, ys, ranges)), total, generator)
+    if total % accum:
+        raise ValueError(f"batch size {total} is not divisible by grad_accum={accum}")
+    micro = total // accum
+    g_sum = m_sum = None
+    for pieces, g in zip(_micro_pieces(x, xs, ys, micro, accum),
+                         split_generators(generator, accum)):
+        grads, metrics = one_pass(pieces, micro, g)
+        if g_sum is None:
+            g_sum, m_sum = grads, metrics
+        else:
+            g_sum = {k: g_sum[k] + v for k, v in grads.items()}
+            m_sum = {k: m_sum[k] + v for k, v in metrics.items()}
+    inv = 1.0 / accum
+    return {k: t * inv for k, t in g_sum.items()}, {k: t * inv for k, t in m_sum.items()}
 
 
 def make_train_step(config: AdvTrainConfig, mean=IMAGENET_MEAN, std=IMAGENET_STD):
@@ -399,24 +586,52 @@ def make_free_step(config: AdvTrainConfig, mean=IMAGENET_MEAN, std=IMAGENET_STD)
     augment = _augment_fn(config)
 
     def step(state: TrainState, x01, y, generator, delta):
+        # a plain batch is one shard; a sharded one replays every shard's
+        # rows, its gradients summed before each update (``delta`` sharded
+        # as ``x01``, or a host/one-device [B,H,W,C] tensor split the same way)
+        sharded = isinstance(x01, ShardedTensor)
+        if sharded:
+            if state.train_bn and config.remat:
+                raise NotImplementedError(
+                    "remat with train_bn on a sharded batch: the recomputed forward would "
+                    "need the whole batch's statistics again")
+            from ..parallel.data_parallel import like, shard_labels
+
+            mesh = x01.sharding.mesh
+            y = shard_labels(y, mesh)
+            delta = delta if isinstance(delta, ShardedTensor) else shard_labels(delta, mesh)
+            xs, ys, ranges = x01.data_shards(), y.data_shards(), x01.row_ranges()
+            ds = [d.to(xi.device) for d, xi in zip(delta.data_shards(), xs)]
+            gens = shard_generators(generator, ranges, int(x01.shape[0]))
+        else:
+            xs, ys, ds, gens = [x01], [y], [delta], [generator]
         if augment is not None:
-            x01 = augment(generator, x01)
+            xs = [augment(g, xi) for g, xi in zip(gens, xs)]
+        home = next(iter(state.params.values())).device
         history = []
         for _ in range(m):
-            x_adv = torch.clamp(x01 + delta, 0.0, 1.0).requires_grad_(True)
+            def shard(st, i):
+                x_adv = torch.clamp(xs[i] + ds[i], 0.0, 1.0).requires_grad_(True)
 
-            def loss_wrt(params, xx, st=state):
-                logits = apply_logits(st, params, xx)
-                return _ce_loss(logits, y, config.label_smoothing), logits
+                def loss_wrt(params, xx):
+                    logits = apply_logits(st, params, xx)
+                    return _ce_loss(logits, ys[i], config.label_smoothing), logits
 
-            loss, logits, g_p, g_x = _param_grads(loss_wrt, state.params, x_adv)
-            state, metrics = _finish_step(
-                state, g_p, {"loss": loss, "adv_accuracy": _accuracy(logits, y)},
-                ema_decay=config.ema_decay)
-            delta = torch.clamp(delta + config.eps * torch.sign(g_x), -config.eps, config.eps)
+                loss, logits, g_p, g_x = _param_grads(loss_wrt, st.params, x_adv)
+                return (g_p, {"loss": loss, "adv_accuracy": _accuracy(logits, ys[i])}), g_x
+
+            if sharded:
+                results = _run_shards(state, [xi.device for xi in xs], int(x01.shape[0]), shard)
+                g_p, metrics = _sum_shards([r[0] for r in results], home)
+            else:
+                results = [shard(state, 0)]
+                g_p, metrics = results[0][0]
+            state, metrics = _finish_step(state, g_p, metrics, ema_decay=config.ema_decay)
+            ds = [torch.clamp(d + config.eps * torch.sign(r[1]), -config.eps, config.eps)
+                  for d, r in zip(ds, results)]
             history.append(metrics)
         return state, {k: torch.mean(torch.stack([h[k] for h in history]))
-                       for k in history[0]}, delta
+                       for k in history[0]}, like(x01, ds) if sharded else ds[0]
 
     return step
 
@@ -440,7 +655,7 @@ def make_trades_step(config: AdvTrainConfig, mean=IMAGENET_MEAN, std=IMAGENET_ST
             xg = x_adv.detach().requires_grad_(True)
             with torch.enable_grad():
                 logp_adv = F.log_softmax(apply_logits(state, frozen, xg), dim=-1)
-                (g,) = torch.autograd.grad(torch.sum(p_clean * (logp_clean - logp_adv)), xg)
+                (g,) = shard_grad(torch.sum(p_clean * (logp_clean - logp_adv)), [xg])
             x_adv = elementwise.pgd_step(x_adv.contiguous(), g.contiguous(), x0,
                                          config.eps, config.alpha)
 
@@ -451,7 +666,7 @@ def make_trades_step(config: AdvTrainConfig, mean=IMAGENET_MEAN, std=IMAGENET_ST
             p = torch.softmax(logits_clean, dim=-1)
             logp = F.log_softmax(logits_clean, dim=-1)
             logq = F.log_softmax(logits_adv, dim=-1)
-            robust = torch.mean(torch.sum(p * (logp - logq), dim=-1))
+            robust = _mean_rows(torch.sum(p * (logp - logq), dim=-1))
             return natural + config.trades_beta * robust, (natural, robust, logits_adv)
 
         loss, (natural, robust, adv_logits), grads = _param_grads(total_loss, state.params)
@@ -480,13 +695,13 @@ def make_mart_step(config: AdvTrainConfig, mean=IMAGENET_MEAN, std=IMAGENET_STD)
             p_adv = torch.softmax(logits_adv, dim=-1)
             py_adv = torch.sum(p_adv * oh, dim=-1)
             top_other = torch.max(p_adv - oh, dim=-1).values
-            bce = torch.mean(-torch.log(torch.clamp_min(py_adv, 1e-12))
+            bce = _mean_rows(-torch.log(torch.clamp_min(py_adv, 1e-12))
                              - torch.log(torch.clamp_min(1.0 - top_other, 1e-12)))
             p_clean = torch.softmax(logits_clean, dim=-1)
             logp_clean = torch.log(torch.clamp_min(p_clean, 1e-12))
             logq_adv = F.log_softmax(logits_adv, dim=-1)
             kl = torch.sum(p_clean * (logp_clean - logq_adv), dim=-1)
-            reg = torch.mean(kl * (1.0 - torch.sum(p_clean * oh, dim=-1)))
+            reg = _mean_rows(kl * (1.0 - torch.sum(p_clean * oh, dim=-1)))
             return bce + config.mart_beta * reg, (bce, reg, logits_adv)
 
         loss, (bce, reg, adv_logits), grads = _param_grads(total_loss, state.params)
@@ -563,7 +778,7 @@ def make_ibp_step(config: AdvTrainConfig, spec: tuple, mean=IMAGENET_MEAN, std=I
 
         loss, (clean, margin), grads = _param_grads(total_loss, state.params)
         return grads, {"loss": loss,
-                       "adv_accuracy": torch.mean((margin > 0.0).to(f32)),
+                       "adv_accuracy": _mean_rows((margin > 0.0).to(f32)),
                        "clean_accuracy": _accuracy(clean, y),
                        "ibp_eps": eps_t.to(dev), "ibp_kappa": kappa_t.to(dev)}
 

@@ -16,6 +16,8 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core.rng import ShardGenerator, whole_batch_draw
+
 
 @dataclass(frozen=True)
 class AugmentConfig:
@@ -42,6 +44,10 @@ def draw_augment(shape, pad: int, generator: torch.Generator, device: torch.devi
     """One batch's draws for a ``[B,H,W,C]`` batch: ``(offsets [B,2] in
     [0, 2*pad], coins [B] bool, cy [B] in [0,H), cx [B] in [0,W))``, int64
     on ``device``."""
+    if isinstance(generator, ShardGenerator):  # this shard's rows of the whole batch's draws
+        whole = whole_batch_draw(generator, lambda p: draw_augment(
+            (generator.shared.rows, *tuple(shape)[1:]), pad, p, "cpu"))
+        return tuple(t[generator.lo:generator.hi].to(device) for t in whole)
     b, h, w = int(shape[0]), int(shape[1]), int(shape[2])
     offsets = torch.randint(0, 2 * int(pad) + 1, (b, 2), generator=generator)
     coins = torch.rand((b,), generator=generator) < 0.5

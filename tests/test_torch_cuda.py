@@ -82,6 +82,55 @@ def test_noise_kernel_is_a_function_of_the_seed(cuda):
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 
+@pytest.mark.parametrize("offset", [0, 1, 2, 3, 4, 4097])
+def test_noise_kernel_offset_draws_the_whole_draws_elements(cuda, offset):
+    """A shard's draw (``uniform_noise_at`` at an element offset) is those
+    elements of the draw that starts at 0, aligned or not, tails masked."""
+    whole = ew.uniform_noise_at((10_000,), EPS, 12345, cuda)
+    for n in (1, 3, 5, 4099):
+        part = ew.uniform_noise_at((n,), EPS, 12345, cuda, offset=offset)
+        assert torch.equal(part, whole[offset:offset + n]), n
+
+
+def test_sharded_pgd_on_the_card_draws_the_unsharded_start(cuda):
+    """PGD over two slots of the card: each shard launches the kernels, and
+    the result equals the one-device run's at the same seed (the noise's
+    Philox counter offset by the shard's first element)."""
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import make_logits_fn
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.pgd import (
+        pgd_linf_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel import (
+        data_parallel as dp, make_mesh, shard_batch)
+
+    b = load_model("resnet_tiny", device=cuda)
+    lf = make_logits_fn(b.model, b.mean, b.std)
+    x = torch.rand((8, 32, 32, 3), device=cuda)
+    y = lf(x).argmax(-1)
+    mesh = make_mesh(n_data=2, n_model=1, devices=[torch.device("cuda", 0)] * 2)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ew.reset_launches()
+        got = dp.sharded_pgd_linf_attack(lf, shard_batch(x.cpu(), mesh), dp.shard_labels(y, mesh),
+                                         eps=EPS, alpha=ALPHA, steps=3,
+                                         generator=generator_from_seed(6))
+        assert ew.launch_counts() == {"pgd_step": 6, "quantize": 0, "uniform_noise": 2}
+        halves = [pgd_linf_attack(lf, x[i * 4:(i + 1) * 4], y[i * 4:(i + 1) * 4], eps=EPS,
+                                  alpha=ALPHA, steps=3, generator=g)
+                  for i, g in enumerate(dp.generators_for(generator_from_seed(6),
+                                                          shard_batch(x.cpu(), mesh)))]
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert torch.equal(got.gather(), torch.cat(halves).cpu())
+    start = ew.uniform_noise((8, 32, 32, 3), EPS, generator_from_seed(6), cuda)
+    first = ew.uniform_noise((4, 32, 32, 3), EPS,
+                             dp.generators_for(generator_from_seed(6),
+                                               shard_batch(x.cpu(), mesh))[1], cuda)
+    assert torch.equal(first, start[4:])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x, g, x0 = _inputs((4, 6), cuda)
     with pytest.raises(TypeError):
@@ -1040,15 +1089,21 @@ def _objective_pair(device, name, cfg, dtype=torch.float32):
     return make(cfg, bundle.mean, bundle.std), state, x, y
 
 
-@pytest.mark.parametrize("name", sorted(OBJECTIVES))
-def test_every_objective_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
+def objective_steps(cuda, name, monkeypatch, card_cfg=None, steps=2, check=True):
+    """Two steps of objective ``name`` on the card (float32), each replayed
+    on the CPU in float32 and float64 with the card's draws and PGD
+    iterates; ``card_cfg`` changes the card's configuration alone (a planted
+    fault, read with ``check=False``).  Every check but the first moment's
+    band is made here; returns per step (card state, CPU float32 state, CPU
+    float64 first moment, readings)."""
     from image_recognition_adversarial_example_attack_tpu_torch.attacks import pgd
     from image_recognition_adversarial_example_attack_tpu_torch.core.rng import chunk_generator
     from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
     from image_recognition_adversarial_example_attack_tpu_torch.train.optim import AdamState
 
     cfg = adversarial.AdvTrainConfig(**OBJECTIVES[name])
-    lr, cpu = cfg.learning_rate, torch.device("cpu")
+    cfg_g = adversarial.AdvTrainConfig(**{**OBJECTIVES[name], **(card_cfg or {})})
+    cpu = torch.device("cpu")
     tape, flips = [], []
     real = {"pgd_step": ew.pgd_step, "draw_start": pgd.draw_start,
             "draw_trades_start": adversarial.draw_trades_start}
@@ -1091,12 +1146,13 @@ def test_every_objective_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
 
     prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
     try:
-        step_g, state_g, x, y = _objective_pair(cuda, name, cfg)
+        step_g, state_g, x, y = _objective_pair(cuda, name, cfg_g)
         step_c, tmpl_c, _, _ = _objective_pair(cpu, name, cfg)
         step_d, tmpl_d, _, _ = _objective_pair(cpu, name, cfg, torch.float64)
         delta = torch.zeros_like(x)
-        for s in range(2):
+        for s in range(steps):
             extra = (delta,) if name == "free" else ()
             tape.clear()
             out_g = run(step_g, (state_g, x, y, chunk_generator(0, "train:0", s), *extra),
@@ -1114,7 +1170,7 @@ def test_every_objective_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
             monkeypatch.setattr(adversarial, "LOSS_DTYPE", torch.float32)
             (new_g, m_g), (new_c, m_c), (new_d, m_d) = out_g[:2], out_c[:2], out_d[:2]
             assert set(m_g) == set(m_c) == set(m_d)
-            for k in m_d:
+            for k in m_d if check else ():
                 a, b, want = float(m_g[k]), float(m_c[k]), float(m_d[k])
                 if "accuracy" in k:
                     assert abs(a - b) <= 1.0 / x.shape[0] + 1e-6, (s, k, a, b)
@@ -1122,19 +1178,41 @@ def test_every_objective_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
                 tol = max(OBJ_REL_TOL * abs(want), FLOAT32_FACTOR * abs(b - want)) + 1e-7
                 assert abs(a - want) <= tol, (s, k, a, b, want)
             mu_d = new_d.opt_state.mu
-            band = max(OBJ_REL_TOL * max(float(v.abs().max()) for v in mu_d.values()),
-                       FLOAT32_FACTOR * err(new_c.opt_state.mu, mu_d))
-            assert err(new_g.opt_state.mu, mu_d) <= band, s
-            for k, v in new_c.params.items():
-                differ = (new_g.params[k].cpu() - v).abs() > 1e-3 * lr
-                assert bool((mu_d[k][differ].abs() <= band).all()), (s, k)
+            readings = {"mu_card": err(new_g.opt_state.mu, mu_d),
+                        "mu_cpu": err(new_c.opt_state.mu, mu_d),
+                        "mu_scale": max(float(v.abs().max()) for v in mu_d.values())}
             if name == "free":
-                assert float((out_g[2].cpu() != out_c[2]).float().mean()) <= SIGN_FLIP_FRAC
+                assert not check or float((out_g[2].cpu() != out_c[2]).float().mean()
+                                          ) <= SIGN_FLIP_FRAC
                 delta = out_g[2]
+            out.append((new_g, new_c, mu_d, readings))
             state_g = new_g
-        assert max(flips, default=0.0) <= SIGN_FLIP_FRAC
+        assert not check or max(flips, default=0.0) <= SIGN_FLIP_FRAC
         want = {"pgd-at": 6, "pgd-at-train_bn-augment": 6, "trades": 6, "mart": 6}.get(name, 0)
         assert len(flips) == want
-        assert state_g.step == 2 and all(p.is_cuda for p in state_g.params.values())
+        assert state_g.step == steps and all(p.is_cuda for p in state_g.params.values())
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    return out
+
+
+def mu_band(readings: dict) -> float:
+    """The first moment's band around float64: OBJ_REL_TOL of its scale or
+    FLOAT32_FACTOR times the CPU float32's own distance."""
+    return max(OBJ_REL_TOL * readings["mu_scale"], FLOAT32_FACTOR * readings["mu_cpu"])
+
+
+@pytest.mark.parametrize("name", sorted(OBJECTIVES))
+def test_every_objective_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
+    from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
+
+    lr = adversarial.AdvTrainConfig(**OBJECTIVES[name]).learning_rate
+    for s, (new_g, new_c, mu_d, readings) in enumerate(objective_steps(cuda, name, monkeypatch)):
+        band = mu_band(readings)
+        print(f"{name} step {s}: first moment, card {readings['mu_card']:.3e} and CPU float32 "
+              f"{readings['mu_cpu']:.3e} from float64; band {band:.3e} "
+              f"(scale {readings['mu_scale']:.3e})")
+        assert readings["mu_card"] <= band, (s, readings, band)
+        for k, v in new_c.params.items():
+            differ = (new_g.params[k].cpu() - v).abs() > 1e-3 * lr
+            assert bool((mu_d[k][differ].abs() <= band).all()), (s, k)
