@@ -277,10 +277,11 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    pgd_step launches a step, precise-BN moving all 25 running statistics,
    the export loading; (d) MART and free-AT on WRN-28-10 bf16 (train_bn),
    IBP and CROWN-IBP on ibp_cnn7 float32, batch 128, 3 steps each, losses,
-   launches and the verified accuracy at the ramp's eps.  The 13 training
+   launches and the verified accuracy at the ramp's eps.  The 15 training
    cuda tests of ``tests/test_torch_cuda.py`` run in a subprocess beside
    (b) (every objective's float32 step on the card against the CPU's
-   float64 one, with the card's draws and PGD iterates replayed).
+   float64 one, with the card's draws and PGD iterates replayed; the
+   sharded remat step with train_bn over two slots against two CPU slots).
 24. serve -- serving and weight import on ResNet-50 bf16 at 224x224, random
    weights, phase 8's PNGs; six subprocesses start together and each waits
    until driven: (a) the serve CLI in file mode (``--input`` a FIFO, so the
@@ -304,7 +305,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    getting its ``.msgpack`` (the import's bytes), the second load
    ``source="cache"``.
 25. scale-out -- on the one card, (a)-(b) in subprocesses started with
-   (c)-(d) in this process: (a) a process joined through the env contract
+   (c)-(d) in this process, then (e)-(f): (a) a process joined through the env contract
    (``maybe_initialize_distributed``: NCCL at world size 1) runs the pgd ->
    smoothing + quantization -> feature detector cell on ResNet-50 bf16 at
    [128,224,224,3] over a data mesh of two slots of the card (20 pgd_step, 2
@@ -326,10 +327,23 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    their weights, logits within 1e-4 (abs + rel) of the replicated
    model's, ViT's PGD-3 within 2e-5 but at pixels whose gradient sign
    flipped (at most 1e-4 of them), TP forward ms beside replicated; (d)
-   ``entry.dryrun_multichip(4)`` and its JSON line, its launches counted.
-   Room for it: phase 18's attack_suite subprocess, phase 19's cuda tests
-   and its three robust_eval subprocesses now start with their phases
-   (printed).
+   ``entry.dryrun_multichip(4)`` and its JSON line, its launches counted;
+   (e) PGD-AT (PGD-7) on WRN-28-10 float32 (TF32 off, cuDNN deterministic)
+   with ``train_bn`` and remat at [128,32,32,3] over two slots (ResNet-50
+   has no ``train_bn`` in either package): the summed gradient bit-equal to
+   the two-slot step without remat's (limit 1e-6) and within 0.05 of the
+   one-slot remat step's on the same x_adv, the trap planted (the recompute
+   normalizing by the shard's own statistics) and rejected by both
+   (``scripts/remat_smoothadv_readings.py``), ms and peak GiB with and
+   without remat, 14 pgd_step and 2 noise launches; (f) SmoothAdv PGD-AT
+   (sigma 0.25, 4 EOT samples, PGD-7) on ResNet-50 bf16 at [32,224,224,3]
+   over two slots: the PGD start, Cohen's noise and the first EOT call's
+   noise bit-equal to the one-slot run's, each EOT call's noise bit-equal to
+   the one-slot wrapper's draw for the whole batch's input, x_adv bit-equal
+   to each shard's rows run alone on one slot with the same draws, 14
+   pgd_step and 2 noise launches.  Room for it: phase 18's attack_suite
+   subprocess, phase 19's cuda tests and its three robust_eval
+   subprocesses now start with their phases (printed).
 
 Then the kernels line (JSON), the card's name and power limit, and last the
 line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the port's
@@ -4333,9 +4347,10 @@ CLI_LOSS_REL, RESUME_REL = 1e-3, 1e-3
 # and every objective card vs CPU with the card's draws and iterates replayed
 TRAIN_CUDA_TESTS = ("test_training_steps_on_the_card_launch_the_kernels or "
                     "test_float32_training_step_on_the_card_matches_the_cpu or "
+                    "test_sharded_remat_train_bn_step_on_the_card_matches_the_cpu or "
                     "test_augmentation_on_the_card_equals_the_cpu or "
                     "test_every_objective_on_the_card_matches_the_cpu")
-TRAIN_CUDA_TEST_COUNT = 13
+TRAIN_CUDA_TEST_COUNT = 15
 EPOCH_LINE = (r"^epoch (\d+)/(\d+): loss=(\S+) adv_acc=(\S+) clean_acc=(\S+)"
               r"( ema_clean_acc=\S+)?( robust_acc@pgd\d+=\S+)?( verified_acc@\S+=\S+)?"
               r" \((\S+) ex/s\)$")
@@ -5685,6 +5700,357 @@ def _scaleout_dryrun() -> dict:
     return {"line": line, "launches": counts}
 
 
+# 25(e): remat with train_bn over two slots of the card.  ResNet-50 has no
+# batch-statistics mode in either package (train_bn is the CIFAR families'),
+# so the step is PGD-AT (PGD-7) on WRN-28-10 from scratch at the CIFAR
+# batch, float32 (TF32 off) with cuDNN deterministic
+SO_REMAT_MODEL, SO_REMAT_B = "wrn28_10", 128
+# its limits (scripts/remat_smoothadv_readings.py; NVIDIA H100 80GB HBM3 at
+# 700 W): the summed gradient (the first moment, |a - b| / |b|) of the
+# two-slot remat step against the two-slot step without remat ("same": 0.0,
+# bit-equal, on sound runs), and against the one-slot remat step whose
+# attack returns the two-slot step's x_adv ("slots": 3.75e-3; the PGD
+# iterates of 64 and 128 rows part, 55% of the pixels, and the plain
+# one-slot step reads 0.83, so the parameter step is held on the same
+# x_adv).  The planted trap (the recompute on the shard's own statistics)
+# reads 0.880 on both
+REMAT_SAME_MU_TOL, REMAT_SLOTS_MU_TOL = 1e-6, 0.05
+# 25(f): SmoothAdv PGD-AT (noise_sigma 0.25, 4 EOT samples) on ResNet-50 bf16
+# at batch 32 over two slots
+SMOOTHADV_SIGMA, SMOOTHADV_SAMPLES = 0.25, 4
+
+
+@contextlib.contextmanager
+def _own_statistics():
+    """A planted fault, the trap of remat under train_bn: the recompute in
+    the backward normalizes by the shard's own statistics (its sums scaled
+    to the whole batch's count) instead of the sums its first forward
+    read."""
+    from image_recognition_adversarial_example_attack_tpu_torch.models import resnet
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel import collective
+
+    real = resnet.sum_over_shards
+    # the recompute is the thread that reads the recorded sums back
+    resnet.sum_over_shards = lambda t: (
+        t * SO_SLOTS if getattr(collective._local, "replay", None) is not None else real(t))
+    try:
+        yield
+    finally:
+        resnet.sum_over_shards = real
+
+
+class _DrawTap:
+    """While open, the draws of a training step (the PGD start, the EOT and
+    Cohen noise, each returned on the host by the shard's first row, in
+    call order), each EOT call's (seed, whole mix), each thread's input
+    mixes and each shard's x_adv.  ``feed``: {draw name: tensors}, handed
+    out in call order in place of the draws ("adv": the attack returns it
+    and runs nothing)."""
+
+    DRAWS = {"start": ("attacks.pgd", "draw_start"), "eot": ("attacks.eot", "draw_noise"),
+             "cohen": ("train.adversarial", "draw_cohen_noise")}
+
+    def __init__(self, feed: dict | None = None):
+        import threading
+
+        self.lock = threading.Lock()
+        self.draws, self.calls, self.mixes, self.adv = {}, [], {}, {}
+        self.feed = {k: iter(v) for k, v in (feed or {}).items()}
+
+    def __enter__(self):
+        import importlib
+        import threading
+
+        mod = lambda name: importlib.import_module(f"{PKG}.{name}")  # noqa: E731
+        eot, pgd = mod("attacks.eot"), mod("attacks.pgd")
+        patched = {name: (mod(m), attr) for name, (m, attr) in self.DRAWS.items()}
+        patched.update(call=(eot, "call_generator"), mix=(eot, "input_mix"),
+                       adv=(pgd, "pgd_linf_attack"))
+        self.saved = [(m, attr, getattr(m, attr)) for m, attr in patched.values()]
+        real = {name: getattr(m, attr) for name, (m, attr) in patched.items()}
+
+        def draw(name):
+            def fn(*args):
+                device = args[-1]
+                out = (next(self.feed[name]).to(device) if name in self.feed
+                       else real[name](*args))
+                with self.lock:
+                    self.draws.setdefault((name, getattr(args[-2], "lo", 0)), []).append(
+                        out.detach().cpu())
+                return out
+            return fn
+
+        def call_generator(seed, mix, device):
+            with self.lock:
+                self.calls.append((seed, mix))
+            return real["call"](seed, mix, device)
+
+        def input_mix(x01):
+            out = real["mix"](x01)
+            with self.lock:
+                self.mixes.setdefault(threading.get_ident(), []).append(int(out))
+            return out
+
+        def attack(fn, x01, *args, **kw):
+            out = (next(self.feed["adv"]).to(x01.device) if "adv" in self.feed
+                   else real["adv"](fn, x01, *args, **kw))
+            with self.lock:
+                self.adv[getattr(kw["generator"], "lo", 0)] = out.detach().cpu()
+            return out
+
+        for name, (m, attr) in patched.items():
+            setattr(m, attr, {"call": call_generator, "mix": input_mix,
+                              "adv": attack}.get(name) or draw(name))
+        return self
+
+    def __exit__(self, *exc):
+        for m, attr, fn in self.saved:
+            setattr(m, attr, fn)
+
+    def whole(self, name: str) -> list:
+        """Each draw, the shards' rows put together."""
+        import torch
+
+        los = sorted(lo for n, lo in self.draws if n == name)
+        return [torch.cat(parts) for parts in zip(*(self.draws[(name, lo)] for lo in los))]
+
+    def x_adv(self):
+        import torch
+
+        return torch.cat([self.adv[lo] for lo in sorted(self.adv)])
+
+
+def _tree_norm(tree) -> float:
+    return math.sqrt(sum(float((v.double() ** 2).sum()) for v in tree.values()))
+
+
+def _pixel_share(a, b) -> float:
+    return float(((a.float() - b.float()).abs() > 1e-6).float().mean())
+
+
+def _remat_runs() -> dict:
+    """25(e)'s steps on the card: two-slot remat (two steps timed: ms and
+    peak GiB), two-slot without remat (timed), one-slot remat, one-slot
+    remat whose attack returns the two-slot x_adv, and the two-slot remat
+    step with the trap planted; their first moments' distances."""
+    import numpy as np
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import chunk_generator
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel.mesh import (
+        make_mesh, shard_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.train.adversarial import (
+        AdvTrainConfig, make_train_step, train_state_from_bundle)
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.RandomState(29)
+    x = rng.rand(SO_REMAT_B, 32, 32, 3).astype(np.float32)
+    y = rng.randint(0, 10, SO_REMAT_B).astype(np.int64)
+    mesh = make_mesh(n_data=SO_SLOTS, n_model=1, devices=[dev] * SO_SLOTS)
+    bundle = load_model(SO_REMAT_MODEL, dtype=torch.float32, device=dev)  # turns TF32 off
+
+    def run(remat: bool, sharded: bool, fault: bool = False, timed: bool = False,
+            adv=None) -> dict:
+        cfg = AdvTrainConfig(eps=EPS, alpha=ALPHA, attack_steps=TRAIN_PGD,
+                             learning_rate=TRAIN_LR, weight_decay=1e-4, train_bn=True,
+                             remat=remat)
+        state = train_state_from_bundle(bundle, cfg)
+        step = make_train_step(cfg, bundle.mean, bundle.std)
+        batch_x = shard_batch(x, mesh) if sharded else torch.from_numpy(x).to(dev)
+        labels = y if sharded else torch.from_numpy(y).to(dev)
+        with _own_statistics() if fault else contextlib.nullcontext():
+            ew.reset_launches()
+            with _DrawTap(None if adv is None else {"adv": [adv]}) as tap:
+                new, m = step(state, batch_x, labels, chunk_generator(0, "scaleout:remat", 0))
+            torch.cuda.synchronize()
+            out = {"launches": ew.launch_counts(), "loss": float(m["loss"]),
+                   "x_adv": tap.x_adv(),
+                   "mu": {k: v.detach().cpu() for k, v in new.opt_state.mu.items()}}
+            del new
+            if timed:
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                for s in (1, 2):
+                    step(state, batch_x, labels, chunk_generator(0, "scaleout:remat", s))
+                torch.cuda.synchronize()
+                out["ms"] = 1e3 * (time.perf_counter() - t0) / 2
+                out["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        return out
+
+    def mu_rel(a: dict, b: dict) -> float:
+        return (_tree_norm({k: a["mu"][k] - v for k, v in b["mu"].items()})
+                / _tree_norm(b["mu"]))
+
+    prior = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        two = run(True, True, timed=True)
+        plain = run(False, True, timed=True)
+        one = run(True, False)
+        fed = run(True, False, adv=two["x_adv"])
+        trap = run(True, True, fault=True)
+    finally:
+        torch.backends.cudnn.deterministic = prior
+    res = {"same": mu_rel(two, plain), "slots": mu_rel(two, fed),
+           "one_slot": mu_rel(two, one), "adv_share": _pixel_share(two["x_adv"], one["x_adv"]),
+           "launches": two["launches"], "one_slot_launches": one["launches"],
+           "remat_ms": two["ms"], "plain_ms": plain["ms"],
+           "remat_peak_gib": two["peak_gib"], "plain_peak_gib": plain["peak_gib"],
+           "loss": (two["loss"], plain["loss"], one["loss"]),
+           "trap": {"same": mu_rel(trap, plain), "slots": mu_rel(trap, fed)}}
+    return res
+
+
+def _remat_rejects(d: dict) -> list[str]:
+    """What 25(e)'s check finds wrong in readings ``d`` ("same", "slots")."""
+    bad = []
+    if d["same"] > REMAT_SAME_MU_TOL:
+        bad.append(f"first moment {d['same']:.3e} from the two-slot step without remat "
+                   f"(limit {REMAT_SAME_MU_TOL:g})")
+    if d["slots"] > REMAT_SLOTS_MU_TOL:
+        bad.append(f"first moment {d['slots']:.3e} from the one-slot step on the same x_adv "
+                   f"(limit {REMAT_SLOTS_MU_TOL:g})")
+    return bad
+
+
+def _scaleout_remat(card: str) -> dict:
+    """25(e): remat with train_bn over two slots, its check, and the trap
+    planted to show that the check rejects it."""
+    res = _remat_runs()
+    want = {"pgd_step": SO_SLOTS * TRAIN_PGD, "quantize": 0, "uniform_noise": SO_SLOTS}
+    bad = _remat_rejects(res)
+    if res["launches"] != want:
+        bad.append(f"launches {res['launches']} (want {want})")
+    if bad:
+        raise AssertionError("25(e) remat with train_bn over two slots: " + "; ".join(bad))
+    caught = _remat_rejects(res["trap"])
+    if len(caught) < 2:
+        raise AssertionError(f"25(e) the planted trap passed a check: {res['trap']}")
+    t = res["trap"]
+    log(f"[scale-out] (e) {card}; PGD-AT PGD-{TRAIN_PGD} on {SO_REMAT_MODEL} float32 "
+        f"(TF32 off, cuDNN deterministic) with train_bn and remat at "
+        f"[{SO_REMAT_B},32,32,3] over {SO_SLOTS} slots (ResNet-50 has no train_bn in either "
+        f"package): first moment {res['same']:.3e} from the two-slot step without remat "
+        f"(limit {REMAT_SAME_MU_TOL:g}), {res['slots']:.3e} from the one-slot remat step on the "
+        f"same x_adv (limit {REMAT_SLOTS_MU_TOL:g}; {res['one_slot']:.3e} from the plain one-slot "
+        f"step, whose x_adv differs in {res['adv_share']:.2e} of the pixels); the planted trap "
+        f"(the recompute on the shard's own statistics) reads {t['same']:.3e} / "
+        f"{t['slots']:.3e}: rejected")
+    log(f"[scale-out]   step {res['remat_ms']:.1f} ms and {res['remat_peak_gib']:.2f} GiB peak "
+        f"with remat, {res['plain_ms']:.1f} ms and {res['plain_peak_gib']:.2f} GiB without; "
+        f"launches {res['launches']} a step ({TRAIN_PGD} pgd_step and 1 uniform_noise a slot)")
+    res["runs"] = [{"launches": res["launches"]}]
+    return res
+
+
+def _smoothadv_runs(own_mix: bool = False) -> dict:
+    """25(f)'s steps on the card: SmoothAdv PGD-AT on ResNet-50 bf16 at
+    batch 32 over two slots (its launches), on one slot, and on each shard's
+    rows alone on one slot fed that shard's draws; ``own_mix`` plants a
+    fault (each shard's EOT call seeded from its own rows' mix, as an
+    unsharded wrapper would)."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import eot
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
+        chunk_generator, shard_generators, standard_normal)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel.mesh import (
+        make_mesh, shard_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.train.adversarial import (
+        AdvTrainConfig, make_train_step, train_state_from_bundle)
+
+    dev = torch.device("cuda", 0)
+    x_np, y_np = _scaleout_train_batch()
+    x, y = torch.from_numpy(x_np).to(dev), torch.from_numpy(y_np).to(dev)
+    mesh = make_mesh(n_data=SO_SLOTS, n_model=1, devices=[dev] * SO_SLOTS)
+    cfg = AdvTrainConfig(eps=EPS, alpha=ALPHA, attack_steps=TRAIN_PGD, learning_rate=TRAIN_LR,
+                         weight_decay=1e-4, noise_sigma=SMOOTHADV_SIGMA,
+                         noise_samples=SMOOTHADV_SAMPLES)
+    bundle = load_model("resnet50", dtype=torch.float32, device=dev)
+    state = train_state_from_bundle(bundle, cfg, torch.bfloat16)
+    step = make_train_step(cfg, bundle.mean, bundle.std)
+    gen = lambda: chunk_generator(0, "scaleout:smoothadv", 0)  # noqa: E731
+    prior = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    real_view = eot._shard_call_generator
+    ranges = shard_batch(x_np, mesh).row_ranges()
+    try:
+        with _DrawTap() as one:
+            _, m1 = step(state, x, y, gen())
+        if own_mix:
+            def own(seed, x01, mix):
+                view = real_view(seed, x01, mix)  # this shard's rows, of its own mix's draw
+                return shard_generators(eot.call_generator(seed, mix, x01.device),
+                                        [(view.lo, view.hi)], view.shared.rows)[0]
+
+            eot._shard_call_generator = own
+        ew.reset_launches()
+        t0 = time.perf_counter()
+        with _DrawTap() as two:
+            _, m2 = step(state, shard_batch(x_np, mesh), y_np, gen())
+        torch.cuda.synchronize()
+        two_s = time.perf_counter() - t0
+        launches = ew.launch_counts()
+        eot._shard_call_generator = real_view
+        alone = []  # each shard's rows on one slot, fed the shard's draws
+        for lo, hi in ranges:
+            feed = {k: two.draws[(k, lo)] for k in ("start", "eot", "cohen")}
+            with _DrawTap(feed) as tap:
+                step(state, x[lo:hi], y[lo:hi], gen())
+            alone.append(tap.adv[0])
+    finally:
+        eot._shard_call_generator = real_view
+        torch.backends.cudnn.deterministic = prior
+    n = SMOOTHADV_SAMPLES
+    noise, calls = two.whole("eot"), list(two.calls)
+    mixes = list(two.mixes.values())
+    calls_ok = (len(calls) == TRAIN_PGD and len(mixes) == SO_SLOTS
+                and all(len(m) == TRAIN_PGD for m in mixes))
+    for k, (seed, mix) in enumerate(calls if calls_ok else ()):
+        whole_mix = (sum(m[k] for m in mixes) + 2**31) % 2**32 - 2**31
+        g = eot.call_generator(seed, mix, dev)
+        want = [standard_normal(x.shape, g, dev).cpu() for _ in range(n)]
+        calls_ok = (calls_ok and mix == whole_mix
+                    and all(torch.equal(a, b) for a, b in zip(want, noise[k * n:(k + 1) * n])))
+    a_two, a_one = two.x_adv(), one.x_adv()
+    return {"start_equal": torch.equal(two.whole("start")[0], one.whole("start")[0]),
+            "cohen_equal": torch.equal(two.whole("cohen")[0], one.whole("cohen")[0]),
+            "first_call_equal": all(torch.equal(a, b) for a, b in
+                                    zip(noise[:n], one.whole("eot")[:n])),
+            "calls_equal": calls_ok, "calls": len(calls),
+            "alone_equal": torch.equal(a_two, torch.cat(alone)),
+            "alone_share": _pixel_share(a_two, torch.cat(alone)),
+            "one_slot_share": _pixel_share(a_two, a_one),
+            "launches": launches, "loss": (float(m1["loss"]), float(m2["loss"])),
+            "two_slot_s": two_s}
+
+
+def _scaleout_smoothadv(card: str) -> dict:
+    """25(f): SmoothAdv PGD-AT over two slots and its check."""
+    r = _smoothadv_runs()
+    want = {"pgd_step": SO_SLOTS * TRAIN_PGD, "quantize": 0, "uniform_noise": SO_SLOTS}
+    if not (r["start_equal"] and r["cohen_equal"] and r["first_call_equal"]
+            and r["calls_equal"] and r["alone_equal"] and r["launches"] == want):
+        raise AssertionError(f"25(f) SmoothAdv over two slots: {r} (launches want {want})")
+    log(f"[scale-out] (f) {card}; SmoothAdv PGD-AT (sigma {SMOOTHADV_SIGMA}, "
+        f"{SMOOTHADV_SAMPLES} EOT samples, PGD-{TRAIN_PGD}) on ResNet-50 bf16 at "
+        f"[{SO_TRAIN_B},224,224,3] over {SO_SLOTS} slots (cuDNN deterministic): the PGD start, "
+        f"Cohen's noise and the first EOT call's noise bit-equal to the one-slot run's; each "
+        f"of the {r['calls']} EOT calls' noise bit-equal to the one-slot wrapper's draw for the "
+        f"whole batch's input (its mix the wrapping sum of the shards'); x_adv bit-equal to "
+        f"each shard's rows run alone on one slot with the same draws (against the whole "
+        f"one-slot run {r['one_slot_share']:.2e} of the pixels differ: bf16 at 64 and 128 "
+        f"stacked rows flips signs, and the mixes part); loss {r['loss'][1]:.5f} / "
+        f"{r['loss'][0]:.5f}; launches {r['launches']}; {r['two_slot_s']:.2f} s")
+    r["runs"] = [{"launches": r["launches"]}]
+    return r
+
+
 def phase_scaleout(card: str) -> dict:
     """Phase 25: scale-out on the one card (see the module docstring)."""
     out_a = Path(tempfile.mkdtemp(prefix="p25a_")) / "a.json"
@@ -5702,6 +6068,9 @@ def phase_scaleout(card: str) -> dict:
         _finish_child(a, "25(a) the NCCL process")
         for r, p in enumerate(ranks):
             _finish_child(p, f"25(b) rank {r}")
+        # after (a) and (b): their rates and (e)'s step times share no card
+        res["e"] = _scaleout_remat(card)
+        res["f"] = _scaleout_smoothadv(card)
     finally:
         for p in (a, *ranks):
             p.kill()
@@ -5759,7 +6128,8 @@ def phase_scaleout(card: str) -> dict:
     log(f"[scale-out] (d) dryrun_multichip(4): {json.dumps(res['d']['line'])}, launches "
         f"{res['d']['launches']}")
     res["runs"] = [{"launches": a_["launches"]}, *({"launches": r["launches"]} for r in rank),
-                   *c["runs"], {"launches": res["d"]["launches"]}]
+                   *c["runs"], {"launches": res["d"]["launches"]}, *res["e"]["runs"],
+                   *res["f"]["runs"]]
     return res
 
 

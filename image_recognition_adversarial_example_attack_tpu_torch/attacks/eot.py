@@ -16,6 +16,16 @@ generator on the input's device is seeded from (seed, mix) (``input_mix``,
 ``call_generator``), which reads ``mix`` from the card: one host read per
 wrapped call, the only one.
 
+On a sharded batch (the wrapper called in the lockstep shards of
+``parallel.data_parallel.sharded_pgd_linf_attack`` or of a SmoothAdv
+training step) each call is the one-device call on the whole batch: the
+wrapper's seed is one draw of the unsharded run (``whole_batch_draw`` where
+the generator is a ``ShardGenerator``), the shards meet once a call to add
+their mixes (``parallel.collective.exchange``; the int32 sum wraps, so its
+order does not matter), and each shard draws its rows, along axis 1, of the
+``[n, B]`` noise of the whole batch's call generator (a ``ShardGenerator``
+view of it, made once for all the shards).
+
 ``universal_perturbation`` is one shared [H,W,C] delta maximizing the mean
 cross-entropy over a batch: the full-batch form of ``attacks/uap.py``'s
 trainer, ``steps`` epochs of one batch each.
@@ -28,7 +38,9 @@ from typing import Callable
 
 import torch
 
-from ..core.rng import seed_draw, standard_normal
+from ..core.rng import (ShardGenerator, seed_draw, shard_generators, standard_normal,
+                        whole_batch_draw)
+from ..parallel import collective
 from .api import LogitsFn
 from .uap import uap_attack
 
@@ -69,25 +81,58 @@ def call_generator(seed: int, mix: int, device: torch.device | str) -> torch.Gen
     return g
 
 
+def _wrap_int32(v: int) -> int:
+    return (int(v) + 2**31) % 2**32 - 2**31
+
+
+def _shard_call_generator(seed: int, x01: torch.Tensor, mix: int) -> ShardGenerator:
+    """In a shard of a sharded batch: this shard's rows of the generator of
+    the whole batch's call, ``call_generator(seed, whole mix)`` on the
+    first shard's device, made once for every shard (module doc)."""
+    cross = collective.spans_processes()
+
+    def combine(items):
+        rows = [r for _, r, _ in items]
+        total = sum(m for m, _, _ in items)
+        if cross:
+            from ..parallel.distributed import all_reduce_sum
+
+            total = int(all_reduce_sum(torch.tensor(total, dtype=torch.int64)))
+        lo = collective.process_row_offset(sum(rows), cross)
+        ranges = []
+        for r in rows:
+            ranges.append((lo, lo + r))
+            lo += r
+        parent = call_generator(seed, _wrap_int32(total), items[0][2])
+        return shard_generators(parent, ranges, collective.batch_rows())
+
+    return collective.exchange((mix, int(x01.shape[0]), x01.device), combine)
+
+
 def make_eot_logits_fn(logits_fn: LogitsFn, generator: torch.Generator, n_samples: int = 8,
                        transform: TransformFn | None = None, sigma: float = 0.25) -> LogitsFn:
     """Wrap ``logits_fn`` so each call returns log(mean softmax) over
     ``n_samples`` random transforms: a drop-in logits function for any
     attack of the zoo (the log of the smoothed classifier's class
-    probabilities).  The wrapper's seed is one draw of ``generator``."""
+    probabilities).  The wrapper's seed is one draw of ``generator`` (of
+    the unsharded run's, for a ``ShardGenerator``)."""
     if transform is None:
         transform = gaussian_noise_transform(sigma)
-    seed = seed_draw(generator)
+    seed = (whole_batch_draw(generator, seed_draw) if isinstance(generator, ShardGenerator)
+            else seed_draw(generator))
     n = int(n_samples)
 
     def eot_fn(x01: torch.Tensor) -> torch.Tensor:
         b = x01.shape[0]
-        g = call_generator(seed, int(input_mix(x01)), x01.device)  # the host read
+        mix = int(input_mix(x01))  # the host read
+        g = (call_generator(seed, mix, x01.device) if collective.batch_rows() is None
+             else _shard_call_generator(seed, x01, mix))
         stacked = torch.cat([transform(g, x01) for _ in range(n)], dim=0)  # one [n*B] forward
         probs = torch.softmax(logits_fn(stacked), dim=-1)
         probs = probs.reshape(n, b, -1).mean(dim=0)
         return torch.log(torch.clamp_min(probs, 1e-12))
 
+    eot_fn.meets_other_shards = True  # parallel.data_parallel runs its shards in lockstep
     return eot_fn
 
 

@@ -36,3 +36,11 @@ def load_imagenet_labels() -> list[str]:
             continue
     return [f"class_{i}" for i in range(NUM_CLASSES)]
 
+
+def label_name(idx: int, labels: list[str] | None = None) -> str:
+    """The name of class ``idx`` (from ``labels``, else
+    ``load_imagenet_labels()``); an index outside them is its own string."""
+    labels = labels if labels is not None else load_imagenet_labels()
+    if 0 <= idx < len(labels):
+        return labels[idx]
+    return str(idx)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from .constants import IMAGENET_MEAN, IMAGENET_STD
+
 
 def normalize_batch(x: torch.Tensor, mean, std) -> torch.Tensor:
     """(x - mean) / std over the last (channel) axis, in x's dtype.
@@ -22,3 +24,12 @@ def normalize_batch(x: torch.Tensor, mean, std) -> torch.Tensor:
         raise ValueError("mean/std must be 1D arrays with shape [C]")
     return (x - mean) / std
 
+
+def normalizer(mean=IMAGENET_MEAN, std=IMAGENET_STD):
+    """A closure ``x01 -> normalized`` over ``mean``/``std``; with mean 0
+    and std 1 it is the identity path of the robust models."""
+
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        return normalize_batch(x, mean, std)
+
+    return apply

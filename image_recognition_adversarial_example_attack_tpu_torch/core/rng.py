@@ -180,7 +180,7 @@ class ShardGenerator:
     ``uniform``, ``randint``, ``standard_normal``, ``rademacher`` and
     ``randint_below``; ``device_generator`` and ``split_generators`` give
     child views; the noise kernel's ``kernels.elementwise.uniform_noise``;
-    ``train.augment.draw_augment``): draw k of every shard is the parent's
+    ``train.augment.draw_augment``; ``rates_draw``): draw k of every shard is the parent's
     k-th draw, made once for the whole batch (``whole_batch_draw``), and
     the shard takes its rows along the draw's batch axis.  On a card the
     noise kernel starts its Philox counter at the shard's first element
@@ -229,6 +229,26 @@ def batch_draw(generator, shape, draw, axis: int | None = 0):
                          f"axis {axis} is not the shard's rows")
     whole = (*shape[:axis], generator.shared.rows, *shape[axis + 1:])
     return whole_batch_draw(generator, lambda p: draw(whole, p)).narrow(axis, generator.lo, rows)
+
+
+def rates_draw(generator, rates: torch.Tensor, draw) -> torch.Tensor:
+    """``draw(rates, g)``, a draw whose distribution varies with
+    ``rates`` along every axis (``torch.poisson``), from the
+    ``torch.Generator`` ``g``.  Such a draw cannot be cut by rows: for a
+    ``ShardGenerator`` the one-device draw is made once from the whole
+    batch's rates, which the lockstep shards exchange
+    (``parallel.collective.whole_rows``), and the shard takes its rows."""
+    if not isinstance(generator, ShardGenerator):
+        return draw(rates, generator)
+    from ..parallel.collective import whole_rows
+
+    whole = whole_rows(rates)
+    if whole.shape[0] != generator.shared.rows:
+        raise ValueError(f"the whole batch's rates have {whole.shape[0]} rows, the sharded "
+                         f"batch {generator.shared.rows}: run the shards in lockstep")
+    rows = generator.hi - generator.lo
+    return whole_batch_draw(generator, lambda p: draw(whole, p)).narrow(
+        0, generator.lo, rows).to(rates.device)
 
 
 def whole_batch_draw(generator: ShardGenerator, make):

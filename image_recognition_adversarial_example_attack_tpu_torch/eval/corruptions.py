@@ -10,8 +10,11 @@ lists where the bank departs from ImageNet-C's host implementation.
 The randomness is split from the arithmetic.  Each stochastic corruption
 (the four noises, motion_blur, glass_blur, snow, fog, elastic_transform) has
 a draw function, fed by a ``torch.Generator`` on the batch's device
-(``core.rng.device_generator``), and an arithmetic function that takes the
-draws; ``apply_corruption(..., draws=...)`` takes draws made elsewhere, so
+(``core.rng.device_generator``; every draw's axis 0 is the batch, so a
+shard's ``ShardGenerator`` takes its rows of the one-device draw, and shot
+noise's Poisson counts, whose rates vary with x, are drawn once from the
+whole batch's rates: ``core.rng.rates_draw``), and an arithmetic function
+that takes the draws; ``apply_corruption(..., draws=...)`` takes draws made elsewhere, so
 the tests feed JAX's draws through the port's arithmetic.
 
 Held to the JAX module on its draws:
@@ -48,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import require_full_float32
-from ..core.rng import device_generator
+from ..core.rng import device_generator, rates_draw, standard_normal, uniform
 from ..defenses.jpeg_dct import jpeg_dct_roundtrip
 from ..defenses.randomization import weight_matrix
 
@@ -165,13 +168,14 @@ def _clip01(x: torch.Tensor) -> torch.Tensor:
 
 
 def _uniform(shape, lo, hi, g: torch.Generator) -> torch.Tensor:
-    """float32 Uniform[lo, hi) on the generator's device."""
-    u = torch.rand(tuple(shape), generator=g, dtype=torch.float32, device=g.device)
+    """float32 Uniform[lo, hi) on the generator's device; axis 0 is the
+    batch (a shard's ``ShardGenerator`` takes its rows)."""
+    u = uniform(shape, g, g.device)
     return u * (hi - lo) + lo
 
 
 def _normal(shape, g: torch.Generator) -> torch.Tensor:
-    return torch.randn(tuple(shape), generator=g, dtype=torch.float32, device=g.device)
+    return standard_normal(shape, g, g.device)
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +197,8 @@ _SHOT_NOISE = [[60.0], [25.0], [12.0], [5.0], [3.0]]
 
 
 def _draw_shot_noise(x, row, g):
-    return (torch.poisson(x * row[0], generator=g),)
+    # the rates vary with x: a shard's counts are its rows of the whole batch's
+    return (rates_draw(g, x * row[0], lambda rates, p: torch.poisson(rates, generator=p)),)
 
 
 def _c_shot_noise(x, row, counts):

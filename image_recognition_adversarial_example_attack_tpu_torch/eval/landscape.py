@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..attacks.api import LogitsFn
+from ..core.rng import standard_normal
 
 
 class Plane(NamedTuple):
@@ -32,9 +33,11 @@ class Plane(NamedTuple):
 
 
 def draw_direction(shape, generator: torch.Generator) -> torch.Tensor:
-    """A float32 standard normal of ``shape`` on the generator's device."""
-    return torch.randn(tuple(shape), generator=generator, dtype=torch.float32,
-                       device=generator.device)
+    """A float32 standard normal of ``shape`` on the generator's device,
+    its batch axis 0 (``core.rng.standard_normal``): for a batch of planes
+    ``shape`` is ``[B,H,W,C]``, and a shard's ``ShardGenerator`` takes its
+    rows of the whole batch's draw."""
+    return standard_normal(shape, generator, generator.device)
 
 
 def plane_from_direction(x: torch.Tensor, x_adv: torch.Tensor, r: torch.Tensor) -> Plane:
@@ -59,6 +62,15 @@ def adversarial_plane(x: torch.Tensor, x_adv: torch.Tensor,
     """``plane_from_direction`` of a fresh draw: ``x``, ``x_adv`` are single
     images [H,W,C]."""
     return plane_from_direction(x, x_adv, draw_direction(x.shape, generator))
+
+
+def adversarial_planes(x: torch.Tensor, x_adv: torch.Tensor,
+                       generator: torch.Generator) -> list[Plane]:
+    """``adversarial_plane`` of each image of a [B,H,W,C] batch, from one
+    [B,H,W,C] draw (``draw_direction``): on a sharded batch each shard's
+    planes are its rows of the one-device run's."""
+    r = draw_direction(x.shape, generator)
+    return [plane_from_direction(x[i], x_adv[i], r[i]) for i in range(x.shape[0])]
 
 
 def loss_landscape(logits_fn: LogitsFn, x: torch.Tensor, y: torch.Tensor | int,

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8 import conv2d_class, linear_class
-from ..parallel.collective import batch_rows, coupled, sum_over_shards
+from ..parallel.collective import coupled, sum_over_shards
 
 
 class FrozenBatchNorm2d(nn.BatchNorm2d):
@@ -47,10 +47,12 @@ def batch_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     if coupled():
         # a shard of a sharded train_bn step: the whole batch's moments, from
-        # the sums of x and x² over every shard
-        sums = sum_over_shards(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]))
-        count = batch_rows() * xf.shape[2] * xf.shape[3]
-        mean, mean2 = sums[0] / count, sums[1] / count
+        # the sums of x, x² and the element count over every shard (the count
+        # too: an EOT forward stacks n draws of the shard's rows)
+        count = xf.new_full((xf.shape[1],), float(xf.shape[0] * xf.shape[2] * xf.shape[3]))
+        sums = sum_over_shards(torch.stack([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                            count]))
+        mean, mean2 = sums[0] / sums[2], sums[1] / sums[2]
     else:
         mean = xf.mean(dim=(0, 2, 3))
         mean2 = (xf * xf).mean(dim=(0, 2, 3))

@@ -31,3 +31,18 @@ class TinyCNN(nn.Module):
         x = F.avg_pool2d(F.relu(self.Conv_0(x)), 2, 2)
         x = F.relu(self.Conv_1(x))
         return self.Dense_0(x.mean(dim=(2, 3)))
+
+
+def make_tiny(seed: int = 0, image_size: int = 16, num_classes: int = 8):
+    """``(module, variables)``: a ``TinyCNN`` with Flax's init distributions
+    drawn from ``seed`` (``models.zoo.random_init_``), in eval mode without
+    gradients, and its weights as a Flax variable tree (numpy), the layout
+    of the JAX package's ``make_tiny``; ``image_size`` shapes nothing (the
+    net takes any small size) and is kept for the JAX signature."""
+    from .convert import to_jax_variables
+    from .zoo import random_init_
+
+    del image_size
+    model = random_init_(TinyCNN(num_classes=num_classes), seed)
+    model.requires_grad_(False).eval()
+    return model, to_jax_variables(model, "tiny")

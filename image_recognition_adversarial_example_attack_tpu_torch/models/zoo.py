@@ -132,6 +132,41 @@ _REGISTRY: dict[str, tuple[str, Callable[..., nn.Module]]] = {
     "ibp_tiny": ("ibp", ibp_tiny),
 }
 
+def register(name: str, family: str):
+    """A decorator adding a model constructor to the registry under
+    ``name`` (the JAX zoo's ``register``): ``constructor(int8=False)`` (or
+    a constructor without ``int8``) returns the module, and ``family`` is
+    its weight layout for ``models.convert``.  The name then reaches
+    ``list_models``, ``model_meta`` (the ImageNet-224 defaults) and
+    ``load_model``."""
+
+    def deco(constructor):
+        _REGISTRY[name] = (family, constructor)
+        return constructor
+
+    return deco
+
+
+class _LazyConstructor:
+    """A constructor imported on first use: ``import_path`` (relative to
+    this package when it starts with a dot) and ``factory_name``."""
+
+    def __init__(self, import_path: str, factory_name: str):
+        self.import_path, self.factory_name = import_path, factory_name
+
+    def target(self) -> Callable[..., nn.Module]:
+        import importlib
+
+        module = importlib.import_module(self.import_path, package=__package__)
+        return getattr(module, self.factory_name)
+
+
+def register_lazy(name: str, import_path: str, factory_name: str, family: str) -> None:
+    """Register a model whose module is imported on first use (the JAX
+    zoo's ``register_lazy``), with its weight-layout ``family``."""
+    _REGISTRY[name] = (family, _LazyConstructor(import_path, factory_name))
+
+
 # Per-model defaults beyond the ImageNet-224 convention (input_size, mean,
 # std).  The CIFAR family reads 32x32 with the CIFAR-10 statistics; the
 # robust WRN arm and the IBP nets read raw [0,1] pixels at 32x32 (identity
@@ -182,6 +217,8 @@ def build_model(name: str, int8: bool = False) -> nn.Module:
     in quantized-inference mode, which a constructor without an ``int8``
     parameter refuses with ValueError."""
     ctor = _REGISTRY[name][1]
+    if isinstance(ctor, _LazyConstructor):
+        ctor = ctor.target()
     if not int8:
         return ctor()
     if "int8" not in inspect.signature(ctor).parameters:
@@ -197,10 +234,10 @@ INIT_SEED = 0
 
 
 @torch.no_grad()
-def random_init_(model: nn.Module) -> nn.Module:
+def random_init_(model: nn.Module, seed: int = INIT_SEED) -> nn.Module:
     """Flax's default init distributions, drawn in module order from a
-    generator seeded with ``INIT_SEED``."""
-    g = torch.Generator().manual_seed(INIT_SEED)
+    generator seeded with ``seed`` (``INIT_SEED`` by default)."""
+    g = torch.Generator().manual_seed(int(seed))
 
     def lecun_(w: torch.Tensor, fan_in: int) -> None:
         w.normal_(0.0, math.sqrt(1.0 / fan_in), generator=g)

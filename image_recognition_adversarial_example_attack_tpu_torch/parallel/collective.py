@@ -19,6 +19,21 @@ in ``lockstep``: one thread a shard, meeting at each collective.
 - ``batch_rows()`` is the row count of the whole (micro-)batch while a
   sharded step runs: the losses divide by it, so the shards' losses add up
   to the unsharded loss and their gradients to its gradient.
+- ``exchange(value, combine)`` hands every shard's value to one combine
+  (the EOT wrapper's input mix, ``attacks/eot.py``); ``whole_rows(t)`` is
+  the whole batch's ``t`` in every shard (shot noise's rates,
+  ``core.rng.rates_draw``).  Shards that run one after another cannot
+  exchange: there they raise.
+- ``checkpoint_contexts`` is ``torch.utils.checkpoint``'s ``context_fn``
+  for a forward that may run in a lockstep shard (remat under
+  ``train_bn``).  The checkpointed forward runs again inside the backward,
+  which one thread starts for every shard (``shard_grad``) and which on a
+  card runs on the autograd engine's device thread, outside every shard's
+  context.  So the first forward records each ``sum_over_shards`` result
+  (outputs of the one summing node, so the backward through them still
+  reaches every shard), and the recompute runs under the shard's context
+  and reads them back in order, making no collective.  Under
+  ``grad_accum`` each micro-batch's forward records its own statistics.
 
 Across processes the sums go through ``parallel.distributed.all_reduce_sum``
 (forward and backward), as a SyncBatchNorm does.
@@ -93,6 +108,13 @@ def coupled() -> bool:
     return ctx is not None and ctx[0] is not None
 
 
+def spans_processes() -> bool:
+    """True while a lockstep shard whose collectives span the processes
+    runs in this thread."""
+    ctx = _context()
+    return ctx is not None and ctx[0] is not None and ctx[0].cross_process
+
+
 def _process_sum(t: torch.Tensor) -> torch.Tensor:
     from .distributed import all_reduce_sum
 
@@ -127,13 +149,118 @@ class _SumOverShards(torch.autograd.Function):
 
 def sum_over_shards(t: torch.Tensor) -> torch.Tensor:
     """``t`` summed over the shards of the running lockstep step (and its
-    processes), differentiable; ``t`` itself outside one."""
+    processes), differentiable; ``t`` itself outside one.  In the recompute
+    of a checkpointed forward, the sum its first run recorded."""
+    replay = getattr(_local, "replay", None)
+    if replay is not None:
+        out = next(replay, None)
+        if out is None:
+            raise RuntimeError("a checkpointed forward's recompute summed more over the "
+                               "shards than its first run")
+        return out
     ctx = _context()
     if ctx is None or ctx[0] is None:
         return t
     group, rank, _ = ctx
-    return group.exchange(rank, t, lambda ts: list(
+    out = group.exchange(rank, t, lambda ts: list(
         _SumOverShards.apply(group.cross_process, *ts)))
+    record = getattr(_local, "record", None)
+    if record is not None:
+        record.append(out)
+    return out
+
+
+class _Recording:
+    """The first forward of a checkpointed region: ``sum_over_shards``
+    appends its results to ``saved``."""
+
+    def __init__(self, saved: list):
+        self.saved = saved
+
+    def __enter__(self):
+        self.prior = getattr(_local, "record", None)
+        _local.record = self.saved
+
+    def __exit__(self, *exc):
+        _local.record = self.prior
+
+
+class _Replaying:
+    """A recompute of the region, on whichever thread runs it: the shard's
+    context of the first forward, and ``sum_over_shards`` reading the
+    recorded sums in order (re-entrant: every recompute starts over)."""
+
+    def __init__(self, ctx, saved: list):
+        self.ctx, self.saved = ctx, saved
+
+    def __enter__(self):
+        self.prior = (_context(), getattr(_local, "replay", None))
+        coupled_shard = self.ctx is not None and self.ctx[0] is not None
+        _local.ctx, _local.replay = self.ctx, iter(self.saved) if coupled_shard else None
+
+    def __exit__(self, *exc):
+        _local.ctx, _local.replay = self.prior
+
+
+def checkpoint_contexts():
+    """``context_fn`` of ``torch.utils.checkpoint(..., use_reentrant=False)``
+    for a forward that may run in a lockstep shard (module doc): called at
+    the forward, in the shard's thread."""
+    saved: list = []
+    return _Recording(saved), _Replaying(_context(), saved)
+
+
+def exchange(value, combine: Callable[[list], list]):
+    """Every shard of the running lockstep step gives ``value``; one of them
+    computes ``combine(values)`` (in rank order; a list with one entry a
+    shard) and each gets its entry.  Outside a sharded run
+    ``combine([value])[0]``.  A shard of shards that run one after another
+    raises: the others' values do not exist yet."""
+    ctx = _context()
+    if ctx is None:
+        return combine([value])[0]
+    group, rank, _ = ctx
+    if group is None:
+        raise RuntimeError("this draw needs every shard's rows at once: run the shards in "
+                           "lockstep (parallel.collective.run_lockstep)")
+    return group.exchange(rank, value, combine)
+
+
+def whole_rows(t: torch.Tensor) -> torch.Tensor:
+    """The whole batch's ``t`` in every shard of the running lockstep step:
+    the shards' ``t`` concatenated on axis 0 in rank order, then every
+    process's (``cross_process``), on the first shard's device; ``t``
+    outside a sharded run."""
+    cross = spans_processes()
+
+    def combine(ts):
+        whole = torch.cat([x.to(ts[0].device) for x in ts])
+        return [_gather_processes(whole) if cross else whole] * len(ts)
+
+    return exchange(t, combine)
+
+
+def _gather_processes(t: torch.Tensor) -> torch.Tensor:
+    """Every process's ``t`` (row counts may differ) on axis 0, in process
+    order."""
+    from .distributed import all_gather_rows
+
+    counts = all_gather_rows(torch.tensor([t.shape[0]], device=t.device)).tolist()
+    most = max(counts)
+    padded = torch.cat([t, t.new_zeros((most - t.shape[0], *t.shape[1:]))])
+    parts = all_gather_rows(padded).split(most)
+    return torch.cat([p[:c] for p, c in zip(parts, counts)])
+
+
+def process_row_offset(rows: int, cross_process: bool) -> int:
+    """The first global row of this process's ``rows`` rows: the rows of the
+    processes before it (0 within one process)."""
+    if not cross_process:
+        return 0
+    from .distributed import all_gather_rows, process_index
+
+    counts = all_gather_rows(torch.tensor([int(rows)])).tolist()
+    return int(sum(counts[:process_index()]))
 
 
 def shard_grad(outputs, inputs: Sequence[torch.Tensor], **kw):

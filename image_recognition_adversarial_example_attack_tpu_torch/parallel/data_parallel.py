@@ -4,7 +4,12 @@ functions with ``in_shardings=data_sharding(mesh)``).
 
 Each data row's shard runs the one-device function on its own device, one
 shard after another (nothing in a shard's work waits for the host, so the
-cards of a node overlap); the per-sample outputs stay sharded, and the
+cards of a node overlap), but ``sharded_pgd_linf_attack`` of an EOT logits
+function (``meets_other_shards``) and ``sharded_apply_corruption`` run
+their shards in lockstep threads (``parallel/collective.py``), so that each
+EOT call meets the other shards for the whole batch's input mix
+(``attacks/eot.py``) and shot noise draws from the whole batch's rates;
+the per-sample outputs stay sharded, and the
 counters are summed over the shards, then over the processes
 (``parallel.distributed.all_reduce_sum``).  The result is the one-device
 run's:
@@ -35,7 +40,8 @@ from ..attacks.api import predict_labels
 from ..attacks.pgd import pgd_linf_attack
 from ..core.rng import shard_generators
 from ..eval.defense_eval import STAT_KEYS, DefenseEvalConfig, evaluate_defenses_batch
-from .distributed import all_reduce_sum
+from .collective import run_lockstep, shard_context
+from .distributed import all_reduce_sum, process_count
 from .mesh import Mesh, PerDevice, ShardedTensor, data_sharding, on_device
 
 
@@ -87,11 +93,57 @@ def sharded_pgd_linf_attack(logits_fn, x: ShardedTensor, y: ShardedTensor, *, ep
                             alpha: float, steps: int, generator: torch.Generator,
                             random_start: bool = True) -> ShardedTensor:
     """``attacks.pgd.pgd_linf_attack`` over a data-sharded batch: each shard
-    on its own device, its random start its rows of the unsharded start."""
-    outs = [pgd_linf_attack(on_device(logits_fn, xs.device), xs, ys, eps=eps, alpha=alpha,
-                            steps=steps, generator=g, random_start=random_start)
-            for xs, ys, g in zip(x.data_shards(), y.data_shards(), generators_for(generator, x))]
-    return like(x, outs)
+    on its own device, its random start its rows of the unsharded start.
+    ``logits_fn`` may be an EOT wrapper (``attacks.eot.make_eot_logits_fn``,
+    marked ``meets_other_shards``): its shards then run in lockstep
+    threads, and its calls are the one-device calls on the whole batch."""
+    rows = int(x.shape[0])
+    fns = [lambda xs=xs, ys=ys, g=g: pgd_linf_attack(
+        on_device(logits_fn, xs.device), xs, ys, eps=eps, alpha=alpha, steps=steps, generator=g,
+        random_start=random_start)
+        for xs, ys, g in zip(x.data_shards(), y.data_shards(), generators_for(generator, x))]
+    if any(getattr(on_device(logits_fn, xs.device), "meets_other_shards", False)
+           for xs in x.data_shards()):
+        return like(x, run_lockstep(fns, rows, cross_process=process_count() > 1))
+    return like(x, [_alone(fn, i, rows) for i, fn in enumerate(fns)])
+
+
+def _alone(fn, index: int, rows: int):
+    """``fn()`` as shard ``index`` of a batch of ``rows`` rows whose shards
+    run one after another: a draw that needs the other shards raises."""
+    with shard_context(None, index, rows):
+        return fn()
+
+
+def sharded_apply_corruption(name: str, x: ShardedTensor, severity,
+                             generator: torch.Generator) -> ShardedTensor:
+    """``eval.corruptions.apply_corruption`` over a data-sharded batch: each
+    shard's rows of the one-device run's corruption.  The shards run in
+    lockstep: shot noise draws once from the whole batch's rates."""
+    from ..eval.corruptions import apply_corruption
+
+    fns = [lambda xs=xs, g=g: apply_corruption(name, xs, severity, g)
+           for xs, g in zip(x.data_shards(), generators_for(generator, x))]
+    return like(x, run_lockstep(fns, int(x.shape[0]), cross_process=process_count() > 1))
+
+
+def sharded_loss_landscapes(logits_fn, x: ShardedTensor, x_adv: ShardedTensor,
+                            y: ShardedTensor, generator: torch.Generator, *,
+                            span: float = 1.5, grid: int = 21) -> ShardedTensor:
+    """``eval.landscape.loss_landscape`` of every image of a data-sharded
+    batch, [B, grid, grid] sharded as ``x``: each image's plane from its row
+    of the one-device run's [B,H,W,C] direction draw
+    (``adversarial_planes``)."""
+    from ..eval.landscape import adversarial_planes, loss_landscape
+
+    out = []
+    for xs, xa, ys, g in zip(x.data_shards(), x_adv.data_shards(), y.data_shards(),
+                             generators_for(generator, x)):
+        fn = on_device(logits_fn, xs.device)
+        out.append(torch.stack([
+            loss_landscape(fn, xs[i], int(ys[i]), plane, span=span, grid=grid)
+            for i, plane in enumerate(adversarial_planes(xs, xa, g))]))
+    return like(x, out)
 
 
 def _config_on(config: DefenseEvalConfig, device: torch.device) -> DefenseEvalConfig:
@@ -111,11 +163,12 @@ def evaluate_defenses_sharded(logits_fn, features_fn, x: ShardedTensor, y: Shard
     batch: the six per-sample counter vectors and ``x_adv``, sharded as
     ``x``.  ``sharded_counts`` sums them."""
     per_row = []
-    for xs, ys, g in zip(x.data_shards(), y.data_shards(), generators_for(generator, x)):
+    for i, (xs, ys, g) in enumerate(zip(x.data_shards(), y.data_shards(),
+                                        generators_for(generator, x))):
         dev = xs.device
-        per_row.append(evaluate_defenses_batch(
+        per_row.append(_alone(lambda: evaluate_defenses_batch(
             on_device(logits_fn, dev), on_device(features_fn, dev), xs, ys, detector_threshold,
-            _config_on(config, dev), g, eps_override=eps_override))
+            _config_on(config, dev), g, eps_override=eps_override), i, int(x.shape[0])))
     return {k: like(x, [o[k] for o in per_row]) for k in per_row[0]}
 
 

@@ -26,6 +26,7 @@ runs a model on them.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -183,12 +184,14 @@ class PerDevice:
     def __init__(self, factory: Callable[[torch.device], object]):
         self.factory = factory
         self.cache: dict[str, object] = {}
+        self.lock = threading.RLock()  # lockstep shards ask at once
 
     def __call__(self, device: torch.device):
         key = str(torch.device(device))
-        if key not in self.cache:
-            self.cache[key] = self.factory(torch.device(device))
-        return self.cache[key]
+        with self.lock:
+            if key not in self.cache:
+                self.cache[key] = self.factory(torch.device(device))
+            return self.cache[key]
 
 
 def on_device(fn, device: torch.device):

@@ -51,7 +51,10 @@ summed over the shards and then the processes before one AdamW update.
 ``grad_accum``'s micro-batches are the unsharded step's, each split evenly
 over every data row.  Under ``train_bn`` the shards run in lockstep threads
 (``parallel/collective.py``) so that every forward normalizes by the whole
-batch's statistics; remat is refused there.
+batch's statistics; under remat the recomputed forward reads the sums its
+first run made (``collective.checkpoint_contexts``).  SmoothAdv's shards
+also run in lockstep: each EOT call meets the other shards for the whole
+batch's input mix (``attacks/eot.py``).
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ from ..core.normalize import normalize_batch
 from ..core.rng import shard_generators, split_generators, standard_normal
 from ..kernels import elementwise
 from ..models.resnet import TrainableBatchNorm2d, batch_moments, set_train_bn
+from ..parallel import collective
 from ..parallel.collective import batch_rows, run_lockstep, shard_context, shard_grad
 from ..parallel.distributed import all_gather_rows, all_reduce_sum, process_count
 from ..parallel.mesh import ShardedTensor
@@ -329,14 +333,16 @@ def _apply_model(state: TrainState, params: dict[str, torch.Tensor],
 def _make_apply_logits(config: AdvTrainConfig, mean, std):
     """``(state, params, x01) -> float32 logits``; under ``config.remat``
     the forward is checkpointed (``use_reentrant=False``): every backward
-    recomputes its activations."""
+    recomputes its activations, in a lockstep shard from the batch
+    statistics its first run summed (``collective.checkpoint_contexts``)."""
 
     def apply_logits(state: TrainState, params, x01):
         def fwd(x01):
             return _apply_model(state, params, normalize_batch(x01, mean, std)).to(LOSS_DTYPE)
 
         if config.remat:
-            return checkpoint(fwd, x01, use_reentrant=False)
+            return checkpoint(fwd, x01, use_reentrant=False,
+                              context_fn=collective.checkpoint_contexts)
         return fwd(x01)
 
     return apply_logits
@@ -406,12 +412,13 @@ def _state_on(state: TrainState, device: torch.device, index: int) -> TrainState
                          model=_replica(state.model, device, index))
 
 
-def _run_shards(state: TrainState, devices, rows: int, fn) -> list:
+def _run_shards(state: TrainState, devices, rows: int, fn, lockstep: bool = False) -> list:
     """``fn(shard_state, i)`` for every shard i (its batch of ``rows`` rows
     the whole (micro-)batch): one after another when the shards are
-    independent, in lockstep threads under ``train_bn``."""
+    independent, in lockstep threads under ``train_bn`` or ``lockstep``
+    (the shards exchange their EOT mixes)."""
     cross = process_count() > 1
-    if state.train_bn:
+    if state.train_bn or lockstep:
         return run_lockstep([partial(fn, _state_on(state, d, i), i) for i, d in enumerate(devices)],
                             rows, cross_process=cross)
     out = []
@@ -486,10 +493,6 @@ def _sharded_grads(grads_fn, config: AdvTrainConfig, state: TrainState, x: Shard
     is the unsharded run's rows (``core.rng.shard_generators``), every mean
     divides by the whole (micro-)batch's rows, and under ``train_bn`` the
     batch statistics are the whole (micro-)batch's."""
-    if config.remat and state.train_bn:
-        raise NotImplementedError(
-            "remat with train_bn on a sharded batch: the recomputed forward would "
-            "need the whole batch's statistics again")
     from ..parallel.data_parallel import shard_labels
 
     y = shard_labels(y, x.sharding.mesh)
@@ -504,7 +507,8 @@ def _sharded_grads(grads_fn, config: AdvTrainConfig, state: TrainState, x: Shard
     def one_pass(pieces, rows: int, gen: torch.Generator):
         gens = shard_generators(gen, [r for _, _, r in pieces], rows)
         results = _run_shards(state, [p[0].device for p in pieces], rows,
-                              lambda st, i: grads_fn(st, pieces[i][0], pieces[i][1], gens[i]))
+                              lambda st, i: grads_fn(st, pieces[i][0], pieces[i][1], gens[i]),
+                              lockstep=config.noise_sigma > 0.0 and config.attack_steps > 0)
         return _sum_shards(results, home)
 
     accum = int(config.grad_accum)
@@ -591,10 +595,6 @@ def make_free_step(config: AdvTrainConfig, mean=IMAGENET_MEAN, std=IMAGENET_STD)
         # as ``x01``, or a host/one-device [B,H,W,C] tensor split the same way)
         sharded = isinstance(x01, ShardedTensor)
         if sharded:
-            if state.train_bn and config.remat:
-                raise NotImplementedError(
-                    "remat with train_bn on a sharded batch: the recomputed forward would "
-                    "need the whole batch's statistics again")
             from ..parallel.data_parallel import like, shard_labels
 
             mesh = x01.sharding.mesh

@@ -1,7 +1,7 @@
 """Phase timing (port of ``PhaseTimer``/``PhaseRecord`` of
 ``utils/profiling.py``): wall-clock seconds and examples/s per named phase,
-collected as a dict for JSON reports.  The device trace is
-``cli/common.py::maybe_profile`` (``--profile-dir``).
+collected as a dict for JSON reports, and ``device_timer`` for one block.
+The device trace is ``cli/common.py::maybe_profile`` (``--profile-dir``).
 """
 
 from __future__ import annotations
@@ -51,3 +51,13 @@ class PhaseTimer:
             }
             for r in self.records
         }
+
+
+@contextmanager
+def device_timer():
+    """Times a block: ``with device_timer() as t: out = fn(x);
+    torch.cuda.synchronize()``, then ``t()`` is the seconds elapsed since
+    the block began.  The caller waits for the device inside the block
+    (CUDA work is asynchronous)."""
+    t0 = time.perf_counter()
+    yield lambda: time.perf_counter() - t0

@@ -11,6 +11,7 @@ import faulthandler
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
 
@@ -1017,6 +1018,39 @@ def test_float32_training_step_on_the_card_matches_the_cpu(cuda, train_bn):
         assert torch.allclose(st_g[k].float(), v.float(), rtol=1e-5, atol=1e-5), k
 
 
+@pytest.mark.parametrize("grad_accum", [1, 2])
+def test_sharded_remat_train_bn_step_on_the_card_matches_the_cpu(cuda, grad_accum):
+    """One float32 CE step (attack_steps 0) of wrn_tiny with train_bn and
+    remat over two slots of the card, TF32 off, against the same step over
+    two CPU slots: the recompute in the backward (on the card, on autograd's
+    device thread) reads the whole batch's statistics its first forward
+    summed.  The loss within 1e-5 relative and the first moment within 1e-5
+    of its largest entry, as the unsharded float32 step is held."""
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.parallel import (
+        make_mesh, shard_batch)
+    from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
+
+    cfg = adversarial.AdvTrainConfig(attack_steps=0, train_bn=True, remat=True,
+                                     grad_accum=grad_accum, learning_rate=1e-3)
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in (cuda, torch.device("cpu")):
+            bundle, state, x, y = _train_pair(dev, cfg)
+            mesh = make_mesh(n_data=2, n_model=1, devices=[dev, dev])
+            new, m = adversarial.make_train_step(cfg, bundle.mean, bundle.std)(
+                state, shard_batch(x.cpu(), mesh), y.cpu(), generator_from_seed(0))
+            out[dev.type] = (float(m["loss"]), {k: v.cpu() for k, v in new.opt_state.mu.items()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    (lg, mu_g), (lc, mu_c) = out["cuda"], out["cpu"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    scale = max(float(v.abs().max()) for v in mu_c.values())
+    assert max(float((mu_g[k] - mu_c[k]).abs().max()) for k in mu_c) <= 1e-5 * scale
+
+
 def test_augmentation_on_the_card_equals_the_cpu(cuda):
     """The same draws crop, flip and cut out the same pixels on the card."""
     from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
@@ -1089,13 +1123,49 @@ def _objective_pair(device, name, cfg, dtype=torch.float32):
     return make(cfg, bundle.mean, bundle.std), state, x, y
 
 
-def objective_steps(cuda, name, monkeypatch, card_cfg=None, steps=2, check=True):
+# A ReLU input this close to zero may fall on either side in float32 (the
+# card's sums and the CPU's round differently): there the CPU replays take
+# the card's side, as they take its PGD iterates; a side that differs
+# farther out fails.  One such input in a TRADES step moves the first
+# moment 1e-4-5e-4 of its scale (scripts/trades_relu_tie.py).
+RELU_TIE = 1e-5
+
+# kernel names that fingerprint cuDNN's and cuBLAS's choice of algorithm
+FINGERPRINT_KEYS = ("conv", "gemm", "cudnn", "cutlass", "xmma", "wgrad", "dgrad", "sm80_",
+                    "sm90_")
+
+
+def card_fingerprint(step, args, checked) -> dict:
+    """The conv and GEMM kernel names ``torch.profiler`` sees in a replay of
+    card step ``step(*args)`` (the same state and draws; none where the
+    profiler records no device activity), and how far the replay's first
+    moment lies from the checked step's ``checked`` (its largest entry).
+    The checked step itself runs outside the profiler."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        new = step(*args)[0]
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(k in e.name.lower() for k in FINGERPRINT_KEYS)})
+    replay = max(float((new.opt_state.mu[k] - v).abs().max())
+                 for k, v in checked.opt_state.mu.items())
+    return {"kernels": names, "replay_mu": replay}
+
+
+def objective_steps(cuda, name, monkeypatch, card_cfg=None, steps=2, check=True,
+                    profile=True):
     """Two steps of objective ``name`` on the card (float32), each replayed
     on the CPU in float32 and float64 with the card's draws and PGD
     iterates; ``card_cfg`` changes the card's configuration alone (a planted
     fault, read with ``check=False``).  Every check but the first moment's
-    band is made here; returns per step (card state, CPU float32 state, CPU
-    float64 first moment, readings)."""
+    band is made here.  The CPU replays also take the card's side of every
+    ReLU whose input lies within ``RELU_TIE`` of zero (``relu_ties``: how
+    many, and the largest such input, in the float32 and float64 replays).
+    Returns per step (card state, CPU float32 state, CPU
+    float64 first moment, readings), the readings with the card's free
+    memory just after the step and, with ``profile``, the fingerprint of
+    the step's profiled replay (``card_fingerprint``; else ``kernels`` and
+    ``replay_mu`` are None, and no profiler runs)."""
     from image_recognition_adversarial_example_attack_tpu_torch.attacks import pgd
     from image_recognition_adversarial_example_attack_tpu_torch.core.rng import chunk_generator
     from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
@@ -1125,12 +1195,31 @@ def objective_steps(cuda, name, monkeypatch, card_cfg=None, steps=2, check=True)
             return card
         return fn
 
-    def run(step, args, wrap):
+    real_relu = F.relu
+    sides = []  # the card's ReLU sides (input > 0), call by call
+
+    def card_relu(v, inplace=False):
+        sides.append((v > 0).cpu())
+        return real_relu(v, inplace=inplace)
+
+    def replayed_relu(at, ties):
+        def fn(v, inplace=False):
+            card = sides[at[0]]
+            at[0] += 1
+            part = (v > 0) != card
+            if bool(part.any()):
+                ties.append(float(v.detach()[part].abs().max()))
+            return v * card.to(v.dtype)
+        return fn
+
+    def run(step, args, wrap, relu):
         for key, home in homes.items():
             monkeypatch.setattr(home, key, wrap(key))
+        monkeypatch.setattr(F, "relu", relu)
         try:
             return step(*args)
         finally:
+            monkeypatch.setattr(F, "relu", real_relu)
             for key, home in homes.items():
                 monkeypatch.setattr(home, key, real[key])
 
@@ -1155,19 +1244,35 @@ def objective_steps(cuda, name, monkeypatch, card_cfg=None, steps=2, check=True)
         for s in range(steps):
             extra = (delta,) if name == "free" else ()
             tape.clear()
+            sides.clear()
             out_g = run(step_g, (state_g, x, y, chunk_generator(0, "train:0", s), *extra),
-                        recorded)
-            at = [0]
+                        recorded, card_relu)
+            torch.cuda.synchronize()
+            fingerprint = {"free_gib": torch.cuda.mem_get_info()[0] / 2**30, "kernels": None,
+                           "replay_mu": None}
+            if profile:
+                fingerprint.update(card_fingerprint(
+                    step_g, (state_g, x, y, chunk_generator(0, "train:0", s), *extra), out_g[0]))
+            ties = {"float32": [], "float64": []}
+            at, at_relu = [0], [0]
             out_c = run(step_c, (moved_to(tmpl_c, state_g), x.cpu(), y.cpu(),
                                  chunk_generator(0, "train:0", s), *(e.cpu() for e in extra)),
-                        lambda key: replayed(key, at, True))
+                        lambda key: replayed(key, at, True),
+                        replayed_relu(at_relu, ties["float32"]))
             assert at[0] == len(tape), f"step {s}: {len(tape) - at[0]} card draws not replayed"
-            at = [0]
+            assert at_relu[0] == len(sides), f"step {s}: {len(sides) - at_relu[0]} ReLUs left"
+            at, at_relu = [0], [0]
             monkeypatch.setattr(adversarial, "LOSS_DTYPE", torch.float64)
             out_d = run(step_d, (moved_to(tmpl_d, state_g), x.cpu(), y.cpu(),
                                  chunk_generator(0, "train:0", s), *(e.cpu() for e in extra)),
-                        lambda key: replayed(key, at, False))
+                        lambda key: replayed(key, at, False),
+                        replayed_relu(at_relu, ties["float64"]))
             monkeypatch.setattr(adversarial, "LOSS_DTYPE", torch.float32)
+            assert at_relu[0] == len(sides), f"step {s}: {len(sides) - at_relu[0]} ReLUs left"
+            relu_ties = {k: (len(v), max(v, default=0.0)) for k, v in ties.items()}
+            assert not check or max(m for _, m in relu_ties.values()) <= RELU_TIE, (
+                f"step {s}: a ReLU input off zero on the other side from the card's: "
+                f"{relu_ties} (calls with one, largest input)")
             (new_g, m_g), (new_c, m_c), (new_d, m_d) = out_g[:2], out_c[:2], out_d[:2]
             assert set(m_g) == set(m_c) == set(m_d)
             for k in m_d if check else ():
@@ -1180,7 +1285,9 @@ def objective_steps(cuda, name, monkeypatch, card_cfg=None, steps=2, check=True)
             mu_d = new_d.opt_state.mu
             readings = {"mu_card": err(new_g.opt_state.mu, mu_d),
                         "mu_cpu": err(new_c.opt_state.mu, mu_d),
-                        "mu_scale": max(float(v.abs().max()) for v in mu_d.values())}
+                        "mu_card_cpu": err(new_g.opt_state.mu, new_c.opt_state.mu),
+                        "mu_scale": max(float(v.abs().max()) for v in mu_d.values()),
+                        "relu_ties": relu_ties, **fingerprint}
             if name == "free":
                 assert not check or float((out_g[2].cpu() != out_c[2]).float().mean()
                                           ) <= SIGN_FLIP_FRAC
@@ -1212,7 +1319,13 @@ def test_every_objective_on_the_card_matches_the_cpu(cuda, name, monkeypatch):
         print(f"{name} step {s}: first moment, card {readings['mu_card']:.3e} and CPU float32 "
               f"{readings['mu_cpu']:.3e} from float64; band {band:.3e} "
               f"(scale {readings['mu_scale']:.3e})")
-        assert readings["mu_card"] <= band, (s, readings, band)
+        assert readings["mu_card"] <= band, (
+            f"{name} step {s}: first moment {readings['mu_card']:.3e} from float64, band "
+            f"{band:.3e} (scale {readings['mu_scale']:.3e}, CPU float32 "
+            f"{readings['mu_cpu']:.3e}, the card {readings['mu_card_cpu']:.3e} from the CPU "
+            f"float32; ReLU ties taken the card's way {readings['relu_ties']}); fingerprint: {readings['free_gib']:.2f} GiB free after "
+            f"the step; a profiled replay of it {readings['replay_mu']:.3e} from its first "
+            f"moment, kernels {readings['kernels'] or 'none recorded'}")
         for k, v in new_c.params.items():
             differ = (new_g.params[k].cpu() - v).abs() > 1e-3 * lr
             assert bool((mu_d[k][differ].abs() <= band).all()), (s, k)

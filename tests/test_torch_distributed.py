@@ -13,6 +13,12 @@ the JAX package's (tests/test_distributed.py).
   eight data rows).
 - The grid CLI in two processes (each joined at import, one data row each)
   prints the one-process summary lines, resident and streamed.
+- The draws that need the whole batch across the two processes: EOT-PGD
+  (each call's input mix summed over both processes' shards) and shot
+  noise (the Poisson counts of both processes' rates) equal the
+  one-process run bit for bit, and a SmoothAdv step with ``train_bn`` and
+  remat (the recompute reading the statistics summed over the processes)
+  equals the one-process step within 1e-6.
 - One process: ``make_dcn_mesh`` is ``make_mesh`` and ``process_local_batch``
   places the whole batch (JAX's single-process cases); the env contract is a
   no-op when unset; NCCL asked for without a card raises.
@@ -92,6 +98,19 @@ if rank == 0:
         "counters": {"attack_success": int(tot[0]), "pred_sum": int(tot[1])},
         "n_processes": process_count(), "mesh": mesh.shape}))
 
+# EOT-PGD and shot noise on this process's rows: the mix and the rates of
+# both processes' shards
+from image_recognition_adversarial_example_attack_tpu_torch.attacks.eot import make_eot_logits_fn
+from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+from image_recognition_adversarial_example_attack_tpu_torch.parallel import data_parallel as dp
+y_global = torch.argmax(lf(torch.from_numpy(x_global)), -1).numpy()
+eot_fn = make_eot_logits_fn(lf, generator_from_seed(1), n_samples=2, sigma=0.1)
+adv = dp.sharded_pgd_linf_attack(eot_fn, x, process_local_batch(y_global, mesh), eps=8 / 255,
+                                 alpha=2 / 255, steps=2, generator=generator_from_seed(7))
+shot = dp.sharded_apply_corruption("shot_noise", x, 3, generator_from_seed(4))
+torch.save({"eot_pgd": torch.cat(adv.data_shards()), "shot": torch.cat(shot.data_shards())},
+           out_dir / f"draws_{rank}.pt")
+
 # the grid CLI (the Engine's mesh spans both processes, one data row each)
 for name, argv in jobs["grid"].items():
     buf = io.StringIO()
@@ -113,7 +132,9 @@ for name, cfg in jobs["train"].items():
 dist.destroy_process_group()
 """
 
-TRAIN_CASES = {"plain": {}, "train_bn+grad_accum": {"train_bn": True, "grad_accum": 2}}
+TRAIN_CASES = {"plain": {}, "train_bn+grad_accum": {"train_bn": True, "grad_accum": 2},
+               "smoothadv+train_bn+remat": {"train_bn": True, "remat": True,
+                                            "noise_sigma": 0.25, "noise_samples": 2}}
 GRID_ARGV = ["--attacks", "fgsm", "pgd", "--eps_list", "0.03137", "--viz_samples", "0"]
 GRID_CASES = {"resident": [], "streamed": ["--max_batch", "3"]}
 
@@ -196,6 +217,37 @@ def test_two_process_pgd_at_step_matches_one_process(case, two_processes):
     for k, v in want.params.items():
         np.testing.assert_allclose(got["params"][k].numpy(), v.numpy(), rtol=0, atol=1e-6,
                                    err_msg=k)
+
+
+def test_two_process_eot_pgd_and_shot_noise_equal_one_process(two_processes):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.api import (
+        make_logits_fn)
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.eot import (
+        make_eot_logits_fn)
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.pgd import (
+        pgd_linf_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.constants import (
+        IMAGENET_MEAN as MEAN, IMAGENET_STD as STD)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
+        generator_from_seed)
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.corruptions import (
+        apply_corruption)
+    from image_recognition_adversarial_example_attack_tpu_torch.models.tiny import TinyCNN
+
+    out, _, _ = two_processes
+    model = TinyCNN(num_classes=8)
+    model.load_state_dict(torch.load(out.parent / "tiny.pt", weights_only=True))
+    lf = make_logits_fn(model.eval().requires_grad_(False), MEAN, STD)
+    x = torch.from_numpy(np.asarray(np.random.RandomState(0).uniform(0.2, 0.8, (8, 16, 16, 3)),
+                                    np.float32))
+    y = torch.argmax(lf(x), -1)
+    eot_fn = make_eot_logits_fn(lf, generator_from_seed(1), n_samples=2, sigma=0.1)
+    want = {"eot_pgd": pgd_linf_attack(eot_fn, x, y, eps=8 / 255, alpha=2 / 255, steps=2,
+                                       generator=generator_from_seed(7)),
+            "shot": apply_corruption("shot_noise", x, 3, generator_from_seed(4))}
+    got = [torch.load(out / f"draws_{r}.pt", weights_only=True) for r in range(2)]
+    for k, v in want.items():
+        assert torch.equal(torch.cat([g[k] for g in got]), v), k
 
 
 def test_two_process_grid_cli_prints_the_one_process_lines(two_processes, tmp_path):

@@ -19,10 +19,16 @@ on a mesh) against the JAX package's (tests/test_sharding.py).
   its rows of the unsharded draws; a draw that cannot route a shard's
   generator raises); the grid CLI on a mesh prints the one-device run's
   summary lines.
+- The draws that need the whole batch, on 2- and 8-shard meshes: EOT-PGD
+  (the shards meet for the whole batch's input mix), a SmoothAdv training
+  step with and without ``train_bn`` (its EOT and Cohen noise), shot noise
+  at every severity (and every other stochastic corruption) and the loss
+  landscape equal the one-device run bit for bit.
 """
 
 import io
 import json
+import threading
 from contextlib import redirect_stdout
 from unittest import mock
 
@@ -55,7 +61,7 @@ from image_recognition_adversarial_example_attack_tpu_torch.core.normalize impor
     normalize_batch as port_normalize)
 from image_recognition_adversarial_example_attack_tpu_torch.cli.common import ATTACK_CHOICES
 from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
-    generator_from_seed, shard_generators)
+    generator_from_seed, shard_generators, standard_normal)
 from image_recognition_adversarial_example_attack_tpu_torch.eval.defense_eval import (
     STAT_KEYS, DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch)
 from image_recognition_adversarial_example_attack_tpu_torch.eval.streaming import make_placer
@@ -443,8 +449,6 @@ def test_random_defenses_on_shards_draw_the_one_device_numbers(defense):
 
 
 def test_a_draw_that_does_not_route_a_shard_generator_raises():
-    from image_recognition_adversarial_example_attack_tpu_torch.attacks.eot import (
-        make_eot_logits_fn)
     from image_recognition_adversarial_example_attack_tpu_torch.core.rng import seed_draw, uniform
 
     g = shard_generators(generator_from_seed(0), [(0, 2), (2, 4)], 4)[1]
@@ -452,10 +456,174 @@ def test_a_draw_that_does_not_route_a_shard_generator_raises():
         torch.rand((2,), generator=g)
     with pytest.raises(TypeError, match="seed_draw"):
         seed_draw(g)
-    with pytest.raises(TypeError, match="seed_draw"):
-        make_eot_logits_fn(lambda xx: xx, g)
     with pytest.raises(ValueError, match="batch axis"):
         uniform((3,), g, CPU)
+
+
+# ---------------------------------------------------------------------------
+# the draws that need the whole batch: EOT, SmoothAdv, shot noise, landscape
+# ---------------------------------------------------------------------------
+
+def _data_mesh(n: int):
+    return make_mesh(n_data=n, n_model=1, devices=[CPU] * n)
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_sharded_eot_pgd_equals_one_device(n_shards, tiny64):
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.eot import (
+        make_eot_logits_fn)
+
+    fns, x, y = tiny64
+    mesh = _data_mesh(n_shards)
+
+    def run(attack, batch, labels):
+        eot_fn = make_eot_logits_fn(fns["port"][0], generator_from_seed(1), n_samples=3,
+                                    sigma=0.1)
+        return attack(eot_fn, batch, labels, eps=EPS, alpha=ALPHA, steps=3,
+                      generator=generator_from_seed(7))
+
+    one = run(pgd_linf_attack, torch.from_numpy(x), torch.from_numpy(y))
+    got = run(dp.sharded_pgd_linf_attack, shard_batch(x, mesh), dp.shard_labels(y, mesh))
+    assert torch.equal(got.gather(), one)
+    # a wrapper hidden behind another function runs its shards one after
+    # another, where they cannot meet for the mix: it raises
+    wrapped = make_eot_logits_fn(fns["port"][0], generator_from_seed(1), n_samples=2)
+    with pytest.raises(RuntimeError, match="lockstep"):
+        dp.sharded_pgd_linf_attack(lambda xx: wrapped(xx), shard_batch(x, mesh),
+                                   dp.shard_labels(y, mesh), eps=EPS, alpha=ALPHA, steps=1,
+                                   generator=generator_from_seed(7))
+
+
+class _DrawLog:
+    """The EOT and Cohen draws of a SmoothAdv step, each shard's by its first
+    row, with the EOT calls' (seed, whole mix) and each thread's input mixes."""
+
+    def __init__(self, monkeypatch):
+        from image_recognition_adversarial_example_attack_tpu_torch.attacks import eot
+        from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
+
+        self.lock = threading.Lock()
+        self.draws, self.calls, self.mixes = {}, [], {}
+
+        def logged(name, fn):
+            def draw(shape, generator, device):
+                out = fn(shape, generator, device)
+                with self.lock:
+                    self.draws.setdefault((name, getattr(generator, "lo", 0)), []).append(out)
+                return out
+            return draw
+
+        def call_generator(seed, mix, device, real=eot.call_generator):
+            with self.lock:
+                self.calls.append((seed, mix))
+            return real(seed, mix, device)
+
+        def input_mix(x01, real=eot.input_mix):
+            out = real(x01)
+            with self.lock:
+                self.mixes.setdefault(threading.get_ident(), []).append(int(out))
+            return out
+
+        monkeypatch.setattr(eot, "draw_noise", logged("eot", eot.draw_noise))
+        monkeypatch.setattr(adversarial, "draw_cohen_noise",
+                            logged("cohen", adversarial.draw_cohen_noise))
+        monkeypatch.setattr(eot, "call_generator", call_generator)
+        monkeypatch.setattr(eot, "input_mix", input_mix)
+
+    def whole(self, name: str) -> list:
+        """Each call's draw, the shards' rows put together."""
+        los = sorted(lo for n, lo in self.draws if n == name)
+        return [torch.cat(parts) for parts in zip(*(self.draws[(name, lo)] for lo in los))]
+
+    def reset(self):
+        self.draws, self.calls, self.mixes = {}, [], {}
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+@pytest.mark.parametrize("train_bn", [False, True], ids=["frozen_bn", "train_bn"])
+def test_sharded_smoothadv_step_draws_the_one_device_noise(train_bn, n_shards, monkeypatch):
+    """Cohen's noise equals the one-device draw; every EOT call's noise is the
+    one-device wrapper's for the whole batch's input at that call (its mix
+    the wrapping sum of the shards'), and with frozen BatchNorm the iterates,
+    so every draw, are the one-device run's bit for bit."""
+    from _torch_scaleout_helpers import train_setup
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import eot
+    from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial
+
+    monkeypatch.setattr(adversarial, "LOSS_DTYPE", adversarial.LOSS_DTYPE)
+    log = _DrawLog(monkeypatch)
+    kw = dict(noise_sigma=0.25, noise_samples=2, attack_steps=2, train_bn=train_bn)
+    step, state, x, y, _ = train_setup(**kw)
+    one, m1 = step(state, torch.from_numpy(x), torch.from_numpy(y), generator_from_seed(9))
+    want = {k: log.whole(k) for k in ("eot", "cohen")}
+    want_calls = list(log.calls)
+    log.reset()
+    step, state, x, y, _ = train_setup(**kw)
+    got, m2 = step(state, shard_batch(x, _data_mesh(n_shards)), y, generator_from_seed(9))
+    calls = list(log.calls)
+    assert len(log.mixes) == n_shards and len(calls) == 2  # one generator a call
+    for k, (seed, mix) in enumerate(calls):
+        parts = [m[k] for m in log.mixes.values()]
+        assert mix == (sum(parts) + 2**31) % 2**32 - 2**31
+        g = eot.call_generator(seed, mix, CPU)
+        noise = [standard_normal(x.shape, g, CPU) for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(noise, log.whole("eot")[2 * k:2 * k + 2]))
+    assert torch.equal(log.whole("cohen")[0], want["cohen"][0])
+    assert torch.equal(log.whole("eot")[0], want["eot"][0])  # the first iterate's
+    if not train_bn:
+        assert calls == want_calls
+        assert all(torch.equal(a, b) for a, b in zip(log.whole("eot"), want["eot"]))
+    np.testing.assert_allclose(float(m2["loss"]), float(m1["loss"]), rtol=1e-10)
+    for k, v in one.params.items():
+        np.testing.assert_allclose(got.params[k].numpy(), v.numpy(), rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+@pytest.mark.parametrize("severity", [1, 2, 3, 4, 5])
+def test_sharded_shot_noise_equals_one_device(severity, n_shards):
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.corruptions import (
+        apply_corruption)
+
+    x = np.random.RandomState(severity).rand(16, 8, 8, 3).astype(np.float32)
+    one = apply_corruption("shot_noise", torch.from_numpy(x), severity, generator_from_seed(4))
+    got = dp.sharded_apply_corruption("shot_noise", shard_batch(x, _data_mesh(n_shards)),
+                                      severity, generator_from_seed(4))
+    assert torch.equal(got.gather(), one)
+
+
+def test_every_stochastic_corruption_on_shards_equals_one_device():
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.corruptions import (
+        CORRUPTION_NAMES, DETERMINISTIC, apply_corruption)
+
+    x = np.random.RandomState(3).rand(8, 16, 16, 3).astype(np.float32)
+    mesh = _data_mesh(2)
+    for name in sorted(set(CORRUPTION_NAMES) - DETERMINISTIC):
+        one = apply_corruption(name, torch.from_numpy(x), 3, generator_from_seed(6))
+        got = dp.sharded_apply_corruption(name, shard_batch(x, mesh), 3, generator_from_seed(6))
+        assert torch.equal(got.gather(), one), name
+
+
+@pytest.mark.parametrize("n_shards", [2, 8])
+def test_sharded_landscape_equals_one_device(n_shards, tiny64):
+    from image_recognition_adversarial_example_attack_tpu_torch.eval.landscape import (
+        adversarial_plane, adversarial_planes, loss_landscape, plane_from_direction)
+
+    fns, x, y = tiny64
+    lf = fns["port"][0]
+    xt = torch.from_numpy(x)
+    x_adv = pgd_linf_attack(lf, xt, torch.from_numpy(y), eps=EPS, alpha=ALPHA, steps=2,
+                            generator=generator_from_seed(2))
+    one = torch.stack([loss_landscape(lf, xt[i], int(y[i]), p, grid=5)
+                       for i, p in enumerate(adversarial_planes(xt, x_adv,
+                                                                generator_from_seed(5)))])
+    mesh = _data_mesh(n_shards)
+    got = dp.sharded_loss_landscapes(lf, shard_batch(x, mesh), shard_batch(x_adv, mesh),
+                                     dp.shard_labels(y, mesh), generator_from_seed(5), grid=5)
+    assert torch.equal(got.gather(), one)
+    # one image's plane draws what it drew before: a [H,W,C] normal
+    r = torch.randn(xt[0].shape, generator=generator_from_seed(5), dtype=torch.float32)
+    assert torch.equal(adversarial_plane(xt[0], x_adv[0], generator_from_seed(5)).d2,
+                       plane_from_direction(xt[0], x_adv[0], r).d2)
 
 
 def test_mesh_placer_shards_each_chunk(mesh8, monkeypatch):

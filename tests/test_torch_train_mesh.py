@@ -12,8 +12,11 @@ port's draw functions, each shard taking its rows.  Tolerances are JAX's
 ``grad_accum=2`` with remat, and ``train_bn`` (each micro-batch's
 statistics, summed over the shards) with ``grad_accum=2``.
 TRADES, MART and free-AT sharded equal their unsharded steps (also eight
-lockstep shards switching every microsecond), and remat with ``train_bn``
-on a sharded batch is refused.
+lockstep shards switching every microsecond).  Remat with ``train_bn`` on a
+sharded batch (grad_accum 1 and 2, and the free objective) equals the
+port's unsharded remat step, its sharded step without remat and JAX's 4x2
+step: the recompute reads the whole batch's statistics its first forward
+summed (``parallel.collective.checkpoint_contexts``).
 """
 
 import sys
@@ -147,12 +150,70 @@ def test_lockstep_shards_under_a_short_switch_interval(data):
     _max_rel(got.params, one.params)
 
 
-def test_remat_with_train_bn_on_a_sharded_batch_is_refused(data, mesh8):
+REMAT_CASES = {"grad_accum1": dict(grad_accum=1), "grad_accum2": dict(grad_accum=2),
+               "free": dict(free_replays=2)}
+
+
+def _jax_remat_step(case, kw, var, x, y, key):
+    """JAX's step of ``case`` jitted with the batch over 'data' of a 4x2
+    mesh: (state, metrics[, delta])."""
+    jmesh = jax_mesh.make_mesh(n_data=4, n_model=2)
+    xs = NamedSharding(jmesh, JP("data"))
+    cfg = jax_adv.AdvTrainConfig(**kw)
+    with jax.enable_x64():
+        state0 = jax_adv.train_state_from_bundle(H.jax_bundle("wrn_tiny", var), cfg)
+        put = lambda a: jax.device_put(jnp.asarray(a), xs)  # noqa: E731
+        if case == "free":
+            step = jax.jit(jax_adv.make_free_step(cfg, *H.stats("wrn_tiny")),
+                           in_shardings=(None, xs, xs, None, xs),
+                           out_shardings=(None, None, None))
+            return state0, step(state0, put(x), put(y), key, put(np.zeros(x.shape)))
+        step = jax.jit(jax_adv.make_train_step(cfg, *H.stats("wrn_tiny")),
+                       in_shardings=(None, xs, xs, None), out_shardings=(None, None))
+        return state0, step(state0, put(x), put(y), key)
+
+
+@pytest.mark.parametrize("case", list(REMAT_CASES))
+def test_sharded_train_bn_remat_equals_unsharded_no_remat_and_jaxs_4x2(case, data, mesh8,
+                                                                        monkeypatch):
+    """Remat with train_bn on the 4x2 mesh against the port's unsharded
+    remat step, the port's sharded step without remat and JAX's 4x2 step,
+    at JAX's tolerances."""
     x, y, var = data
-    cfg = adversarial.AdvTrainConfig(**BASE, attack_steps=1, train_bn=True, remat=True)
-    step = adversarial.make_train_step(cfg, *H.stats("wrn_tiny"))
-    with pytest.raises(NotImplementedError, match="remat with train_bn"):
-        step(_port_state(cfg, var), shard_batch(x, mesh8), y, generator_from_seed(0))
+    kw = {**BASE, "attack_steps": 2, "train_bn": True, "remat": True, **REMAT_CASES[case]}
+    key = jax.random.PRNGKey(6)
+    free = case == "free"
+    make = adversarial.make_free_step if free else adversarial.make_train_step
+    extra = (torch.zeros(x.shape, dtype=torch.float64),) if free else ()
+
+    def port(remat: bool, batch, labels, state=None):
+        cfg = adversarial.AdvTrainConfig(**{**kw, "remat": remat})
+        step = make(cfg, *H.stats("wrn_tiny"))
+        return step(state or _port_state(cfg, var), batch, labels, generator_from_seed(2),
+                    *extra)
+
+    with H.lifted_casts():
+        state0, jout = _jax_remat_step(case, kw, var, x, y, key)
+        sharded = port(True, shard_batch(x, mesh8), y)
+        for ref in (port(True, H.t(x), H.t(y)), port(False, shard_batch(x, mesh8), y)):
+            np.testing.assert_allclose(float(sharded[1]["loss"]), float(ref[1]["loss"]),
+                                       rtol=1e-5)
+            _max_rel(sharded[0].params, ref[0].params)
+        if not free:  # JAX's PGD starts, each shard taking its rows
+            starts = H.step_draws("pgd-at", adversarial.AdvTrainConfig(**kw), key,
+                                  x.shape)["start"]
+            monkeypatch.setattr(pgd, "draw_start", lambda shape, eps, generator, device: (
+                whole_batch_draw(generator, lambda p: starts.pop(0))
+                [generator.lo:generator.hi]))
+        template = _port_state(adversarial.AdvTrainConfig(**kw), var)
+        fed = port(True, shard_batch(x, mesh8), y, H.carry(template, state0))
+    assert free or not starts
+    np.testing.assert_allclose(float(fed[1]["loss"]), float(jout[1]["loss"]), rtol=1e-5)
+    want = H.port_params(jout[0].params)
+    _max_rel(fed[0].params, {k: torch.from_numpy(v) for k, v in want.items()})
+    if free:
+        np.testing.assert_allclose(fed[2].gather().numpy(), np.asarray(jout[2]), rtol=0,
+                                   atol=1e-6)
 
 
 def test_a_micro_batch_smaller_than_the_data_axis_is_refused(data, mesh8):
