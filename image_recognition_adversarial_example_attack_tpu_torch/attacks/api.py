@@ -19,6 +19,7 @@ from ..core.constants import (DEFAULT_ALPHA, DEFAULT_CW_C, DEFAULT_CW_KAPPA, DEF
 from ..core.normalize import normalize_batch
 from ..core.rng import generator_from_seed
 from ..parallel.collective import shard_grad
+from ..utils.profiling import span
 
 LogitsFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -34,22 +35,25 @@ def make_logits_fn(model: nn.Module, mean, std,
     ``permute(0, 3, 1, 2)``: on a contiguous NHWC tensor that is a
     channels_last NCHW view, cuDNN's preferred layout.  ``method`` names
     another method of the model (e.g. ``"features_stage3"``) to run instead
-    of ``forward``.
+    of ``forward``.  Spans: ``model.forward`` around the call,
+    ``model.normalize`` and ``model.net`` (the network) inside it.
     """
     def logits_fn(x01: torch.Tensor) -> torch.Tensor:
-        # the method is looked up at call time, as Flax's ``apply(method=)``
-        # does: a family without it fails only where it is used
-        fn = model if method is None else getattr(model, method)
-        x = x01 if input_dtype is None else x01.to(input_dtype)
-        x = normalize_batch(x, mean, std)
-        return fn(x.permute(0, 3, 1, 2)).float()
+        with span("model.forward"):
+            # the method is looked up at call time, as Flax's ``apply(method=)``
+            # does: a family without it fails only where it is used
+            fn = model if method is None else getattr(model, method)
+            x = x01 if input_dtype is None else x01.to(input_dtype)
+            x = normalize_batch(x, mean, std)
+            with span("model.net"):
+                return fn(x.permute(0, 3, 1, 2)).float()
 
     return logits_fn
 
 
 def predict_labels(logits_fn: LogitsFn, x: torch.Tensor) -> torch.Tensor:
     """[B] top-1 labels of ``logits_fn(x)``, with no autograd graph."""
-    with torch.no_grad():
+    with span("predict"), torch.no_grad():
         return torch.argmax(logits_fn(x), dim=-1)
 
 
@@ -490,4 +494,5 @@ def run_attack(attack_name: str, logits_fn: LogitsFn, x: torch.Tensor,
         raise ValueError(f"unknown attack '{attack_name}'")
     if generator is None:
         generator = generator_from_seed(0)
-    return handler(logits_fn, x, y_true, params, generator, y_target)
+    with span("attack"):
+        return handler(logits_fn, x, y_true, params, generator, y_target)

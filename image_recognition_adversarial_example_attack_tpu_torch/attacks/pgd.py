@@ -1,11 +1,12 @@
 """PGD in the L∞, L2 and L1 balls, and worst-of-R-restarts PGD (port of
 ``attacks/pgd.py``).
 
-- ``pgd_linf_attack``: an optional uniform random start in the eps-ball,
-  then ``steps`` iterations of ``alpha * sign(grad)`` with projection to
-  ``[x0-eps, x0+eps]`` and a clip to [0,1].  On a CUDA device the random
-  start is the Philox noise kernel and each update the pgd_step kernel
-  (``kernels/elementwise.py``); on the CPU their plain versions run.
+- ``pgd_linf_attack``: an optional uniform random start in the eps-ball
+  (the span ``attack.start``), then ``steps`` iterations (``attack.step``)
+  of ``alpha * sign(grad)`` with projection to ``[x0-eps, x0+eps]`` and a
+  clip to [0,1].  On a CUDA device the random start is the Philox noise
+  kernel and each update the pgd_step kernel (``kernels/elementwise.py``);
+  on the CPU their plain versions run.
 - ``pgd_l2_attack``: steps along the L2-normalized gradient, projected onto
   the eps-radius L2 ball; its random start is a normal direction scaled to
   a uniform radius.
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from ..core.rng import standard_normal, uniform
 from ..kernels import elementwise
+from ..utils.profiling import span
 from .api import LogitsFn, input_grad, per_sample_ce
 
 # The plain update (attacks/pgd.py::pgd_step of the JAX package).
@@ -69,16 +71,18 @@ def pgd_linf_attack(logits_fn: LogitsFn, x: torch.Tensor, y_true: torch.Tensor,
     eps, alpha = float(eps), float(alpha)
     x_orig = x.contiguous()
     if random_start:
-        noise = draw_start(x.shape, eps, generator, x.device).to(x.dtype)
-        x_adv = torch.clamp(x_orig + noise, 0.0, 1.0)
+        with span("attack.start"):
+            noise = draw_start(x.shape, eps, generator, x.device).to(x.dtype)
+            x_adv = torch.clamp(x_orig + noise, 0.0, 1.0)
     else:
         x_adv = x_orig
 
     y_grad = y_true if y_target is None else y_target
     step = alpha if y_target is None else -alpha
     for _ in range(int(steps)):
-        grad = input_grad(logits_fn, x_adv, y_grad).contiguous()
-        x_adv = elementwise.pgd_step(x_adv, grad, x_orig, eps, step)
+        with span("attack.step"):
+            grad = input_grad(logits_fn, x_adv, y_grad).contiguous()
+            x_adv = elementwise.pgd_step(x_adv, grad, x_orig, eps, step)
     return x_adv
 
 

@@ -535,18 +535,26 @@ def resolve_labels(labels_json: str | None, paths, pseudo) -> np.ndarray:
 def maybe_profile(profile_dir: str | None):
     """With a directory: a torch.profiler trace of the block (CPU, and CUDA
     where a card is present), written there as ``trace.json`` (Chrome trace
-    format).  Without one: nothing."""
+    format), and beside it the program's spans of the block as
+    ``spans.json`` (``utils/profiling.py``: ``spans``, the records, and
+    ``origins_ns``, the host ns at which each card's clock starts).
+    Without one: nothing."""
     if not profile_dir:
         yield
         return
     from torch.profiler import ProfilerActivity, profile
 
+    from ..utils import profiling
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    profiling.reset_spans()
     with profile(activities=activities) as prof:
         yield
     out = Path(profile_dir)
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(out / "trace.json"))
-    print(f"Profiler trace: {out / 'trace.json'}")
+    log = {"origins_ns": profiling.origins_ns(), "spans": profiling.spans()}
+    (out / "spans.json").write_text(json.dumps(log))
+    print(f"Profiler trace: {out / 'trace.json'}; spans: {out / 'spans.json'}")

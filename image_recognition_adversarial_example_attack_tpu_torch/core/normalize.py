@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count, span
 from .constants import IMAGENET_MEAN, IMAGENET_STD
 
 
@@ -16,13 +17,22 @@ def normalize_batch(x: torch.Tensor, mean, std) -> torch.Tensor:
     """(x - mean) / std over the last (channel) axis, in x's dtype.
 
     ``mean``/``std`` are length-C sequences; they are cast to ``x``'s dtype
-    first, as ``jnp.asarray(mean, dtype=x.dtype)`` does.
+    first, as ``jnp.asarray(mean, dtype=x.dtype)`` does.  The span
+    ``model.normalize``; a copy of ``mean`` or ``std`` from the host to a
+    card waits for the card and counts as one of its ``syncs``.
     """
-    mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
-    std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
-    if mean.ndim != 1 or std.ndim != 1:
-        raise ValueError("mean/std must be 1D arrays with shape [C]")
-    return (x - mean) / std
+    with span("model.normalize"):
+        mean, std = _like(mean, x), _like(std, x)
+        if mean.ndim != 1 or std.ndim != 1:
+            raise ValueError("mean/std must be 1D arrays with shape [C]")
+        return (x - mean) / std
+
+
+def _like(v, x: torch.Tensor) -> torch.Tensor:
+    """``v`` as a tensor of ``x``'s dtype on ``x``'s device."""
+    from_host = x.is_cuda and not (isinstance(v, torch.Tensor) and v.device == x.device)
+    with count("syncs", from_host):
+        return torch.as_tensor(v, dtype=x.dtype, device=x.device)
 
 
 def normalizer(mean=IMAGENET_MEAN, std=IMAGENET_STD):

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..core.constants import JPEG_QUALITY, QUANTIZATION_LEVELS
 from ..kernels.elementwise import quantize
+from ..utils.profiling import span
 from .jpeg import jpeg_compress_batch
 from .jpeg_dct import jpeg_dct_roundtrip
 from .tv import TV_STEPS, TV_WEIGHT, tv_minimize
@@ -67,20 +68,23 @@ class DefenseConfig:
 
 
 def defend_input(x: torch.Tensor, config: DefenseConfig = DefenseConfig()) -> torch.Tensor:
-    """Composite defense: clip -> (TV) -> smooth -> quantize -> (JPEG) -> clip."""
-    x01 = torch.clamp(x, 0.0, 1.0)
-    if config.use_tv:
-        x01 = tv_minimize(x01, weight=config.tv_weight, steps=config.tv_steps)
-    x01 = defense_smoothing(x01)
-    x01 = defense_quantization(x01, levels=config.quant_levels)
-    if config.use_jpeg:
-        if config.jpeg_mode == "dct":
-            x01 = jpeg_dct_roundtrip(x01, quality=config.jpeg_quality)
-        elif config.jpeg_mode == "host":
-            # BPDA-identity: the exact codec forward, the identity backward;
-            # the codec sees a detached input, so no gradient reaches it
-            x_sg = x01.detach()
-            x01 = x01 + (jpeg_compress_batch(x_sg, quality=config.jpeg_quality) - x_sg).detach()
-        else:
-            raise ValueError(f"unknown jpeg_mode '{config.jpeg_mode}'")
-    return torch.clamp(x01, 0.0, 1.0)
+    """Composite defense: clip -> (TV) -> smooth -> quantize -> (JPEG) -> clip;
+    the span ``defense.defend``."""
+    with span("defense.defend"):
+        x01 = torch.clamp(x, 0.0, 1.0)
+        if config.use_tv:
+            x01 = tv_minimize(x01, weight=config.tv_weight, steps=config.tv_steps)
+        x01 = defense_smoothing(x01)
+        x01 = defense_quantization(x01, levels=config.quant_levels)
+        if config.use_jpeg:
+            if config.jpeg_mode == "dct":
+                x01 = jpeg_dct_roundtrip(x01, quality=config.jpeg_quality)
+            elif config.jpeg_mode == "host":
+                # BPDA-identity: the exact codec forward, the identity backward;
+                # the codec sees a detached input, so no gradient reaches it
+                x_sg = x01.detach()
+                x01 = x01 + (jpeg_compress_batch(x_sg, quality=config.jpeg_quality)
+                             - x_sg).detach()
+            else:
+                raise ValueError(f"unknown jpeg_mode '{config.jpeg_mode}'")
+        return torch.clamp(x01, 0.0, 1.0)

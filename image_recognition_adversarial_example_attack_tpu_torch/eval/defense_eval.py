@@ -31,6 +31,7 @@ from ..core.rng import generator_from_seed
 from ..defenses.detector import FeaturesFn, score_from_features, squeezing_score
 from ..defenses.mahalanobis import mahalanobis_score
 from ..defenses.preprocess import DefenseConfig, defend_input
+from ..utils.profiling import count, span
 
 STAT_KEYS = (
     "clean_correct",
@@ -117,7 +118,19 @@ _ATTACK_FIELDS = tuple(f.name for f in fields(DefenseEvalConfig)
 
 def make_detector_score_fn(logits_fn: LogitsFn, features_fn: FeaturesFn,
                            config: DefenseEvalConfig):
-    """x -> [B] detector score, per ``config.detector``."""
+    """x -> [B] detector score, per ``config.detector``; each call is the
+    span ``detector.score``."""
+    score = _detector_score_fn(logits_fn, features_fn, config)
+
+    def spanned(xx):
+        with span("detector.score"):
+            return score(xx)
+
+    return spanned
+
+
+def _detector_score_fn(logits_fn: LogitsFn, features_fn: FeaturesFn,
+                       config: DefenseEvalConfig):
     if config.detector == "squeezing":
         return lambda xx: squeezing_score(logits_fn, xx, config.defense.quant_levels)
     if config.detector == "mahalanobis":
@@ -171,15 +184,27 @@ def evaluate_defenses_batch(
     ``eps_override`` replaces ``config.eps`` at run time: eps is a kernel
     argument, so an eps sweep reuses the same kernels.  The threshold is
     compared as a float32 value, as in the JAX package.
+
+    Spans: ``defense.eval`` around the call; in it ``defense.clean_predict``,
+    ``attack``, ``defense.adv_predict``, ``defense.defend``,
+    ``defense.defended_predict`` and two ``detector.score``.
     """
-    thr = float(detector_threshold)
-    threshold = torch.tensor(thr, dtype=torch.float32, device=x.device)
+    with span("defense.eval"):
+        return _evaluate(logits_fn, features_fn, x, y_true, float(detector_threshold), config,
+                         generator, eps_override)
+
+
+def _evaluate(logits_fn, features_fn, x, y_true, thr: float, config: DefenseEvalConfig,
+              generator, eps_override):
+    with count("syncs", x.is_cuda):  # a copy from the host
+        threshold = torch.tensor(thr, dtype=torch.float32, device=x.device)
     params = config.attack_params()
     if eps_override is not None:
         params = replace(params, eps=float(eps_override))
 
-    pred_clean = predict_labels(logits_fn, x)
-    clean_correct = (pred_clean == y_true).int()
+    with span("defense.clean_predict"):
+        pred_clean = predict_labels(logits_fn, x)
+        clean_correct = (pred_clean == y_true).int()
 
     if config.adaptive:
         def attack_target_fn(xx):
@@ -188,12 +213,14 @@ def evaluate_defenses_batch(
         attack_target_fn = logits_fn
     x_adv = _attack(attack_target_fn, logits_fn, features_fn, x, y_true, thr,
                     config, params, generator)
-    pred_adv = predict_labels(logits_fn, x_adv)
-    attack_success = (pred_adv != y_true).int()
+    with span("defense.adv_predict"):
+        pred_adv = predict_labels(logits_fn, x_adv)
+        attack_success = (pred_adv != y_true).int()
 
     x_def = defend_input(x_adv, config.defense)
-    pred_def = predict_labels(logits_fn, x_def)
-    defense_preproc_success = (pred_def == y_true).int()
+    with span("defense.defended_predict"):
+        pred_def = predict_labels(logits_fn, x_def)
+        defense_preproc_success = (pred_def == y_true).int()
 
     score_fn = make_detector_score_fn(logits_fn, features_fn, config)
     with torch.no_grad():

@@ -14,6 +14,8 @@ noise (1 write).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper (plain-version calls
 are not counted), so a run can show that its main path went through them.
+Each wrapper is a span, on either route: ``kernel.pgd_step``,
+``kernel.quantize``, ``kernel.noise``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..core.rng import ShardGenerator, batch_draw, seed_draw, whole_batch_draw
+from ..utils.profiling import span
 from .build import load_library
 
 LAUNCHES: dict[str, int] = {"pgd_step": 0, "quantize": 0, "uniform_noise": 0}
@@ -78,13 +81,14 @@ def pgd_step(x_adv: torch.Tensor, grad: torch.Tensor, x_orig: torch.Tensor,
     """One PGD-Linf update. A negative ``alpha`` steps down the gradient
     (the targeted mode), bit-identical to stepping along ``sign(-grad)``."""
     _check_shapes("pgd_step", x_adv, grad, x_orig)
-    if x_adv.device.type == "cpu":
-        return pgd_step_plain(x_adv, grad, x_orig, eps, alpha)
-    _check_cuda_f32("pgd_step", x_adv, grad, x_orig)
-    out = torch.empty_like(x_adv)
-    code = load_library().pgd_step_launch(
-        x_adv.data_ptr(), grad.data_ptr(), x_orig.data_ptr(), out.data_ptr(),
-        x_adv.numel(), float(alpha), float(eps), _stream(x_adv.device))
+    with span("kernel.pgd_step"):
+        if x_adv.device.type == "cpu":
+            return pgd_step_plain(x_adv, grad, x_orig, eps, alpha)
+        _check_cuda_f32("pgd_step", x_adv, grad, x_orig)
+        out = torch.empty_like(x_adv)
+        code = load_library().pgd_step_launch(
+            x_adv.data_ptr(), grad.data_ptr(), x_orig.data_ptr(), out.data_ptr(),
+            x_adv.numel(), float(alpha), float(eps), _stream(x_adv.device))
     _raise_on_error("pgd_step", code)
     LAUNCHES["pgd_step"] += 1
     return out
@@ -103,13 +107,14 @@ def quantize_plain(x, levels: int):
 
 
 def quantize(x: torch.Tensor, levels: int) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return quantize_plain(x, levels)
-    _check_cuda_f32("quantize", x)
-    out = torch.empty_like(x)
-    code = load_library().quantize_launch(
-        x.data_ptr(), out.data_ptr(), x.numel(), float(levels - 1),
-        _stream(x.device))
+    with span("kernel.quantize"):
+        if x.device.type == "cpu":
+            return quantize_plain(x, levels)
+        _check_cuda_f32("quantize", x)
+        out = torch.empty_like(x)
+        code = load_library().quantize_launch(
+            x.data_ptr(), out.data_ptr(), x.numel(), float(levels - 1),
+            _stream(x.device))
     _raise_on_error("quantize", code)
     LAUNCHES["quantize"] += 1
     return out
@@ -140,11 +145,12 @@ def uniform_noise(shape, eps: float, generator: torch.Generator,
     the whole batch's uniforms.
     """
     device = torch.device(device)
-    if isinstance(generator, ShardGenerator):
-        return _shard_noise(shape, eps, generator, device)
-    if device.type == "cpu":
-        return uniform_noise_plain(shape, eps, generator)
-    return uniform_noise_at(shape, eps, seed_draw(generator), device)
+    with span("kernel.noise"):
+        if isinstance(generator, ShardGenerator):
+            return _shard_noise(shape, eps, generator, device)
+        if device.type == "cpu":
+            return uniform_noise_plain(shape, eps, generator)
+        return uniform_noise_at(shape, eps, seed_draw(generator), device)
 
 
 def uniform_noise_at(shape, eps: float, seed: int, device: torch.device | str,

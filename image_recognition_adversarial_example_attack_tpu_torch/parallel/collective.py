@@ -47,6 +47,8 @@ from typing import Callable, Sequence
 
 import torch
 
+from ..utils.profiling import span
+
 _local = threading.local()
 BARRIER_TIMEOUT_S = 600.0
 
@@ -266,7 +268,12 @@ def process_row_offset(rows: int, cross_process: bool) -> int:
 def shard_grad(outputs, inputs: Sequence[torch.Tensor], **kw):
     """``torch.autograd.grad(outputs, inputs, **kw)``; in lockstep over the
     outputs of every shard at once, each shard getting its inputs'
-    gradients."""
+    gradients.  The span ``model.backward``."""
+    with span("model.backward"):
+        return _shard_grad(outputs, inputs, **kw)
+
+
+def _shard_grad(outputs, inputs: Sequence[torch.Tensor], **kw):
     ctx = _context()
     if ctx is None or ctx[0] is None:
         return torch.autograd.grad(outputs, inputs, **kw)

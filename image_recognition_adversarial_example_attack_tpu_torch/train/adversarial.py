@@ -85,6 +85,7 @@ from ..parallel import collective
 from ..parallel.collective import batch_rows, run_lockstep, shard_context, shard_grad
 from ..parallel.distributed import all_gather_rows, all_reduce_sum, process_count
 from ..parallel.mesh import ShardedTensor
+from ..utils.profiling import count, span
 from .augment import AugmentConfig, make_augment_fn
 from .optim import AdamState, AdamW, global_norm, make_lr_schedule
 
@@ -238,20 +239,23 @@ def _accuracy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def _finish_step(state: TrainState, grads, metrics, ema_decay: float = 0.0):
     """The tail of every objective: one AdamW update, the EMA (in float32)
-    and ``grad_norm`` of the gradient the optimizer consumed."""
-    params, opt_state = state.tx.update(grads, state.opt_state, state.params)
-    new_state = state.replace(params=params, opt_state=opt_state, step=state.step + 1)
-    if state.ema_params is not None and ema_decay > 0.0:
-        # the float32 decay and its complement, made once on the parameters' device
-        d = torch.tensor(ema_decay, dtype=LOSS_DTYPE,
-                         device=next(iter(params.values())).device)
-        keep = 1.0 - d
-        new_state.ema_params = {
-            k: (d * e.to(LOSS_DTYPE) + keep * params[k].to(LOSS_DTYPE)).to(e.dtype)
-            for k, e in state.ema_params.items()}
-    metrics = dict(metrics)
-    metrics["grad_norm"] = global_norm(grads)
-    return new_state, metrics
+    and ``grad_norm`` of the gradient the optimizer consumed; the span
+    ``train.optimizer``."""
+    with span("train.optimizer"):
+        params, opt_state = state.tx.update(grads, state.opt_state, state.params)
+        new_state = state.replace(params=params, opt_state=opt_state, step=state.step + 1)
+        if state.ema_params is not None and ema_decay > 0.0:
+            # the float32 decay and its complement, made once on the parameters' device
+            device = next(iter(params.values())).device
+            with count("syncs", device.type == "cuda"):  # a copy from the host
+                d = torch.tensor(ema_decay, dtype=LOSS_DTYPE, device=device)
+            keep = 1.0 - d
+            new_state.ema_params = {
+                k: (d * e.to(LOSS_DTYPE) + keep * params[k].to(LOSS_DTYPE)).to(e.dtype)
+                for k, e in state.ema_params.items()}
+        metrics = dict(metrics)
+        metrics["grad_norm"] = global_norm(grads)
+        return new_state, metrics
 
 
 def _param_grads(total_loss: Callable, params: dict[str, torch.Tensor], *extra_inputs):
@@ -334,11 +338,15 @@ def _make_apply_logits(config: AdvTrainConfig, mean, std):
     """``(state, params, x01) -> float32 logits``; under ``config.remat``
     the forward is checkpointed (``use_reentrant=False``): every backward
     recomputes its activations, in a lockstep shard from the batch
-    statistics its first run summed (``collective.checkpoint_contexts``)."""
+    statistics its first run summed (``collective.checkpoint_contexts``).
+    Spans: ``model.forward``, with ``model.normalize`` and ``model.net``."""
 
     def apply_logits(state: TrainState, params, x01):
         def fwd(x01):
-            return _apply_model(state, params, normalize_batch(x01, mean, std)).to(LOSS_DTYPE)
+            with span("model.forward"):
+                x_norm = normalize_batch(x01, mean, std)
+                with span("model.net"):
+                    return _apply_model(state, params, x_norm).to(LOSS_DTYPE)
 
         if config.remat:
             return checkpoint(fwd, x01, use_reentrant=False,
@@ -365,11 +373,12 @@ def _step_with(grads_fn, config: AdvTrainConfig):
     grads_full = _with_augment(_with_grad_accum(grads_fn, int(config.grad_accum)), config)
 
     def step(state: TrainState, x01, y, generator):
-        if isinstance(x01, ShardedTensor):
-            grads = _sharded_grads(grads_fn, config, state, x01, y, generator)
-        else:
-            grads = grads_full(state, x01, y, generator)
-        return _finish_step(state, *grads, ema_decay=config.ema_decay)
+        with span("train.step"):
+            if isinstance(x01, ShardedTensor):
+                grads = _sharded_grads(grads_fn, config, state, x01, y, generator)
+            else:
+                grads = grads_full(state, x01, y, generator)
+            return _finish_step(state, *grads, ema_decay=config.ema_decay)
 
     return step
 
@@ -536,12 +545,15 @@ def make_train_step(config: AdvTrainConfig, mean=IMAGENET_MEAN, std=IMAGENET_STD
     ``x01`` is a [B,H,W,C] batch in [0,1] (normalized inside).  With
     ``noise_sigma`` the attack runs on the EOT-smoothed model (SmoothAdv)
     and the loss on a noisy draw (Cohen); ``attack_steps=0`` is no attack
-    and no random start.  ``clean_weight`` mixes the clean CE in."""
+    and no random start.  ``clean_weight`` mixes the clean CE in.  Spans, in
+    ``train.step``: ``train.cast`` (the masters' copies the attack runs on),
+    ``attack``, ``train.forward_backward``, then ``train.optimizer``."""
     apply_logits = _make_apply_logits(config, mean, std)
 
     def grads_fn(state: TrainState, x01, y, generator):
         g_attack, g_eot, g_noise = split_generators(generator, 3)
-        frozen = _cast(state, state.params)
+        with span("train.cast"):
+            frozen = _cast(state, state.params)
 
         def logits_fn(xx):
             return apply_logits(state, frozen, xx)
@@ -550,8 +562,10 @@ def make_train_step(config: AdvTrainConfig, mean=IMAGENET_MEAN, std=IMAGENET_STD
             attack_fn = (make_eot_logits_fn(logits_fn, g_eot, n_samples=config.noise_samples,
                                             sigma=config.noise_sigma)
                          if config.noise_sigma > 0.0 else logits_fn)
-            x_adv = pgd.pgd_linf_attack(attack_fn, x01, y, eps=config.eps, alpha=config.alpha,
-                                        steps=config.attack_steps, generator=g_attack)
+            with span("attack"):
+                x_adv = pgd.pgd_linf_attack(attack_fn, x01, y, eps=config.eps,
+                                            alpha=config.alpha, steps=config.attack_steps,
+                                            generator=g_attack)
         else:
             x_adv = x01
         if config.noise_sigma > 0.0:
@@ -568,8 +582,9 @@ def make_train_step(config: AdvTrainConfig, mean=IMAGENET_MEAN, std=IMAGENET_STD
                 loss = (1.0 - config.clean_weight) * loss + config.clean_weight * clean
             return loss, adv_logits
 
-        loss, adv_logits, grads = _param_grads(total_loss, state.params)
-        return grads, {"loss": loss, "adv_accuracy": _accuracy(adv_logits, y)}
+        with span("train.forward_backward"):
+            loss, adv_logits, grads = _param_grads(total_loss, state.params)
+            return grads, {"loss": loss, "adv_accuracy": _accuracy(adv_logits, y)}
 
     return _step_with(grads_fn, config)
 
