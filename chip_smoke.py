@@ -24,6 +24,14 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    F.conv2d within the probe's 3e-2; each launch's grid (blocks, threads,
    dynamic shared memory, band rows R); then the probe's entry point, in this
    process (its launches count) and as a subprocess at its defaults.
+2c. bn_act -- the fused BatchNorm -> (add) -> ReLU kernels (bn_relu,
+   bn_add_relu, bn_bn_add_relu), forward and input gradient, at ResNet-50's
+   [128,56,56,256] and [128,14,14,1024] bf16 channels_last: the forward
+   within one bf16 ulp of the plain chain (the share that differ), the
+   backward bit-equal to the plain chain's autograd given the same forward;
+   ms of each direction against its byte bound, beside the plain chain's
+   (F.batch_norm, the add and ReLU, and their autograd backward) as the
+   library yardstick.
 3. classify -- ResNet-50 at full width, 224x224, bfloat16, random weights
    from a seed, on a batch of 128; float32 logits of the card held against
    the CPU on two images within 1e-5 relative, a limit that the same logits
@@ -621,6 +629,108 @@ def phase_kernels() -> dict:
     return res
 
 
+# the fused BatchNorm chain's shapes, NCHW of ResNet-50's [128,56,56,256]
+# and [128,14,14,1024] channels_last activations
+BN_ACT_SHAPES = ((128, 256, 56, 56), (128, 1024, 14, 14))
+
+
+# ResNet-50's fused chains a pass, each way: the stem's and two a block's
+# bn_relu, each identity block's bn_add_relu, each projecting block's
+# bn_bn_add_relu; and those of the detector's stage-3 forward (the stem and
+# layers 1-3: 13 blocks, 3 projecting)
+BN_ACT_PER_PASS = {"bn_relu": 33, "bn_add_relu": 12, "bn_bn_add_relu": 4}
+BN_ACT_PER_STAGE3 = {"bn_relu": 27, "bn_add_relu": 10, "bn_bn_add_relu": 3}
+
+
+def bn_act_passes(counts: dict, what: str) -> dict:
+    """The full forwards, stage-3 forwards and backward passes that the
+    fused chains' launches ``counts`` make up, each variant's count an exact
+    sum of whole passes; raises where they are not."""
+    back = {v: counts[v + "_backward"] for v in BN_ACT_PER_PASS}
+    n_back = back["bn_relu"] // BN_ACT_PER_PASS["bn_relu"]
+    full = (10 * counts["bn_bn_add_relu"] - 3 * counts["bn_add_relu"]) // 4
+    stage3 = (counts["bn_bn_add_relu"] - 4 * full) // 3
+    want = {v: full * n + stage3 * BN_ACT_PER_STAGE3[v] for v, n in BN_ACT_PER_PASS.items()}
+    want.update({v + "_backward": n_back * n for v, n in BN_ACT_PER_PASS.items()})
+    if min(full, stage3, n_back) < 0 or counts != want:
+        raise AssertionError(f"{what}: fused chain launches {counts} are not whole ResNet-50 "
+                             f"passes ({full} forwards, {stage3} stage-3 forwards, {n_back} "
+                             f"backward passes would launch {want})")
+    return {"forwards": full, "stage3_forwards": stage3, "backward_passes": n_back}
+
+
+def phase_bn_act() -> dict:
+    """The fused BatchNorm -> (add) -> ReLU kernels against the plain chain."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import bn_act
+    from image_recognition_adversarial_example_attack_tpu_torch.models.resnet import (
+        FrozenBatchNorm2d)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20)
+
+    def frozen_bn(c):
+        bn = FrozenBatchNorm2d(c).to(dev).requires_grad_(False).eval()
+        with torch.no_grad():
+            bn.running_mean.normal_(0.0, 0.5, generator=g)
+            bn.running_var.uniform_(0.05, 2.0, generator=g)
+            bn.weight.normal_(0.0, 1.0, generator=g)
+            bn.bias.normal_(0.0, 0.3, generator=g)
+        return bn
+
+    def act(shape):
+        return (torch.randn(shape, generator=g, device=dev) * 2).to(torch.bfloat16) \
+            .contiguous(memory_format=torch.channels_last)
+
+    res = {}
+    for shape in BN_ACT_SHAPES:
+        c = shape[1]
+        numel = math.prod(shape)
+        for variant, mode in (("bn_relu", bn_act.RELU), ("bn_add_relu", bn_act.ADD_RELU),
+                              ("bn_bn_add_relu", bn_act.BN_ADD_RELU)):
+            bn, x, grad = frozen_bn(c), act(shape), act(shape)
+            z = None if mode == bn_act.RELU else act(shape)
+            z_bn = frozen_bn(c) if mode == bn_act.BN_ADD_RELU else None
+            got = bn_act.bn_act(x, bn, z, z_bn)
+            want = bn_act.bn_act_plain(x, bn, z, z_bn)
+            diff = (got.float() - want.float()).abs()
+            ulp = torch.finfo(torch.bfloat16).eps * want.float().abs().clamp_min(2.0 ** -126)
+            if not bool((diff <= ulp).all()):
+                raise AssertionError(f"{variant} {shape}: forward beyond one bf16 ulp of the "
+                                     f"plain chain: {float(diff.max())}")
+            # the backward, given the plain chain's forward
+            xg = x.clone().requires_grad_(True)
+            zg = None if z is None else z.clone().requires_grad_(True)
+            inputs = (xg,) if zg is None else (xg, zg)
+            y = bn_act.bn_act_plain(xg, bn, zg, z_bn)
+            want_g = torch.autograd.grad(y, inputs, grad, retain_graph=True)
+            p = bn_act.plan(x, bn, z, z_bn)
+            yd = y.detach()
+            got_g = [t for t in bn_act._backward(grad, yd, p) if t is not None]
+            if not all(torch.equal(a, b) for a, b in zip(got_g, want_g)):
+                raise AssertionError(f"{variant} {shape}: backward differs from the plain "
+                                     "chain's autograd")
+            fwd_bytes, bwd_bytes = bn_act.BYTES_PER_ELEMENT[mode]
+            row = {
+                "forward_differs_share": float((diff > 0).float().mean()),
+                "backward": "bit-equal given the same forward",
+                "ms": time_ms(lambda: bn_act._forward(x, z, p)),
+                "bound_ms": fwd_bytes * numel / HBM_BYTES_PER_S * 1e3,
+                "library_ms": time_ms(lambda: bn_act.bn_act_plain(x, bn, z, z_bn)),
+                "backward_ms": time_ms(lambda: bn_act._backward(grad, yd, p)),
+                "backward_bound_ms": bwd_bytes * numel / HBM_BYTES_PER_S * 1e3,
+                "backward_library_ms": time_ms(lambda: torch.autograd.grad(
+                    y, inputs, grad, retain_graph=True)),
+            }
+            row["roofline_pct"] = 100.0 * row["bound_ms"] / row["ms"]
+            row["backward_roofline_pct"] = 100.0 * row["backward_bound_ms"] / row["backward_ms"]
+            key = f"{variant}@{shape[0]}x{shape[2]}x{shape[3]}x{c}"
+            res[key] = row
+            log(f"[bn_act] {json.dumps({'kernel': key, **row})}")
+    return res
+
+
 def conv_bound_ms(x, w, out) -> tuple[float, str, float, float]:
     """(bound, what bounds it, bytes ms, flops ms) of one 3x3 conv: each
     input read once and the output written once, against the card's memory
@@ -877,6 +987,7 @@ def phase_pgd(state: dict) -> dict:
     from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
         AttackParams, make_logits_fn, run_attack)
     from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import bn_act
     from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
 
     b, x, y = state["bundle"], state["x"], state["y"]
@@ -885,12 +996,17 @@ def phase_pgd(state: dict) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     ew.reset_launches()
+    bn_act.reset_launches()
     x_adv = run_attack("pgd", lf, x, y, params, generator_from_seed(0))
     torch.cuda.synchronize()
     counts = ew.launch_counts()
+    bn_counts = bn_act.launch_counts()
     want = {"pgd_step": STEPS, "quantize": 0, "uniform_noise": 1}
     if counts != want:
         raise AssertionError(f"PGD-10 launches {counts}, want {want}")
+    bn_passes = bn_act_passes(bn_counts, "PGD-10")
+    if bn_passes != {"forwards": STEPS, "stage3_forwards": 0, "backward_passes": STEPS}:
+        raise AssertionError(f"PGD-10 fused chain passes {bn_passes}, want {STEPS} each way")
     linf = _check_ball(x_adv, x, EPS, "pgd")
     with torch.no_grad():
         success = float((lf(x_adv).argmax(-1) != y).float().mean())
@@ -903,8 +1019,8 @@ def phase_pgd(state: dict) -> dict:
     seconds = (time.perf_counter() - t0) / runs
     ex_s = x.shape[0] / seconds
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[pgd] launches {counts}; |x_adv - x|_inf {linf:.6f} <= eps {EPS:.6f}; "
-        f"attack success {success:.3f}")
+    log(f"[pgd] launches {counts}; fused chains {bn_counts} ({bn_passes}); "
+        f"|x_adv - x|_inf {linf:.6f} <= eps {EPS:.6f}; attack success {success:.3f}")
     log(f"[pgd] PGD-10 resnet50@224 batch {x.shape[0]} bf16: {seconds * 1e3:.1f} ms "
         f"per attack, {ex_s:.1f} ex/s (mean of {runs} after a warm-up); "
         f"peak memory {peak_gib:.2f} GiB")
@@ -915,8 +1031,8 @@ def phase_pgd(state: dict) -> dict:
         + ", ".join(f"{k} {v:.1f} ms" for k, v in prof["by_layer_ms"].items()))
     for k in prof["top_kernels"][:10]:
         log(f"[pgd]   {k['ms']:8.2f} ms  x{k['count']:<4d} {k['name'][:220]}")
-    return {"launches": counts, "linf": linf, "attack_success": success,
-            "seconds_per_attack": seconds, "ex_per_s": ex_s, "peak_gib": peak_gib,
+    return {"launches": counts, "bn_act_launches": bn_counts, "linf": linf,
+            "attack_success": success, "seconds_per_attack": seconds, "ex_per_s": ex_s, "peak_gib": peak_gib,
             "profile": prof}
 
 
@@ -929,6 +1045,7 @@ def phase_cell(state: dict) -> dict:
         calibrate_feature_threshold)
     from image_recognition_adversarial_example_attack_tpu_torch.eval.defense_eval import (
         DefenseEvalConfig, aggregate_stats, evaluate_defenses_batch, summary_line)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import bn_act
     from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
 
     b, x, y = state["bundle"], state["x"], state["y"]
@@ -937,11 +1054,19 @@ def phase_cell(state: dict) -> dict:
     cfg = DefenseEvalConfig(attack_name="pgd", eps=EPS, alpha=ALPHA, steps=STEPS)
 
     ew.reset_launches()
+    bn_act.reset_launches()
     t0 = time.perf_counter()
     out = evaluate_defenses_batch(lf, ff, x, y, thr, cfg, generator_from_seed(1))
     stats = aggregate_stats(out)
     seconds = time.perf_counter() - t0
     counts = ew.launch_counts()
+    bn_counts = bn_act.launch_counts()
+    bn_passes = bn_act_passes(bn_counts, "defense cell")
+    # the attack's backward passes alone; its forwards, and at least one
+    # more forward of the model and of the detector's features
+    if bn_passes["backward_passes"] != STEPS or bn_passes["forwards"] <= STEPS \
+            or bn_passes["stage3_forwards"] < 1:
+        raise AssertionError(f"defense cell fused chain passes {bn_passes}")
     if counts["quantize"] < 1 or counts["pgd_step"] != STEPS or counts["uniform_noise"] != 1:
         raise AssertionError(f"defense cell launches {counts}")
     _check_ball(out["x_adv"], x, EPS, "cell")
@@ -949,9 +1074,10 @@ def phase_cell(state: dict) -> dict:
             not 0 <= stats[k] <= stats["count"] for k in stats):
         raise AssertionError(f"counters out of range: {stats}")
     line = summary_line("pgd", EPS, stats)
-    log(f"[cell] launches {counts}; threshold {thr:.4f}; {seconds:.2f} s")
+    log(f"[cell] launches {counts}; fused chains {bn_counts} ({bn_passes}); "
+        f"threshold {thr:.4f}; {seconds:.2f} s")
     log(line)
-    return {"launches": counts, "threshold": thr, "stats": stats,
+    return {"launches": counts, "bn_act_launches": bn_counts, "threshold": thr, "stats": stats,
             "summary_line": line, "seconds": seconds}
 
 
@@ -4442,6 +4568,7 @@ def _train_pgd_at() -> dict:
     import torch
 
     from image_recognition_adversarial_example_attack_tpu_torch.core.rng import chunk_generator
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import bn_act
     from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
     from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
     from image_recognition_adversarial_example_attack_tpu_torch.train.adversarial import (
@@ -4459,6 +4586,7 @@ def _train_pgd_at() -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ew.reset_launches()
+    bn_act.reset_launches()
     losses = []
     t0 = time.perf_counter()
     for s in range(1, TRAIN_TIMED + 1):
@@ -4467,6 +4595,14 @@ def _train_pgd_at() -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = ew.launch_counts()
+    bn_counts = bn_act.launch_counts()
+    # the attack's passes fused; the training pass's (leaf BatchNorm weights) plain
+    bn_passes = bn_act_passes(bn_counts, "PGD-AT")
+    attack_passes = TRAIN_PGD * TRAIN_TIMED
+    if bn_passes != {"forwards": attack_passes, "stage3_forwards": 0,
+                     "backward_passes": attack_passes}:
+        raise AssertionError(f"PGD-AT fused chain passes {bn_passes}, want {attack_passes} "
+                             "each way")
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = {"pgd_step": TRAIN_PGD * TRAIN_TIMED, "quantize": 0, "uniform_noise": TRAIN_TIMED}
     losses = [float(v) for v in losses]
@@ -4475,7 +4611,8 @@ def _train_pgd_at() -> dict:
         raise AssertionError(f"PGD-AT ResNet-50: launches {counts} (want {want}), losses "
                              f"{losses}, parameters finite {finite}")
     rec = {"ms_per_step": 1e3 * seconds / TRAIN_TIMED, "ex_per_s": TRAIN_B * TRAIN_TIMED / seconds,
-           "peak_gib": peak, "launches": counts, "losses": losses,
+           "peak_gib": peak, "launches": counts, "bn_act_launches": bn_counts,
+           "losses": losses,
            "grad_norm": float(m["grad_norm"]), "steps": state.step,
            "kernels": _train_kernels(x)}
     prof = profile_breakdown(lambda: step(state, x, y, chunk_generator(0, "train:0", 99)))
@@ -6169,6 +6306,7 @@ def main(argv=None) -> int:
     record["build"] = run("build", phase_build)
     record["kernels"] = run("kernels", phase_kernels)
     record["conv"] = run("conv", phase_conv)
+    record["bn_act"] = run("bn_act", phase_bn_act)
     state = run("classify", phase_classify)
     record["classify"] = {k: v for k, v in state.items() if k not in ("bundle", "x", "y")}
     record["pgd"] = run("pgd", phase_pgd, state)
@@ -6263,8 +6401,28 @@ def main(argv=None) -> int:
         "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": c["library_ms"],
     })
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import bn_act
+
+    # the fused BatchNorm chain's main path: the bf16 ResNet-50 PGD-10 of
+    # phase 4, the defense cell of phase 5 and the PGD-AT steps of phase 23,
+    # each variant's own launches, counted in each of those runs alone
+    bn_runs = (record["pgd"], record["cell"], record["train"]["a"])
+    bn_main = {k: sum(r["bn_act_launches"][k] for r in bn_runs) for k in bn_act.LAUNCHES}
+    for key, r in record["bn_act"].items():
+        variant = key.split("@")[0]
+        kernels.append({
+            "name": key, "route": "cuda", "source": f"{PKG}/csrc/bn_act.cu",
+            "replaces": "none (XLA fuses the chain on the TPU)",
+            "launches": bn_main[variant],
+            "backward_launches": bn_main[variant + "_backward"], "max_abs_err": None,
+            "forward_differs_share": r["forward_differs_share"], "ms": r["ms"],
+            "backward_ms": r["backward_ms"], "plain_ms": r["library_ms"],
+            "bound_ms": r["bound_ms"], "backward_bound_ms": r["backward_bound_ms"],
+            "bound_by": "bytes", "library_ms": r["library_ms"],
+            "backward_library_ms": r["backward_library_ms"],
+        })
     for k in kernels:
-        if k["launches"] < 1:
+        if k["launches"] < 1 or k.get("backward_launches", 1) < 1:
             raise AssertionError(f"kernel {k['name']} was not launched on the main path")
     record["kernels_line"] = kernels
     if args.out:

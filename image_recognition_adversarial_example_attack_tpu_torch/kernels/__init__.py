@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels (``csrc/``), their wrappers and plain versions:
-``elementwise`` (pgd_step, quantize, uniform noise) and ``conv3x3`` (the
-conv probe's 3x3 conv, imported from its module)."""
+``elementwise`` (pgd_step, quantize, uniform noise), ``bn_act`` (ResNet's
+fused BatchNorm -> add -> ReLU chain, forward and input gradient) and
+``conv3x3`` (the conv probe's 3x3 conv); the last two are imported from
+their modules."""
 
 from .elementwise import (LAUNCHES, launch_counts, pgd_step, pgd_step_plain,
                           quantize, quantize_plain, reset_launches,

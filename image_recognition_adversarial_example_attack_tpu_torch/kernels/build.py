@@ -62,8 +62,20 @@ CONV3X3_SIGNATURES = {
                                            ctypes.POINTER(ctypes.c_int), _P])
     for t in ("bf16", "f32")
 }
+# the extern "C" launchers of csrc/bn_act.cu: (mode, x, z, the BatchNorm's
+# mean, var, weight, bias, the residual BatchNorm's four, y, rows, channels,
+# eps, stream) and (mode, grad, y, var, weight, the residual BatchNorm's var
+# and weight, gx, gz, rows, channels, eps, stream); each returns -1 for a
+# channel count it does not take
+BN_ACT_SIGNATURES = {
+    "bn_act_forward_launch": (ctypes.c_int, [ctypes.c_int, *[_P] * 11, ctypes.c_longlong,
+                                             ctypes.c_int, ctypes.c_float, _P]),
+    "bn_act_backward_launch": (ctypes.c_int, [ctypes.c_int, *[_P] * 8, ctypes.c_longlong,
+                                              ctypes.c_int, ctypes.c_float, _P]),
+}
 # source stem under csrc/ -> its signature table
-SIGNATURES = {"elementwise": ELEMENTWISE_SIGNATURES, "conv3x3": CONV3X3_SIGNATURES}
+SIGNATURES = {"elementwise": ELEMENTWISE_SIGNATURES, "conv3x3": CONV3X3_SIGNATURES,
+              "bn_act": BN_ACT_SIGNATURES}
 
 _lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}

@@ -21,8 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import bn_act
 from ..ops.int8 import conv2d_class, linear_class
 from ..parallel.collective import coupled, sum_over_shards
+from ..utils.profiling import count
 
 
 class FrozenBatchNorm2d(nn.BatchNorm2d):
@@ -91,6 +93,25 @@ def set_train_bn(model: nn.Module, train_bn: bool) -> nn.Module:
     return model
 
 
+def bn_relu(x: torch.Tensor, bn: FrozenBatchNorm2d, residual: torch.Tensor | None = None,
+            residual_bn: FrozenBatchNorm2d | None = None) -> torch.Tensor:
+    """relu(bn(x)), relu(bn(x) + residual) or relu(bn(x) + residual_bn(residual)):
+    the ResNet chain after each conv.
+
+    One fused kernel each way (``kernels/bn_act.py``) where ``bn_act.plan``
+    takes the call, from what it observes: a CUDA bf16 channels_last tensor
+    whose BatchNorms need no gradient.  Every other call (the CPU, float32,
+    a training forward whose BatchNorm parameters are leaves) runs the
+    BatchNorm modules, the add and the ReLU as separate operations.  Counts
+    ``bn_fused`` or ``bn_plain`` into the innermost open span."""
+    plan = bn_act.plan(x, bn, residual, residual_bn)
+    if not isinstance(plan, str):
+        with count("bn_fused"):
+            return bn_act.launch(x, residual, plan)
+    with count("bn_plain"):
+        return bn_act.bn_act_plain(x, bn, residual, residual_bn)
+
+
 def _conv(cin: int, cout: int, k: int, stride: int = 1, int8: bool = False) -> nn.Conv2d:
     return conv2d_class(int8)(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
@@ -110,17 +131,18 @@ class Bottleneck(nn.Module):
         self.bn2 = FrozenBatchNorm2d(features)
         self.conv3 = _conv(features, cout, 1, int8=int8)
         self.bn3 = FrozenBatchNorm2d(cout)
-        self.relu = nn.ReLU()
         self.downsample = (nn.Sequential(_conv(cin, cout, 1, stride, int8),
                                          FrozenBatchNorm2d(cout))
                            if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
-        return self.relu(out + identity)
+        if self.downsample is None:
+            residual, residual_bn = x, None
+        else:  # the projection's conv here, its BatchNorm inside the last chain
+            residual, residual_bn = self.downsample[0](x), self.downsample[1]
+        out = bn_relu(self.conv1(x), self.bn1)
+        out = bn_relu(self.conv2(out), self.bn2)
+        return bn_relu(self.conv3(out), self.bn3, residual, residual_bn)
 
 
 class ResNet(nn.Module):
@@ -135,7 +157,6 @@ class ResNet(nn.Module):
         self.stage_sizes = tuple(stage_sizes)
         self.conv1 = _conv(3, width, 7, 2, int8)
         self.bn1 = FrozenBatchNorm2d(width)
-        self.relu = nn.ReLU()
         self.maxpool = nn.MaxPool2d(3, stride=2, padding=1)
         cin = width
         for stage, n_blocks in enumerate(self.stage_sizes):
@@ -153,7 +174,7 @@ class ResNet(nn.Module):
         return [getattr(self, f"layer{s + 1}") for s in range(len(self.stage_sizes))]
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:
-        return self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        return self.maxpool(bn_relu(self.conv1(x), self.bn1))
 
     def _features(self, x: torch.Tensor, upto: int) -> torch.Tensor:
         x = self.stem(x)

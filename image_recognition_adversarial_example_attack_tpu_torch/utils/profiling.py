@@ -2,10 +2,11 @@
 ``utils/profiling.py``), ``device_timer`` for one block, and the program's
 spans and counters.
 
-**Spans.** ``span(name)`` opens a layer span, ``count(name)`` wraps a call
-that waits on the device.  Both record only while a ``torch.profiler``
-session records (``torch.autograd._profiler_enabled()``): the benchmark's
-traced stretch and every CLI's ``--profile-dir``.  Otherwise they cost that
+**Spans.** ``span(name)`` opens a layer span, ``count(name)`` wraps an
+event: a call that waits on the device, or a route the program took.  Both
+record only while a ``torch.profiler`` session records
+(``torch.autograd._profiler_enabled()``): the benchmark's traced stretch
+and every CLI's ``--profile-dir``.  Otherwise they cost that
 one check, allocate nothing and return one shared no-op context.  Nothing
 reaches the profiler's own event list: a span is no ``record_function``,
 whose copy on the device's timeline a trace reader would count as a device
@@ -20,12 +21,16 @@ such span on each card synchronizes that card once and records an origin
 event at a known host time, so ``spans()`` gives device intervals on the
 host's clock.
 
-**Counters.** ``count("syncs")`` adds one, and the host seconds its block
-took, to the innermost open span of its thread.  The program counts where it
-waits on the device itself: a copy from host memory that is not
-``non_blocking``, ``.item()``, ``.tolist()``, ``float``/``int``/``bool`` of
-a device tensor, an explicit synchronize.  A count with no open span is
-dropped; every call site in the program lies inside a span of its own.
+**Counters.** ``count(name)`` adds one, and the host seconds its block
+took, to counter ``name`` of the innermost open span of its thread.
+``count("syncs")`` marks where the program waits on the device itself: a
+copy from host memory that is not ``non_blocking``, ``.item()``,
+``.tolist()``, ``float``/``int``/``bool`` of a device tensor, an explicit
+synchronize.  ``count("bn_fused")`` and ``count("bn_plain")`` mark each
+ResNet BatchNorm chain (``models/resnet.py::bn_relu``) by the route it
+took, around its call.  A count with no open span is dropped; every
+``syncs`` call site lies inside a span of its own, and the models run inside
+``model.net`` on the attack, defense and training paths.
 
 ``cli/common.py::maybe_profile`` writes the log as ``spans.json`` beside
 its Chrome trace.
@@ -153,9 +158,10 @@ def span(name: str):
 
 
 def count(name: str, on: bool = True):
-    """A context around one call that waits on the device: while a profiler
-    session records and ``on`` holds, its end adds one and the block's host
-    seconds to counter ``name`` of the innermost open span."""
+    """A context around one event (a call that waits on the device, a route
+    taken): while a profiler session records and ``on`` holds, its end adds
+    one and the block's host seconds to counter ``name`` of the innermost
+    open span."""
     if not (on and _recording()):
         return _NOOP
     return _Count(name)
