@@ -1,5 +1,5 @@
-"""Swin Transformer in PyTorch (port of ``models/swin.py``): ``swin_t`` and
-``swin_tiny_test``.
+"""Swin Transformer in PyTorch (port of ``models/swin.py``): ``swin_t``,
+``swin_tiny_test``, and ``swin_l``, which the JAX package does not have.
 
 Submodules carry torchvision's names: ``features.0.{0,2}`` the patch conv and
 its LayerNorm, ``features.{1,3,5,7}.B`` the blocks of stages 1-4
@@ -8,7 +8,8 @@ its LayerNorm, ``features.{1,3,5,7}.B`` the blocks of stages 1-4
 (``reduction``, ``norm``), then ``norm`` and ``head``.  Each attention holds
 torchvision's buffer ``relative_position_index`` (the flattened static
 index, which the JAX converter skips), so a torchvision ``.pth`` loads with
-``strict=True``.
+``strict=True``; a state dict that leaves the index out loads too, and one
+whose index is not the window's raises.
 
 As the JAX model computes it: feature maps NHWC between blocks; a block's
 windowed attention rolls the map by (-s, -s) on odd blocks and back, with
@@ -17,6 +18,14 @@ the map is no larger than one window (``models/swin.py:78``); the relative
 position bias is gathered from the table by the static index; patch merging
 concatenates x0, x1, x2, x3 (``:173-177``); LayerNorm eps 1e-5 in float32;
 GELU in its erf form.
+
+Spans (``utils/profiling.py``, recorded only under a profiler session) tile
+a forward: ``swin.embed`` (the patch conv and its LayerNorm), per block
+``swin.attn`` (norm1, the window attention, its residual add) and
+``swin.mlp`` (norm2, the MLP, its residual add), ``swin.merge`` per patch
+merging, and ``swin.head`` (the final LayerNorm, the mean and the head).
+Each window attention counts ``window_attn.shifted`` or
+``window_attn.plain`` into its block's span, by whether it rolled the map.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.int8 import conv2d_class, linear_class
+from ..utils.profiling import count, span
 from .vit import LayerNorm, attention, merge_heads, split_heads
 
 
@@ -82,11 +92,34 @@ class WindowAttention(nn.Module):
                 device=like.device, dtype=like.dtype)
         return self._masks[key]
 
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, strict, missing_keys,
+                              unexpected_keys, error_msgs):
+        """The static index stays the window's own: a state dict may leave it
+        out (one drawn from float leaves alone), and one that carries an index
+        other than the window's is an error, which names the key."""
+        key = prefix + "relative_position_index"
+        given = state_dict.get(key)
+        if given is not None:
+            own = self.relative_position_index
+            if given.shape != own.shape or not torch.equal(given.to(own), own):
+                error_msgs.append(f"{key}: not the static relative position index of a "
+                                  f"{self.window}x{self.window} window")
+            state_dict = {k: v for k, v in state_dict.items() if k != key}
+        super()._load_from_state_dict(state_dict, prefix, local_metadata, strict, missing_keys,
+                                      unexpected_keys, error_msgs)
+        if key in missing_keys:
+            missing_keys.remove(key)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B, H, W, C] -> [B, H, W, C]."""
+        _, h, w, _ = x.shape
+        sh = 0 if (h <= self.window and w <= self.window) else self.shift
+        with count("window_attn.shifted" if sh > 0 else "window_attn.plain"):
+            return self._attend(x, sh)
+
+    def _attend(self, x: torch.Tensor, sh: int) -> torch.Tensor:
         b, h, w, c = x.shape
         ws, nh = self.window, self.num_heads
-        sh = 0 if (h <= ws and w <= ws) else self.shift
         if sh > 0:
             x = torch.roll(x, shifts=(-sh, -sh), dims=(1, 2))
         # partition into [B * nW, ws*ws, C]
@@ -124,8 +157,10 @@ class SwinBlock(nn.Module):
                                  dense(dim * mlp_ratio, dim), nn.Identity())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+        with span("swin.attn"):
+            x = x + self.attn(self.norm1(x))
+        with span("swin.mlp"):
+            return x + self.mlp(self.norm2(x))
 
 
 class PatchMerging(nn.Module):
@@ -137,9 +172,10 @@ class PatchMerging(nn.Module):
         self.norm = LayerNorm(4 * dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]],
-                      dim=-1)
-        return self.reduction(self.norm(x))
+        with span("swin.merge"):
+            x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
+                           x[:, 1::2, 1::2]], dim=-1)
+            return self.reduction(self.norm(x))
 
 
 class PatchEmbed(nn.Sequential):
@@ -150,7 +186,8 @@ class PatchEmbed(nn.Sequential):
                          nn.Identity(), LayerNorm(dim, eps=1e-5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self[2](self[0](x).permute(0, 2, 3, 1))
+        with span("swin.embed"):
+            return self[2](self[0](x).permute(0, 2, 3, 1))
 
 
 class SwinTransformer(nn.Module):
@@ -176,12 +213,24 @@ class SwinTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """[B,3,H,W] normalized input -> [B,num_classes] logits."""
-        x = self.norm(self.features(x))  # [B, h, w, C]
-        return self.head(x.mean(dim=(1, 2)))
+        x = self.features(x)  # [B, h, w, C]
+        with span("swin.head"):
+            return self.head(self.norm(x).mean(dim=(1, 2)))
 
 
 def swin_t(num_classes: int = 1000, int8: bool = False) -> SwinTransformer:
     return SwinTransformer(num_classes=num_classes, int8=int8)
+
+
+def swin_l(num_classes: int = 1000, int8: bool = False) -> SwinTransformer:
+    """Swin-L (Liu et al., ICCV 2021, §3.3): C = 192, layer numbers 2-2-18-2,
+    6-12-24-48 heads of 32, window 7, MLP ratio 4; 196,532,476 parameters
+    at 1000 classes.  At 224² stage 4's 7x7 map is one window, so its two
+    blocks do not shift: 11 shifted and 13 plain window attentions a
+    forward."""
+    return SwinTransformer(patch_size=4, embed_dim=192, depths=(2, 2, 18, 2),
+                           num_heads=(6, 12, 24, 48), window=7, num_classes=num_classes,
+                           int8=int8)
 
 
 def swin_tiny_test(num_classes: int = 10, int8: bool = False) -> SwinTransformer:

@@ -4,10 +4,12 @@ of its names, the ``resnet50``, ``resnet50_robust``, ``resnet_tiny`` and
 ``vit_b_16``, ``swin_t``, ``efficientnet_b0``, ``mobilenet_v2`` and
 ``convnext_tiny``, the CIFAR family's ``wrn28_10``, ``wrn34_10``,
 ``wrn_tiny``, ``preact_resnet18`` and ``wrn28_10_robust``, and the certified
-family's ``ibp_cnn7`` and ``ibp_tiny``).  ``model_meta`` gives each name the
-JAX zoo's input size and normalization: 32x32 and the CIFAR-10 statistics
-for the CIFAR family (mean 0 / std 1 for ``wrn28_10_robust`` and the IBP
-nets), 224x224 and the ImageNet statistics otherwise.
+family's ``ibp_cnn7`` and ``ibp_tiny``), and ``PORT_ONLY``, the names the JAX
+zoo lacks: ``swin_l``, Swin-L at its published widths (``models/swin.py``).
+``model_meta`` gives each name the JAX zoo's input size and normalization:
+32x32 and the CIFAR-10 statistics for the CIFAR family (mean 0 / std 1 for
+``wrn28_10_robust`` and the IBP nets), 224x224 and the ImageNet statistics
+otherwise (the port-only names too).
 
 Weight resolution for ``load_model(name)``, the JAX zoo's order:
 
@@ -29,7 +31,7 @@ converted weights as a Flax msgpack file to
 (``source="cache"``) in either package; ``cli/import_weights.py`` loads with
 ``cache_converted=False`` and writes the file itself.  A ``.pth`` is
 refused (ValueError) for a name that the JAX package has no converter for
-(``CONVERTIBLE``: not ``tiny``, ``wrn_tiny`` or the IBP nets).
+(``CONVERTIBLE``: not ``tiny``, ``wrn_tiny``, the IBP nets or ``swin_l``).
 
 The random init draws Flax's default distributions (LeCun-normal kernels,
 the packed qkv projection's with fan-in D; unit BatchNorm and LayerNorm
@@ -80,7 +82,7 @@ from .ibp import IBPNet, ibp_cnn7, ibp_tiny
 from .mobilenet import mobilenet_v2
 from .preactresnet import preact_resnet18
 from .resnet import FrozenBatchNorm2d, resnet50, resnet_tiny
-from .swin import WindowAttention, swin_t
+from .swin import WindowAttention, swin_l, swin_t
 from .tiny import TinyCNN
 from .vgg import vgg19
 from .vit import Encoder, LayerNorm, SelfAttention, ViT, vit_b_16
@@ -130,7 +132,13 @@ _REGISTRY: dict[str, tuple[str, Callable[..., nn.Module]]] = {
     # logits under an L-inf ball are bounded in closed form (defenses/ibp.py)
     "ibp_cnn7": ("ibp", ibp_cnn7),
     "ibp_tiny": ("ibp", ibp_tiny),
+    # port-only (PORT_ONLY): Swin-L, the ImageNet-224 defaults
+    "swin_l": ("swin", swin_l),
 }
+
+# the registered names that the JAX zoo does not have
+PORT_ONLY = ("swin_l",)
+
 
 def register(name: str, family: str):
     """A decorator adding a model constructor to the registry under

@@ -328,8 +328,10 @@ def test_state_dict_keys_pass_through_the_jax_rename(name):
 
 
 def test_zoo_names_and_meta_equal_the_jax_zoos():
-    assert zoo.list_models() == jax_zoo.list_models()
-    assert len(zoo.list_models()) == 18
+    # the port's names are the JAX zoo's and its port-only ones (Swin-L)
+    assert zoo.list_models() == sorted(jax_zoo.list_models() + list(zoo.PORT_ONLY))
+    assert not set(zoo.PORT_ONLY) & set(jax_zoo.list_models())
+    assert len(zoo.list_models()) == 19
     for name in jax_zoo.list_models():
         ours, theirs = zoo.model_meta(name), jax_zoo.model_meta(name)
         assert ours.keys() == theirs.keys()
