@@ -31,7 +31,16 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    backward bit-equal to the plain chain's autograd given the same forward;
    ms of each direction against its byte bound, beside the plain chain's
    (F.batch_norm, the add and ReLU, and their autograd backward) as the
-   library yardstick.
+   library yardstick.  Then, in the same phase, Swin's shifted-window
+   attention pair at Swin-L's four stage shapes at batch 128 (qkv
+   [128,56,56,576] .. [128,7,7,4608], bf16, window 7): forward and dqkv
+   against the plain version within the card tests' bf16 tolerances; ms of
+   each direction against its byte bound, beside the written-out attention
+   the model ran before (roll, partition, heads, bias, attention and back:
+   the plain yardstick) and SDPA with the bias mask on the partitioned
+   layout (library_ms; the port never calls it); and one Swin-T PGD step
+   and prediction at batch 8, whose launches must be one a block each way (a
+   check of the route; the kernels line counts phases 12 and 13's runs).
 3. classify -- ResNet-50 at full width, 224x224, bfloat16, random weights
    from a seed, on a batch of 128; float32 logits of the card held against
    the CPU on two images within 1e-5 relative, a limit that the same logits
@@ -102,10 +111,14 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    reading printed beside it), the bf16 forward's ms at batch 128, bf16 vs
    float32 top-1 agreement on the batch (printed, not gated), the bytes of
    the parameters, and a profile of DenseNet's bf16 forward (its channel
-   concatenations).
+   concatenations).  Each family's window attention launches are counted
+   from its float32 card run to its bf16 timing: Swin-T's must be 7 bf16
+   forwards' (one a block; float32 takes none), the others' none.  Then
+   PGD-10 on the bf16 Swin-T at batch 128: 10 forwards' and 10 backward
+   passes' window attention launches, x_adv in the eps-ball.
 13. transfer -- (a) ``transfer_attack_batch`` with pgd-20 from the bf16
    ResNet-50 to the four families at batch 128: exactly 20 pgd_step and 1
-   noise launches, x_adv in the eps-ball and [0,1], success vectors in {0,1},
+   noise launches, one Swin-T forward's window attention launches, x_adv in the eps-ball and [0,1], success vectors in {0,1},
    its seconds, the seconds by model and a profile; (b) the same from the
    ResNet-50 + DenseNet-121 logit ensemble to VGG19, ViT and Swin; (c) the
    blackbox_transfer CLI in a subprocess at its defaults (fgsm, pgd, cw-200;
@@ -660,7 +673,8 @@ def bn_act_passes(counts: dict, what: str) -> dict:
 
 
 def phase_bn_act() -> dict:
-    """The fused BatchNorm -> (add) -> ReLU kernels against the plain chain."""
+    """The fused BatchNorm -> (add) -> ReLU kernels against the plain chain;
+    then Swin's window attention pair (``window_attn_rows``)."""
     import torch
 
     from image_recognition_adversarial_example_attack_tpu_torch.kernels import bn_act
@@ -728,6 +742,155 @@ def phase_bn_act() -> dict:
             key = f"{variant}@{shape[0]}x{shape[2]}x{shape[3]}x{c}"
             res[key] = row
             log(f"[bn_act] {json.dumps({'kernel': key, **row})}")
+    res["window_attn"] = window_attn_rows()
+    return res
+
+
+# Swin-L's four stages at 224², batch 128: (map side, heads, the shift of
+# the stage's odd blocks; stage 4's one window does not shift); window 7
+WINDOW_ATTN_STAGES = ((56, 6, 3), (28, 12, 3), (14, 24, 3), (7, 48, 0))
+WINDOW_ATTN_BATCH = 128
+
+
+def _written_window_attention(qkv, table, index, mask, heads: int, window: int, shift: int):
+    """The attention of ``WindowAttention._attend`` between its qkv and proj
+    linears, on a qkv map: what the model ran before the kernel pair (roll,
+    partition, head split, bias gather and seam mask, ``attention``, head
+    merge, the partition reversed, the roll back)."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.models.vit import (
+        attention, merge_heads, split_heads)
+
+    b, h, w, c3 = qkv.shape
+    t, nw, ws = window * window, (h // window) * (w // window), window
+    if shift:
+        qkv = torch.roll(qkv, shifts=(-shift, -shift), dims=(1, 2))
+    x = qkv.reshape(b, h // ws, ws, w // ws, ws, c3).permute(0, 1, 3, 2, 4, 5)
+    q, k, v = (p.reshape(b, nw, heads, t, -1)
+               for p in split_heads(x.reshape(b * nw, t, c3), heads))
+    bias = table[index].reshape(t, t, heads).permute(2, 0, 1)
+    if shift:
+        bias = bias + mask[:, None]
+    out = merge_heads(attention(q, k, v, bias).reshape(b * nw, heads, t, -1))
+    out = out.reshape(b, h // ws, w // ws, ws, ws, c3 // 3).permute(0, 1, 3, 2, 4, 5)
+    out = out.reshape(b, h, w, c3 // 3)
+    return torch.roll(out, shifts=(shift, shift), dims=(1, 2)) if shift else out
+
+
+# Swin-T's blocks (2 + 2 + 6 + 2): one window attention launch a block each
+# way in a pass
+SWIN_T_BLOCKS = 12
+
+
+def window_attn_passes(counts: dict, what: str) -> dict:
+    """The Swin-T forwards and backward passes that the window attention
+    launches ``counts`` make up; raises where they are not whole passes."""
+    fwd, back = counts["window_attn"], counts["window_attn_backward"]
+    if fwd % SWIN_T_BLOCKS or back % SWIN_T_BLOCKS:
+        raise AssertionError(f"{what}: window attention launches {counts} are not whole Swin-T "
+                             f"passes ({SWIN_T_BLOCKS} blocks)")
+    return {"forwards": fwd // SWIN_T_BLOCKS, "backward_passes": back // SWIN_T_BLOCKS}
+
+
+def window_attn_rows() -> dict:
+    """Swin's window attention kernel pair at Swin-L's stage shapes against
+    the plain version, the written-out attention and SDPA, and the launches
+    of a Swin-T PGD step and prediction (part of phase 2c)."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks.api import (
+        make_logits_fn)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import window_attn
+    from image_recognition_adversarial_example_attack_tpu_torch.models import swin
+    from image_recognition_adversarial_example_attack_tpu_torch.models.zoo import load_model
+
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels.window_attn import (
+        BACKWARD_REL_TOL, FORWARD_REL_TOL)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels.window_attn import (
+        rel_l2 as _rel)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(22)
+    ws, b = 7, WINDOW_ATTN_BATCH
+    index = torch.from_numpy(swin.relative_position_index(ws).reshape(-1)).to(dev)
+    res: dict = {"stages": {}}
+    for side, heads, shift in WINDOW_ATTN_STAGES:
+        c = heads * 32
+        qkv = torch.randn((b, side, side, 3 * c), generator=g, device=dev).to(torch.bfloat16)
+        table = (torch.randn(((2 * ws - 1) ** 2, heads), generator=g, device=dev)
+                 * 0.02).to(torch.bfloat16)
+        dout = torch.randn((b, side, side, c), generator=g, device=dev).to(torch.bfloat16)
+        mask = torch.from_numpy(swin.shift_attn_mask(side, side, ws, shift)).to(dev) \
+            .to(torch.bfloat16) if shift else None
+        p = (side, side, c, heads, ws, shift)
+        got = window_attn._forward(qkv, table, p)
+        want = window_attn.window_attn_plain(qkv, table, heads, ws, shift)
+        written = _written_window_attention(qkv, table, index, mask, heads, ws, shift)
+        qp = qkv.clone().requires_grad_(True)
+        want_g = torch.autograd.grad(window_attn.window_attn_plain(qp, table, heads, ws, shift),
+                                     qp, dout)[0]
+        got_g = window_attn._backward(qkv, table, dout, p)
+        row = {"forward_rel": _rel(got, want), "backward_rel": _rel(got_g, want_g),
+               "written_rel": _rel(written, want)}
+        del want, want_g, written
+        if not (row["forward_rel"] < FORWARD_REL_TOL and row["backward_rel"] < BACKWARD_REL_TOL):
+            raise AssertionError(f"window_attn at {side}x{side}, {heads} heads: {row} beyond "
+                                 f"{FORWARD_REL_TOL}, {BACKWARD_REL_TOL} of the plain version")
+        # the written-out attention, forward and its autograd backward
+        qw = qkv.clone().requires_grad_(True)
+        yw = _written_window_attention(qw, table, index, mask, heads, ws, shift)
+        # SDPA with the bias (and mask) on the partitioned layout [B, nW, heads, T, 32]
+        # of the rolled map, made before the timing
+        nw, t = (side // ws) ** 2, ws * ws
+        rolled = torch.roll(qkv, shifts=(-shift, -shift), dims=(1, 2)) if shift else qkv
+        part = rolled.reshape(b, side // ws, ws, side // ws, ws, 3, heads, 32) \
+            .permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b, nw, heads, t, 32)
+        qs, ks, vs = (x.contiguous().requires_grad_(True) for x in part)
+        bias = table[index].reshape(t, t, heads).permute(2, 0, 1)
+        bias = (bias + mask[:, None] if shift else bias.expand(nw, heads, t, t)).contiguous()
+        ys = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias)
+        dys = dout.reshape(b, side // ws, ws, side // ws, ws, heads, 32) \
+            .permute(0, 1, 3, 5, 2, 4, 6).reshape(b, nw, heads, t, 32).contiguous()
+        tokens_c = b * side * side * c
+        fwd_bytes, bwd_bytes = window_attn.BYTES_PER_TOKEN_CHANNEL
+        row.update({
+            "ms": time_ms(lambda: window_attn._forward(qkv, table, p)),
+            "bound_ms": fwd_bytes * tokens_c / HBM_BYTES_PER_S * 1e3,
+            "plain_ms": time_ms(lambda: _written_window_attention(qkv, table, index, mask, heads,
+                                                                  ws, shift)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                                         attn_mask=bias)),
+            "backward_ms": time_ms(lambda: window_attn._backward(qkv, table, dout, p)),
+            "backward_bound_ms": bwd_bytes * tokens_c / HBM_BYTES_PER_S * 1e3,
+            "backward_plain_ms": time_ms(lambda: torch.autograd.grad(yw, qw, dout,
+                                                                     retain_graph=True)),
+            "backward_library_ms": time_ms(lambda: torch.autograd.grad(
+                ys, (qs, ks, vs), dys, retain_graph=True)),
+        })
+        row["roofline_pct"] = 100.0 * row["bound_ms"] / row["ms"]
+        row["backward_roofline_pct"] = 100.0 * row["backward_bound_ms"] / row["backward_ms"]
+        key = f"window_attn@{b}x{side}x{side}x{3 * c}"
+        res["stages"][key] = row
+        log(f"[window_attn] {json.dumps({'kernel': key, 'shift': shift, **row})}")
+        del qkv, dout, got, got_g, qw, yw, qs, ks, vs, ys, dys
+    # Swin-T (12 blocks, head dim 32, window 7) through the attack's logits
+    # function: a PGD step's forward and input gradient, then a prediction
+    bundle = load_model("swin_t", dtype=torch.bfloat16, device=dev)
+    lf = make_logits_fn(bundle.model, bundle.mean, bundle.std, input_dtype=torch.bfloat16)
+    x = torch.rand((8, 224, 224, 3), generator=g, device=dev).requires_grad_(True)
+    y = torch.randint(0, 1000, (8,), generator=g, device=dev)
+    window_attn.reset_launches()
+    torch.autograd.grad(F.cross_entropy(lf(x), y), x)
+    with torch.no_grad():
+        lf(x)
+    counts = window_attn.launch_counts()
+    if counts != {"window_attn": 24, "window_attn_backward": 12}:
+        raise AssertionError(f"swin_t PGD step and prediction launched {counts}, not 12 "
+                             "blocks' kernels in two forwards and one backward pass")
+    res["launches"] = counts
+    log(f"[window_attn] swin_t PGD step + prediction at batch 8: launches {counts}")
     return res
 
 
@@ -1747,6 +1910,7 @@ def phase_families(state: dict) -> dict:
 
     from image_recognition_adversarial_example_attack_tpu_torch.cli.common import make_fns
     from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import window_attn
     from image_recognition_adversarial_example_attack_tpu_torch.models import load_model
 
     x, batch = state["x"], state["x"].shape[0]
@@ -1754,6 +1918,7 @@ def phase_families(state: dict) -> dict:
     res: dict = {}
     state["bf16"], state["f32"] = {}, {}
     for name in FAMILIES:
+        window_attn.reset_launches()
         t0 = time.perf_counter()
         cpu = load_model(name, dtype=torch.float32, device="cpu")
         with torch.no_grad():
@@ -1785,19 +1950,28 @@ def phase_families(state: dict) -> dict:
             ms = time_ms(lambda: lf(x), iters=5, warmup=1)
         if logits.shape != (batch, 1000) or not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{name}: bf16 logits {tuple(logits.shape)}, not all finite")
+        # the float32 runs take no window attention kernel; the bf16 forward
+        # and its timing (1 + 1 + 5 calls) one a block
+        wa = window_attn.launch_counts()
+        wa_want = {"forwards": 7 if name == "swin_t" else 0, "backward_passes": 0}
+        if window_attn_passes(wa, f"{name} forwards") != wa_want:
+            raise AssertionError(f"{name}: window attention launches {wa}, want {wa_want} "
+                                 "Swin-T passes")
         agree = float((logits.argmax(-1) == top1_32).float().mean())
         res[name] = {"f32_card_vs_cpu_rel": f32_err, "tf32_card_vs_cpu_rel": tf32_err,
                      "bf16_forward_ms": ms, "bf16_img_s": batch / ms * 1e3,
                      "bf16_vs_f32_top1_agreement": agree,
                      "param_bytes_f32": _param_bytes(card32.model),
-                     "param_bytes_bf16": _param_bytes(b.model), "cpu_load_and_forward_s": cpu_s}
+                     "param_bytes_bf16": _param_bytes(b.model), "cpu_load_and_forward_s": cpu_s,
+                     "window_attn_launches": wa}
         state["bf16"][name], state["f32"][name] = b, card32
         r = res[name]
         log(f"[families] {name}: float32 card vs CPU {f32_err:.3e} of max |logit| {scale:.3e} "
             f"(limit {F32_REL_TOL:.0e}; TF32 allowed {tf32_err:.3e}); bf16 forward batch "
             f"{batch} {ms:.2f} ms ({r['bf16_img_s']:.1f} img/s); bf16 vs float32 top-1 "
             f"agreement {agree:.3f}; parameters {r['param_bytes_f32'] / 1e6:.1f} MB float32, "
-            f"{r['param_bytes_bf16'] / 1e6:.1f} MB bf16")
+            f"{r['param_bytes_bf16'] / 1e6:.1f} MB bf16; window attention launches {wa}")
+    res["swin_t"]["pgd"] = _swin_t_pgd(state["bf16"]["swin_t"], x, state["y"])
     # DenseNet's concatenations on channels_last tensors: which kernels they take
     lf = make_fns(state["bf16"]["densenet121"])[0]
     with torch.no_grad():
@@ -1809,6 +1983,36 @@ def phase_families(state: dict) -> dict:
     for k in prof["top_kernels"][:8]:
         log(f"[families]   {k['ms']:8.2f} ms  x{k['count']:<4d} {k['name'][:200]}")
     return res
+
+
+def _swin_t_pgd(bundle, x, y) -> dict:
+    """PGD-10 on the bf16 Swin-T, its window attention launches counted:
+    one a block in each of the 10 forwards and 10 backward passes."""
+    import torch
+
+    from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
+        AttackParams, make_logits_fn, run_attack)
+    from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import window_attn
+
+    lf = make_logits_fn(bundle.model, bundle.mean, bundle.std, input_dtype=torch.bfloat16)
+    params = AttackParams(eps=EPS, alpha=ALPHA, steps=STEPS, random_start=True)
+    window_attn.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_adv = run_attack("pgd", lf, x, y, params, generator_from_seed(0))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = window_attn.launch_counts()
+    passes = window_attn_passes(counts, "swin_t PGD-10")
+    if passes != {"forwards": STEPS, "backward_passes": STEPS}:
+        raise AssertionError(f"swin_t PGD-10: window attention passes {passes}, want {STEPS} "
+                             "each way")
+    linf = _check_ball(x_adv, x, EPS, "swin_t pgd")
+    log(f"[families] PGD-10 on swin_t bf16 batch {x.shape[0]}: window attention launches "
+        f"{counts} ({passes}); {seconds:.3f} s first ({x.shape[0] / seconds:.1f} ex/s); "
+        f"|x_adv - x|_inf {linf:.6f}")
+    return {"window_attn_launches": counts, "seconds_first": seconds, "linf": linf}
 
 
 def _timed(fn, name: str, acc: dict):
@@ -1835,9 +2039,11 @@ def _transfer_cell(name: str, src, targets: dict, x) -> dict:
     from image_recognition_adversarial_example_attack_tpu_torch.eval.transfer import (
         asr, transfer_attack_batch)
     from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import window_attn
 
     params = AttackParams(eps=EPS, alpha=ALPHA, steps=TRANSFER_STEPS)
     ew.reset_launches()
+    window_attn.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cell = transfer_attack_batch(src, targets, x, "pgd", params, generator_from_seed(0))
@@ -1847,6 +2053,11 @@ def _transfer_cell(name: str, src, targets: dict, x) -> dict:
     want = {"pgd_step": TRANSFER_STEPS, "quantize": 0, "uniform_noise": 1}
     if counts != want:
         raise AssertionError(f"{name}: launches {counts}, want {want}")
+    # the Swin-T target's one forward on x_adv
+    wa = window_attn.launch_counts()
+    wa_want = {"forwards": int("swin_t" in targets), "backward_passes": 0}
+    if window_attn_passes(wa, name) != wa_want:
+        raise AssertionError(f"{name}: window attention launches {wa}, want {wa_want} passes")
     linf = _check_ball(cell.x_adv, x, EPS, name)
     vecs = {"source": cell.source_success, **cell.target_success}
     for k, v in vecs.items():
@@ -1866,15 +2077,16 @@ def _transfer_cell(name: str, src, targets: dict, x) -> dict:
     by_model = {**acc, "source backward and the rest": total - sum(acc.values())}
     prof = profile_breakdown(lambda: transfer_attack_batch(src, targets, x, "pgd", params,
                                                            generator_from_seed(0)))
-    log(f"[transfer] {name}: launches {counts}; {seconds:.3f} s for batch {x.shape[0]}; "
+    log(f"[transfer] {name}: launches {counts}; window attention {wa}; {seconds:.3f} s for "
+        f"batch {x.shape[0]}; "
         f"|x_adv - x|_inf {linf:.6f}; ASR " + ", ".join(f"{k} {v:.3f}" for k, v in rates.items()))
     log(f"[transfer] {name}: timed by model ({total:.3f} s): " + ", ".join(
         f"{k} {v:.3f} s" for k, v in by_model.items()))
     log(f"[transfer] {name}: profile: wall {prof['wall_ms']:.1f} ms, busy {prof['busy_ms']:.1f} "
         f"ms ({prof['busy_share']:.3f}), {prof['kernels']} kernels; " + ", ".join(
             f"{k} {v:.1f} ms" for k, v in prof["by_layer_ms"].items()))
-    return {"launches": counts, "seconds": seconds, "linf": linf, "asr": rates,
-            "by_model_s": by_model, "timed_total_s": total, "profile": prof}
+    return {"launches": counts, "window_attn_launches": wa, "seconds": seconds, "linf": linf,
+            "asr": rates, "by_model_s": by_model, "timed_total_s": total, "profile": prof}
 
 
 def _start_cli_module(module: str, *args: str, env: dict | None = None) -> tuple:
@@ -6409,6 +6621,8 @@ def main(argv=None) -> int:
     bn_runs = (record["pgd"], record["cell"], record["train"]["a"])
     bn_main = {k: sum(r["bn_act_launches"][k] for r in bn_runs) for k in bn_act.LAUNCHES}
     for key, r in record["bn_act"].items():
+        if key == "window_attn":
+            continue
         variant = key.split("@")[0]
         kernels.append({
             "name": key, "route": "cuda", "source": f"{PKG}/csrc/bn_act.cu",
@@ -6420,6 +6634,29 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"], "backward_bound_ms": r["backward_bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"],
             "backward_library_ms": r["backward_library_ms"],
+        })
+    # Swin's window attention pair's main path: phase 12's bf16 Swin-T
+    # forwards and its PGD-10, and the Swin-T target of phase 13's two pgd-20
+    # transfer cells, each counted alone (phase 2c's Swin-T step only checks
+    # the route)
+    from image_recognition_adversarial_example_attack_tpu_torch.kernels import window_attn
+
+    swin_t = record["families"]["swin_t"]
+    wa_runs = (swin_t, swin_t["pgd"], record["transfer"]["cell"],
+               record["transfer"]["ensemble"])
+    wa_main = {k: sum(r["window_attn_launches"][k] for r in wa_runs)
+               for k in window_attn.LAUNCHES}
+    for key, r in record["bn_act"]["window_attn"]["stages"].items():
+        kernels.append({
+            "name": key, "route": "cuda", "source": f"{PKG}/csrc/window_attn.cu",
+            "replaces": "none (XLA compiles the JAX Swin's window attention on the TPU)",
+            "launches": wa_main["window_attn"],
+            "backward_launches": wa_main["window_attn_backward"], "max_abs_err": None,
+            "forward_rel": r["forward_rel"], "backward_rel": r["backward_rel"], "ms": r["ms"],
+            "backward_ms": r["backward_ms"], "plain_ms": r["plain_ms"],
+            "backward_plain_ms": r["backward_plain_ms"], "bound_ms": r["bound_ms"],
+            "backward_bound_ms": r["backward_bound_ms"], "bound_by": "bytes",
+            "library_ms": r["library_ms"], "backward_library_ms": r["backward_library_ms"],
         })
     for k in kernels:
         if k["launches"] < 1 or k.get("backward_launches", 1) < 1:

@@ -73,9 +73,17 @@ BN_ACT_SIGNATURES = {
     "bn_act_backward_launch": (ctypes.c_int, [ctypes.c_int, *[_P] * 8, ctypes.c_longlong,
                                               ctypes.c_int, ctypes.c_float, _P]),
 }
+# the extern "C" launchers of csrc/window_attn.cu: (qkv, table, out, batch,
+# height, width, channels, heads, window, shift, stream) and (qkv, table,
+# grad_out, grad_qkv, the same seven ints, stream); each returns -1 for a
+# shape it does not take
+WINDOW_ATTN_SIGNATURES = {
+    "window_attn_forward_launch": (ctypes.c_int, [*[_P] * 3, *[ctypes.c_int] * 7, _P]),
+    "window_attn_backward_launch": (ctypes.c_int, [*[_P] * 4, *[ctypes.c_int] * 7, _P]),
+}
 # source stem under csrc/ -> its signature table
 SIGNATURES = {"elementwise": ELEMENTWISE_SIGNATURES, "conv3x3": CONV3X3_SIGNATURES,
-              "bn_act": BN_ACT_SIGNATURES}
+              "bn_act": BN_ACT_SIGNATURES, "window_attn": WINDOW_ATTN_SIGNATURES}
 
 _lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}

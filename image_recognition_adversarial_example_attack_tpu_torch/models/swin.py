@@ -25,7 +25,16 @@ a forward: ``swin.embed`` (the patch conv and its LayerNorm), per block
 ``swin.mlp`` (norm2, the MLP, its residual add), ``swin.merge`` per patch
 merging, and ``swin.head`` (the final LayerNorm, the mean and the head).
 Each window attention counts ``window_attn.shifted`` or
-``window_attn.plain`` into its block's span, by whether it rolled the map.
+``window_attn.plain`` into its block's span, by whether it rolled the map,
+and ``window_attn.fused`` or ``window_attn.written`` by its route.
+
+The route: where ``kernels/window_attn.py::plan`` takes a call (a CUDA
+bfloat16 map, plain float linears, head dim 32, window 7, a bias table
+that needs no gradient), the block runs qkv on the unpartitioned map, the
+shifted-window attention kernel pair (the roll, the partition, the head split
+and the bias gather in its addressing) and proj.  Every other call (the CPU,
+float32, int8, a training forward whose table is a leaf) runs the attention
+written out (``WindowAttention._attend``).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import window_attn
 from ..ops.int8 import conv2d_class, linear_class
 from ..utils.profiling import count, span
 from .vit import LayerNorm, attention, merge_heads, split_heads
@@ -111,10 +121,17 @@ class WindowAttention(nn.Module):
             missing_keys.remove(key)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, H, W, C] -> [B, H, W, C]."""
+        """[B, H, W, C] -> [B, H, W, C]: through the kernel pair where
+        ``window_attn.plan`` takes the call, else written out."""
         _, h, w, _ = x.shape
         sh = 0 if (h <= self.window and w <= self.window) else self.shift
-        with count("window_attn.shifted" if sh > 0 else "window_attn.plain"):
+        p = window_attn.plan(x, self, sh)
+        fused = not isinstance(p, str)
+        with count("window_attn.shifted" if sh > 0 else "window_attn.plain"), \
+                count("window_attn.fused" if fused else "window_attn.written"):
+            if fused:
+                return self.proj(window_attn.launch(self.qkv(x),
+                                                    self.relative_position_bias_table, p))
             return self._attend(x, sh)
 
     def _attend(self, x: torch.Tensor, sh: int) -> torch.Tensor:

@@ -282,8 +282,19 @@ def test_the_spans_tile_a_forward_and_count_each_window_attention(shape, shifted
     counts = {k: sum(s["counts"].get(k, {"n": 0})["n"] for s in spans)
               for k in ("window_attn.shifted", "window_attn.plain")}
     assert counts == {"window_attn.shifted": shifted, "window_attn.plain": plain}
-    assert all(set(s["counts"]) <= {"window_attn.shifted", "window_attn.plain"}
+    # the route counters: on the CPU every window attention is written out
+    routes = {k: sum(s["counts"].get(k, {"n": 0})["n"] for s in spans)
+              for k in ("window_attn.fused", "window_attn.written")}
+    assert routes == {"window_attn.fused": 0, "window_attn.written": shifted + plain}
+    counters = {"window_attn.shifted", "window_attn.plain", "window_attn.written"}
+    assert all(set(s["counts"]) <= counters
                and (not s["counts"] or s["name"] == "swin.attn") for s in children)
+    # each block's attention counts one of each pair
+    for s in children:
+        if s["name"] == "swin.attn":
+            assert {k: v["n"] for k, v in s["counts"].items()} in (
+                {"window_attn.shifted": 1, "window_attn.written": 1},
+                {"window_attn.plain": 1, "window_attn.written": 1})
     # off a profiler session nothing is recorded
     with torch.no_grad():
         logits_fn(x)
