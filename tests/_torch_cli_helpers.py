@@ -1,6 +1,5 @@
 """Shared set-up of the port's grid-CLI tests (tests/test_torch_defense_experiments*.py,
-test_torch_grid_plumbing.py), and the one-thread fixture of the port's heavier
-CPU tests."""
+test_torch_grid_plumbing.py)."""
 
 from __future__ import annotations
 
@@ -8,8 +7,6 @@ import re
 from pathlib import Path
 
 import numpy as np
-import pytest
-import torch
 from PIL import Image
 
 # the exact six-field summary line (tests/test_cli.py:64-69)
@@ -42,12 +39,3 @@ def val_tree(root: Path) -> Path:
 def summary_lines(out: str) -> list[str]:
     return [line for line in out.splitlines() if line.startswith("attack=")]
 
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread per test process: the suite runs several
-    processes at once, and more threads than cores slow every run."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)

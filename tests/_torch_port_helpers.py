@@ -1,31 +1,103 @@
 """Shared set-up of the port's parity tests (tests/test_torch_*.py).
 
-The JAX package's Flax ResNet is initialized, its BatchNorm statistics and
-affine parameters are perturbed from a numpy seed (so that BatchNorm is not
-an identity), and the same variables are carried into the port through
-``models.convert.from_jax_variables``.
+The JAX package's Flax ResNet is initialized (once a process for each
+model), its BatchNorm statistics and affine parameters are perturbed from a
+numpy seed (so that BatchNorm is not an identity), and the same variables
+are carried into the port through ``models.convert.from_jax_variables``.
+
+Every port test module takes the autouse fixtures here with one import
+line, ``from _torch_port_helpers import module_time_limit, one_thread,
+time_limit  # noqa: F401 (autouse)``: one intra-op thread per test process,
+and a limit of ``TEST_TIME_LIMIT`` seconds on each test and on each module's
+set-up.  The modules that load JAX models through the JAX package's zoo (its
+CLIs) import ``jax_zoo_init_once`` on the same line.  JAX is imported only
+inside the functions that use it, so that the files whose card tests run
+where JAX is absent (``-m cuda --noconftest``) take the fixtures too.
 """
 
 from __future__ import annotations
 
-import jax
-import jax.numpy as jnp
+import signal
+import threading
+
 import numpy as np
+import pytest
 import torch
 
-from image_recognition_adversarial_example_attack_tpu.core.constants import (
+from image_recognition_adversarial_example_attack_tpu_torch.core.constants import (
     IMAGENET_MEAN, IMAGENET_STD)
-from image_recognition_adversarial_example_attack_tpu.core.normalize import (
-    normalize_batch as jax_normalize)
-from image_recognition_adversarial_example_attack_tpu.models import resnet as jax_resnet
 from image_recognition_adversarial_example_attack_tpu_torch.core.normalize import (
     normalize_batch as port_normalize)
 from image_recognition_adversarial_example_attack_tpu_torch.models import resnet as port_models
 from image_recognition_adversarial_example_attack_tpu_torch.models.convert import (
     from_jax_variables)
 
-JAX_DTYPES = {np.float64: jnp.float64, np.float32: jnp.float32}
 TORCH_DTYPES = {np.float64: torch.float64, np.float32: torch.float32}
+# seconds a port test may run (its call and its fixtures' set-up and
+# teardown, module-scoped ones included): three times the slowest port test's
+TEST_TIME_LIMIT = 120.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread per test process: the suite runs several
+    processes at once, and more threads than cores slow every run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _timed_here() -> bool:
+    """The timer runs on a process's main thread (xdist runs each worker's
+    tests there) where no card is present: a card test, and the kernel
+    builds it sets up, run under their caller's own timeout."""
+    return threading.current_thread() is threading.main_thread() and not torch.cuda.is_available()
+
+
+_timed = [""]  # what the running timer times, for its message
+
+
+def _arm(what: str) -> None:
+    _timed[0] = what
+    signal.setitimer(signal.ITIMER_REAL, TEST_TIME_LIMIT)
+
+
+def _expire(signum, frame):
+    pytest.fail(f"{_timed[0]} ran past its {TEST_TIME_LIMIT:g}-s limit", pytrace=False)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def module_time_limit(request):
+    """Arms the timer before the module's other fixtures (autouse fixtures
+    come first in their scope), so that the set-up of its module-scoped
+    fixtures is timed too, and stops it after their teardown.  A hang inside
+    native code (a compile, a collective) that never returns to Python is
+    beyond a Python signal handler."""
+    if not _timed_here():
+        yield
+        return
+    previous = signal.signal(signal.SIGALRM, _expire)
+    _arm(f"the set-up of {request.node.nodeid}'s module-scoped fixtures")
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, previous)
+
+
+@pytest.fixture(autouse=True)
+def time_limit(request, module_time_limit):
+    """Fails the test, by its nodeid, once it has run ``TEST_TIME_LIMIT``
+    seconds, so that a hang costs one test and not the whole run.  From its
+    teardown the timer runs on over the fixtures torn down and set up before
+    the next test (a parametrised module fixture's next instance)."""
+    if not _timed_here():
+        yield
+        return
+    _arm(request.node.nodeid)
+    yield
+    _arm(f"the fixtures torn down or set up after {request.node.nodeid}")
 
 
 def _perturb(tree, rng, path=()):
@@ -45,18 +117,82 @@ def _perturb(tree, rng, path=()):
     return out
 
 
-def flax_resnet(name: str, dtype=np.float64, num_classes: int | None = None,
-                size: int = 32, seed: int = 0):
-    """(flax module computing in ``dtype``, numpy variables of ``dtype``)."""
-    factory = getattr(jax_resnet, name)
+def flax_resnet(name: str, dtype=np.float64, num_classes: int | None = None, seed: int = 0):
+    """(flax module computing in ``dtype``, numpy variables of ``dtype``):
+    the Flax module's ``init``, compiled once a process, perturbed from
+    ``seed``."""
+    import jax.numpy as jnp
+
+    from image_recognition_adversarial_example_attack_tpu.models import resnet as jax_resnet
+
     kw = {} if num_classes is None else {"num_classes": num_classes}
-    module = factory(dtype=JAX_DTYPES[dtype], **kw)
-    variables = jax.jit(module.init)(jax.random.PRNGKey(0),
-                                     jnp.zeros((1, size, size, 3), JAX_DTYPES[dtype]))
-    variables = jax.tree_util.tree_map(np.asarray, variables)
-    variables = {k: dict(v) for k, v in variables.items()}
-    perturbed = _perturb(variables, np.random.RandomState(seed))
-    return module, jax.tree_util.tree_map(lambda a: np.asarray(a, dtype), perturbed)
+    module = getattr(jax_resnet, name)(dtype=getattr(jnp, np.dtype(dtype).name), **kw)
+    perturbed = _perturb(flax_init(module), np.random.RandomState(seed))
+    return module, _map(lambda a: np.array(a, dtype), perturbed)  # copies: not the cache
+
+
+_INITS: dict = {}
+
+
+def flax_init(module, input_size: int = 32) -> dict:
+    """``module.init`` (key 0, on float32 zeros of ``input_size``; numpy
+    leaves, keys in order), compiled once a process for each module, size
+    and x64 mode, whatever dtype the module computes in (the families draw
+    their parameters in float32).  A ResNet's, once for every size too: its
+    parameters do not depend on the input's size."""
+    import jax
+    import jax.numpy as jnp
+
+    from image_recognition_adversarial_example_attack_tpu.models import resnet as jax_resnet
+
+    if hasattr(module, "dtype"):
+        module = module.clone(dtype=jnp.float32)
+    if isinstance(module, jax_resnet.ResNet):
+        input_size = 32
+    # a parameter drawn at Flax's default dtype is float64 in x64 mode
+    key = (repr(module), input_size, jax.dtypes.canonicalize_dtype(np.float64))
+    if key not in _INITS:
+        x = jnp.zeros((1, input_size, input_size, 3), jnp.float32)
+        _INITS[key] = _map(np.asarray, jax.device_get(jax.jit(module.init)(
+            jax.random.PRNGKey(0), x)))
+    return _INITS[key]
+
+
+def init_shaped(tree: dict, module, input_size: int = 32) -> dict:
+    """``tree`` (the port's seeded init through the converter), once its
+    paths and shapes are found equal to those of ``module.init``'s tree:
+    the converter gives the Flax tree.  ``jax.eval_shape`` traces the
+    ``init`` and compiles nothing."""
+    import jax
+    import jax.numpy as jnp
+
+    want = jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                          jax.ShapeDtypeStruct((1, input_size, input_size, 3), jnp.float32))
+
+    def layout(t):
+        leaves = jax.tree_util.tree_flatten_with_path(t)[0]
+        return {jax.tree_util.keystr(path): tuple(np.shape(v)) for path, v in leaves}
+
+    assert layout(tree) == layout(want)
+    return tree
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_zoo_init_once():
+    """The JAX zoo's template (``models.zoo._init_variables``: a compiled
+    Flax ``init`` on every model load, the weights then read into it) from
+    ``flax_init``: the same variables, compiled once a process.  Autouse in
+    the modules that import it."""
+    from image_recognition_adversarial_example_attack_tpu.models import zoo as jax_zoo
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_zoo, "_init_variables",
+                   lambda module, size: _map(np.array, flax_init(module, size)))
+        yield
+
+
+def _map(fn, tree):
+    return {k: _map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
 
 
 def port_resnet(name: str, variables, dtype=np.float64, num_classes: int | None = None):
@@ -70,6 +206,8 @@ def port_resnet(name: str, variables, dtype=np.float64, num_classes: int | None 
 
 def _jax_logits_uncast(m, x):
     """The JAX ResNet's ``__call__`` without its final cast to float32."""
+    import jax.numpy as jnp
+
     x = m._run_stages(m.stem(x), len(m.stage_sizes))
     return m.fc(jnp.mean(x, axis=(1, 2)))
 
@@ -83,6 +221,9 @@ def uncast_fns(module, variables, model):
     """{"jax": (logits_fn, features_fn), "port": (...)} that keep the model's
     dtype: both packages cast the logits and the features to float32, so a
     float64 oracle of what comes after the model needs these."""
+    from image_recognition_adversarial_example_attack_tpu.core.normalize import (
+        normalize_batch as jax_normalize)
+
     def jax_fn(method):
         def fn(x01):
             x = jax_normalize(x01, IMAGENET_MEAN, IMAGENET_STD)

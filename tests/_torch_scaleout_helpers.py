@@ -32,12 +32,17 @@ def train_setup(**cfg_kw):
             adversarial.train_state_from_bundle(bundle, cfg), x, y, generator_from_seed(9))
 
 
-def seeded_variables(model: torch.nn.Module, family: str, perturb, seed: int = 3) -> dict:
-    """Flax variables (float64 numpy) of ``model`` after the port's seeded
-    init (``zoo.random_init_``, Flax's distributions), carried through the
-    converter and perturbed by ``perturb(tree, RandomState(seed))``: the
-    same kind of tree as Flax's ``init``, without compiling it."""
+def seeded_tree(model: torch.nn.Module, family: str, dtype=torch.float32) -> dict:
+    """The Flax variable tree (numpy arrays of ``dtype``) of ``model`` after
+    the port's seeded init (``zoo.random_init_``, Flax's distributions),
+    carried through the converter: the same kind of tree as Flax's ``init``,
+    without compiling it."""
     from image_recognition_adversarial_example_attack_tpu_torch.models import convert, zoo
 
-    tree = convert.to_jax_variables(zoo.random_init_(model).double(), family)
-    return perturb(tree, np.random.RandomState(seed))
+    return convert.to_jax_variables(zoo.random_init_(model).to(dtype), family)
+
+
+def seeded_variables(model: torch.nn.Module, family: str, perturb, seed: int = 3) -> dict:
+    """``seeded_tree`` in float64, perturbed by ``perturb(tree,
+    RandomState(seed))``."""
+    return perturb(seeded_tree(model, family, torch.float64), np.random.RandomState(seed))

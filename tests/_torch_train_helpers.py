@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from _torch_port_helpers import flax_init
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
     CIFAR10_MEAN, CIFAR10_STD)
 from image_recognition_adversarial_example_attack_tpu.defenses import crown_ibp as jax_crown
@@ -102,12 +103,10 @@ def jax_module(name: str, dtype=F64, train_bn: bool = False):
 
 
 def variables(name: str = "wrn_tiny", seed: int = 3, dtype=np.float64) -> dict:
-    """Perturbed variables of ``name`` as numpy arrays of ``dtype``."""
-    with jax.enable_x64():
-        module = jax_module(name)
-        v = jax.jit(module.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
-        v = _perturb(jax.tree_util.tree_map(np.asarray, v), np.random.RandomState(seed))
-    return jax.tree_util.tree_map(lambda a: np.asarray(a, dtype), v)
+    """Perturbed variables of ``name`` as numpy arrays of ``dtype`` (the Flax
+    module's ``init``, compiled once a process)."""
+    v = _perturb(flax_init(jax_module(name)), np.random.RandomState(seed))
+    return jax.tree_util.tree_map(lambda a: np.array(a, dtype), v)  # copies: not the cache
 
 
 def stats(name: str):

@@ -18,7 +18,8 @@ import numpy as np
 import pytest
 from flax import serialization
 
-from _torch_cli_helpers import one_thread, write_images  # noqa: F401 (one_thread: autouse)
+from _torch_cli_helpers import write_images
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet
 from image_recognition_adversarial_example_attack_tpu.cli import attack_suite as jax_suite
 from image_recognition_adversarial_example_attack_tpu_torch.cli import attack_suite
@@ -35,7 +36,7 @@ def setup(tmp_path_factory):
     images = root / "imgs"
     images.mkdir()
     write_images(images, n=3, size=48)
-    _, variables = flax_resnet("resnet_tiny", np.float32, num_classes=10, size=224, seed=6)
+    _, variables = flax_resnet("resnet_tiny", np.float32, num_classes=10, seed=6)
     weights = root / "resnet_tiny.msgpack"
     weights.write_bytes(serialization.to_bytes(variables))
     base = ["--image_dir", str(images), "--model", "resnet_tiny", "--weights", str(weights),
@@ -61,13 +62,17 @@ def _table(out: str) -> tuple[str, dict[str, list[str]]]:
     return lines[head], rows
 
 
-@pytest.fixture(scope="module")
-def suites(setup):
-    names = ["fgsm", "apgd", "deepfool", "jsma"]
-    out = {}
+# the four attacks in two runs of each CLI (a run compiles each of its attacks)
+GROUPS = {"fgsm+apgd": ["fgsm", "apgd"], "deepfool+jsma": ["deepfool", "jsma"]}
+
+
+@pytest.fixture(scope="module", params=list(GROUPS))
+def suites(request, setup):
+    names = GROUPS[request.param]
+    out = {"names": names}
     for who, main, extra in (("ours", attack_suite.main, ["--device", "cpu"]),
                              ("theirs", jax_suite.main, [])):
-        path = setup["root"] / f"{who}.json"
+        path = setup["root"] / f"{who}_{request.param}.json"
         text = _run(main, [*setup["base"], "--attacks", *names, "--output", str(path), *extra])
         out[who] = {"text": text, "json": json.loads(path.read_text())}
     return out
@@ -79,7 +84,7 @@ def test_table_and_json_are_the_jax_clis(suites):
     head_t, rows_t = _table(theirs["text"])
     assert head_o == head_t == attack_suite.HEADER
     assert attack_suite.PSEUDO_NOTE in ours["text"] and attack_suite.PSEUDO_NOTE in theirs["text"]
-    assert list(rows_o) == list(rows_t) == ["fgsm", "apgd", "deepfool", "jsma"]
+    assert list(rows_o) == list(rows_t) == suites["names"]
     assert set(ours["json"]) == set(theirs["json"])
     for k in ("count", "eps", "model", "labels"):
         assert ours["json"][k] == theirs["json"][k], k

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
@@ -37,7 +38,7 @@ def setup():
         lf_jax = jax_api.make_logits_fn(module, variables, IMAGENET_MEAN, IMAGENET_STD)
         lf_port = make_logits_fn(model, IMAGENET_MEAN, IMAGENET_STD)
         x = np.random.RandomState(11).uniform(0.1, 0.9, size=(4, 32, 32, 3))
-        y = np.asarray(lf_jax(jnp.asarray(x))).argmax(-1)
+        y = np.asarray(jax.jit(lf_jax)(jnp.asarray(x))).argmax(-1)
     return lf_jax, lf_port, x, y
 
 
@@ -59,7 +60,8 @@ def test_input_grad_matches(setup):
     """The float32 logits make the loss float32 on both sides, whose
     reductions round in another order: relative 1e-5."""
     lf_jax, lf_port, x, y = setup
-    want = np.asarray(jax_api.input_grad(lf_jax, jnp.asarray(x), jnp.asarray(y)))
+    want = np.asarray(jax.jit(lambda xx, yy: jax_api.input_grad(lf_jax, xx, yy))(
+        jnp.asarray(x), jnp.asarray(y)))
     got = input_grad(lf_port, torch.from_numpy(x), torch.from_numpy(y)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
     # the same signs: what FGSM and PGD read
@@ -71,10 +73,11 @@ def test_input_grad_matches(setup):
 def test_attack_matches_jax(setup, attack, targeted):
     lf_jax, lf_port, x, y = setup
     y_t = (y + 1) % 10 if targeted else None
-    want = np.asarray(jax_api.run_attack(
-        attack, lf_jax, jnp.asarray(x), jnp.asarray(y),
+    want = np.asarray(jax.jit(lambda xx, yy, key: jax_api.run_attack(
+        attack, lf_jax, xx, yy,
         jax_api.AttackParams(eps=EPS, alpha=ALPHA, steps=3, random_start=False),
-        jax.random.PRNGKey(0), y_target=None if y_t is None else jnp.asarray(y_t)))
+        key, y_target=None if y_t is None else jnp.asarray(y_t)))(
+            jnp.asarray(x), jnp.asarray(y), jax.random.PRNGKey(0)))
     got = run_attack(
         attack, lf_port, torch.from_numpy(x), torch.from_numpy(y),
         AttackParams(eps=EPS, alpha=ALPHA, steps=3, random_start=False),

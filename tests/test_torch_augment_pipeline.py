@@ -17,6 +17,7 @@ import torch
 from PIL import Image
 
 import _torch_train_helpers as H
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.train import augment as jax_aug
 from image_recognition_adversarial_example_attack_tpu.utils import pipeline as jax_pipeline
 from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed

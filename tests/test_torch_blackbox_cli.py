@@ -20,7 +20,8 @@ import pytest
 from flax import serialization
 from PIL import Image
 
-from _torch_cli_helpers import one_thread, write_images  # noqa: F401 (one_thread: autouse)
+from _torch_cli_helpers import write_images
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet
 from image_recognition_adversarial_example_attack_tpu.cli import query_curves as jax_qc_cli
 from image_recognition_adversarial_example_attack_tpu.cli import robust_eval as jax_re_cli
@@ -43,7 +44,7 @@ def setup(tmp_path_factory):
     images = root / "imgs"
     images.mkdir()
     write_images(images, n=3, size=48)
-    _, variables = flax_resnet("resnet_tiny", np.float32, num_classes=10, size=224, seed=1)
+    _, variables = flax_resnet("resnet_tiny", np.float32, num_classes=10, seed=1)
     weights = root / "resnet_tiny.msgpack"
     weights.write_bytes(serialization.to_bytes(variables))
     base = ["--image_dir", str(images), "--model", "resnet_tiny", "--weights", str(weights)]
@@ -160,12 +161,15 @@ def _qc_table(text: str) -> tuple[str, dict[str, list[str]]]:
     return lines[head], rows
 
 
-def test_query_curves_table_and_json_are_the_jax_clis(setup):
-    attacks = ["square", "simba", "nes", "bandits"]
+@pytest.mark.parametrize("attacks", [["square", "simba"], ["nes", "bandits"]],
+                         ids=["square+simba", "nes+bandits"])
+def test_query_curves_table_and_json_are_the_jax_clis(setup, attacks):
+    """Four attacks in two runs of each CLI (a run compiles each of its
+    attacks)."""
     out = {}
     for who, main, extra in (("ours", query_curves.main, ["--device", "cpu"]),
                              ("theirs", jax_qc_cli.main, [])):
-        path = setup["root"] / f"qc_{who}.json"
+        path = setup["root"] / f"qc_{who}_{attacks[0]}.json"
         text = _run(main, [*setup["base"], *QC_CUT, "--attacks", *attacks,
                            "--output", str(path), *extra])
         out[who] = (text, json.loads(path.read_text()))

@@ -24,7 +24,7 @@ from flax import serialization
 from PIL import Image
 
 from _torch_blackbox_helpers import feed, t
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.attacks import patch as jax_patch
 from image_recognition_adversarial_example_attack_tpu.cli import certify as jax_certify_cli
 from image_recognition_adversarial_example_attack_tpu.cli import uap as jax_uap_cli

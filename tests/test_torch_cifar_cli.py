@@ -28,7 +28,10 @@ import torch
 from flax import serialization
 
 from _torch_blackbox_helpers import square_draws
-from _torch_cli_helpers import SUMMARY, one_thread, summary_lines  # noqa: F401 (one_thread: autouse)
+from _torch_cli_helpers import SUMMARY, summary_lines
+from _torch_port_helpers import flax_init, init_shaped
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
+from _torch_scaleout_helpers import seeded_tree
 from image_recognition_adversarial_example_attack_tpu.cli import defense_experiments as jax_grid
 from image_recognition_adversarial_example_attack_tpu.cli import robust_eval as jax_re_cli
 from image_recognition_adversarial_example_attack_tpu.cli.common import cell_key
@@ -42,6 +45,7 @@ from image_recognition_adversarial_example_attack_tpu_torch.attacks import apgd,
 from image_recognition_adversarial_example_attack_tpu_torch.cli import defense_experiments
 from image_recognition_adversarial_example_attack_tpu_torch.cli import robust_eval
 from image_recognition_adversarial_example_attack_tpu_torch.core import datasets
+from image_recognition_adversarial_example_attack_tpu_torch.models import wideresnet as port_wrn
 
 N, EPS = 10, 0.004
 GRID = ["--model", "wrn_tiny", "--attacks", "fgsm", "pgd", "--steps", "2", "--eps_list",
@@ -131,7 +135,7 @@ def test_load_cifar10_errors_equal_jaxs(tmp_path, case):
 def setup(tmp_path_factory):
     root = tmp_path_factory.mktemp("cifar_cli")
     module = jax_wrn.wrn_tiny()
-    variables = jax.device_get(module.init(jax.random.PRNGKey(4), jnp.zeros((1, 32, 32, 3))))
+    variables = init_shaped(seeded_tree(port_wrn.wrn_tiny(), "wideresnet"), module)
     rs = np.random.RandomState(5)
     variables = jax.tree_util.tree_map(
         lambda a: np.asarray(a) + (0.05 * rs.randn(*np.shape(a))).astype(np.float32), variables)
@@ -140,10 +144,11 @@ def setup(tmp_path_factory):
     weights.write_bytes(serialization.to_bytes(variables))
     rows, _ = _rows(N, seed=7)
     x = rows.reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1).astype(np.float32) / 255.0
-    pred = np.asarray(module.apply(variables, normalize_batch(x, CIFAR10_MEAN, CIFAR10_STD))
-                      ).argmax(-1)
+    pred = np.asarray(jax.jit(module.apply)(
+        variables, normalize_batch(x, CIFAR10_MEAN, CIFAR10_STD))).argmax(-1)
     labels = pred.copy()
     labels[[1, 4, 8]] = (pred[[1, 4, 8]] + 1) % 10  # clean accuracy 0.7
+    flax_init(module)  # the JAX CLIs' template for the weights (jax_zoo_init_once)
     _write_py(root / "c10" / "cifar-10-batches-py", "test_batch", rows, labels)
     return {"root": root, "x": x, "labels": labels, "pred": pred,
             "base": ["--cifar10_dir", str(root / "c10"), "--weights", str(weights)]}

@@ -29,7 +29,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
+from _torch_port_helpers import init_shaped
+from _torch_scaleout_helpers import seeded_variables
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
     CIFAR10_MEAN, CIFAR10_STD)
 from image_recognition_adversarial_example_attack_tpu.core.normalize import (
@@ -110,11 +112,11 @@ def _perturb(tree, rng):
 @functools.lru_cache(maxsize=None)
 def _variables(name):
     """The float64 variables of a tiny variant (int8 mode has the same
-    tree), perturbed."""
-    with jax.enable_x64():
-        module = _jax_module(name)
-        variables = jax.jit(module.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
-        return _perturb(jax.tree_util.tree_map(np.asarray, variables), np.random.RandomState(3))
+    tree): the port's seeded init through the converter, held to the Flax
+    init's paths and shapes, perturbed."""
+    module = _jax_module(name)
+    return seeded_variables(_port_model(name), VARIANTS[name][0],
+                            lambda t, rng: _perturb(init_shaped(t, module), rng), seed=3)
 
 
 def _setup(name, int8_on=False):

@@ -10,6 +10,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.cli import common as jax_common
 from image_recognition_adversarial_example_attack_tpu.core import images as jax_images
 from image_recognition_adversarial_example_attack_tpu.core import labels as jax_labels

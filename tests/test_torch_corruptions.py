@@ -32,11 +32,11 @@ from flax import serialization
 from jax.scipy.ndimage import map_coordinates as jax_map_coordinates
 from PIL import Image
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
+from _torch_scaleout_helpers import seeded_tree
 from image_recognition_adversarial_example_attack_tpu.cli import corruption_eval as jax_cli
 from image_recognition_adversarial_example_attack_tpu.defenses import jpeg_dct as jax_jpeg
 from image_recognition_adversarial_example_attack_tpu.eval import corruptions as jax_c
-from image_recognition_adversarial_example_attack_tpu.models import ibp as jax_ibp
 from image_recognition_adversarial_example_attack_tpu_torch.attacks import make_logits_fn
 from image_recognition_adversarial_example_attack_tpu_torch.cli import corruption_eval as cli
 from image_recognition_adversarial_example_attack_tpu_torch.core.images import load_image_batch
@@ -46,6 +46,7 @@ from image_recognition_adversarial_example_attack_tpu_torch.defenses import jpeg
 from image_recognition_adversarial_example_attack_tpu_torch.eval import corruptions as c
 from image_recognition_adversarial_example_attack_tpu_torch.eval.streaming import (
     make_placer, stream_correctness_cell)
+from image_recognition_adversarial_example_attack_tpu_torch.models import ibp as port_ibp
 from image_recognition_adversarial_example_attack_tpu_torch.models import zoo
 
 TOL = 1e-5  # float32 corruptions, absolute (outputs in [0,1])
@@ -313,9 +314,7 @@ def setup(tmp_path_factory):
     images = root / "imgs"
     _pngs(images, 6, size=40, seed=2)
     rs = np.random.RandomState(0)
-    module = jax_ibp.ibp_tiny()
-    v = jax.device_get(jax.jit(module.init)(jax.random.PRNGKey(2),
-                                            np.zeros((1, 32, 32, 3), np.float32)))
+    v = seeded_tree(port_ibp.ibp_tiny(), "ibp")
     v = {"params": {k: {kk: np.asarray(vv) + (0.3 * rs.randn(*vv.shape)).astype(np.float32)
                         for kk, vv in d.items()} for k, d in v["params"].items()}}
     weights = root / "ibp_tiny.msgpack"

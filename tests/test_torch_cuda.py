@@ -13,6 +13,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu_torch.kernels import elementwise as ew
 
 pytestmark = pytest.mark.cuda

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu.attacks import cw as jax_cw
@@ -47,7 +48,7 @@ def setup():
         x = np.random.RandomState(12).uniform(0.0, 1.0, size=(6, 32, 32, 3))
         x[0, :4] = 1.0  # saturated pixels: atanh at the clip
         x[1, :, :4] = 0.0
-        y = np.asarray(lf_jax(jnp.asarray(x))).argmax(-1)
+        y = np.asarray(jax.jit(lf_jax)(jnp.asarray(x))).argmax(-1)
     return {"jax": (lf_jax, ff_jax),
             "port": (make_logits_fn(model, IMAGENET_MEAN, IMAGENET_STD),
                      make_features_fn(model, IMAGENET_MEAN, IMAGENET_STD)),
@@ -61,8 +62,9 @@ def test_cw_matches_jax(setup, targeted, kappa):
     x, y = setup["x"], setup["y"]
     y_t = (y + 3) % 10 if targeted else None
     kw = {**CW, "kappa": kappa, "targeted": targeted}
-    want = jax_cw.cw_l2_attack(lf_jax, jnp.asarray(x), jnp.asarray(y),
-                               y_target=None if y_t is None else jnp.asarray(y_t), **kw)
+    want = jax.jit(lambda xx, yy: jax_cw.cw_l2_attack(
+        lf_jax, xx, yy, y_target=None if y_t is None else jnp.asarray(y_t), **kw))(
+            jnp.asarray(x), jnp.asarray(y))
     got = cw_l2_attack(lf, torch.from_numpy(x), torch.from_numpy(y),
                        y_target=None if y_t is None else torch.from_numpy(y_t), **kw)
     np.testing.assert_array_equal(got.success.numpy(), np.asarray(want.success))
@@ -92,9 +94,10 @@ def test_run_attack_cw_dispatch(setup, targeted):
     x, y = setup["x"], setup["y"]
     y_t = (y + 1) % 10 if targeted else None
     kw = {"cw_c": 3.0, "cw_kappa": 0.5, "cw_steps": 6, "cw_lr": 0.03}
-    want = jax_api.run_attack("cw", lf_jax, jnp.asarray(x), jnp.asarray(y),
-                              jax_api.AttackParams(**kw), jax.random.PRNGKey(0),
-                              y_target=None if y_t is None else jnp.asarray(y_t))
+    want = jax.jit(lambda xx, yy, key: jax_api.run_attack(
+        "cw", lf_jax, xx, yy, jax_api.AttackParams(**kw), key,
+        y_target=None if y_t is None else jnp.asarray(y_t)))(
+            jnp.asarray(x), jnp.asarray(y), jax.random.PRNGKey(0))
     yt_t = None if y_t is None else torch.from_numpy(y_t)
     got = run_attack("cw", lf, torch.from_numpy(x), torch.from_numpy(y), AttackParams(**kw),
                      y_target=yt_t)
@@ -124,13 +127,14 @@ def test_cw_defaults_match_jax():
 def test_cw_cell_matches(setup):
     (lf_jax, ff_jax), (lf, ff) = setup["jax"], setup["port"]
     x, y = setup["x"], setup["y"]
-    scores = np.sort(np.asarray(jax_det.score_from_features(ff_jax(jnp.asarray(x)))))
+    scores = np.sort(np.asarray(jax.jit(lambda xx: jax_det.score_from_features(ff_jax(xx)))(
+        jnp.asarray(x))))
     thr = float((scores[2] + scores[3]) / 2)
     kw = {"attack_name": "cw", "eps": 8 / 255, "alpha": 2 / 255, "steps": 1,
           "cw_c": 5.0, "cw_steps": 8, "cw_lr": 0.05}
-    want = jax_eval.evaluate_defenses_batch(
-        lf_jax, ff_jax, jnp.asarray(x), jnp.asarray(y), thr,
-        jax_eval.DefenseEvalConfig(**kw), jax.random.PRNGKey(0))
+    want = jax.jit(lambda xx, yy, key: jax_eval.evaluate_defenses_batch(
+        lf_jax, ff_jax, xx, yy, thr, jax_eval.DefenseEvalConfig(**kw), key))(
+            jnp.asarray(x), jnp.asarray(y), jax.random.PRNGKey(0))
     got = evaluate_defenses_batch(lf, ff, torch.from_numpy(x), torch.from_numpy(y), thr,
                                   DefenseEvalConfig(**kw))
     for k in STAT_KEYS:

@@ -11,7 +11,8 @@ import pytest
 import torch
 from PIL import Image
 
-from _torch_cli_helpers import FAST, SUMMARY, one_thread, summary_lines, write_images  # noqa: F401 (one_thread: autouse)
+from _torch_cli_helpers import FAST, SUMMARY, summary_lines, write_images
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu_torch.cli.defense_experiments import (
     build_parser, main)
 

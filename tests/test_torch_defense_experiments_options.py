@@ -8,7 +8,8 @@ import tempfile
 
 import pytest
 
-from _torch_cli_helpers import FAST, SUMMARY, one_thread, summary_lines, val_tree, write_images  # noqa: F401 (one_thread: autouse)
+from _torch_cli_helpers import FAST, SUMMARY, summary_lines, val_tree, write_images
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu_torch.cli import common
 from image_recognition_adversarial_example_attack_tpu_torch.cli.defense_experiments import main
 

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 from flax import serialization
 
-from _torch_cli_helpers import FAST, SUMMARY, one_thread, summary_lines, write_images  # noqa: F401 (one_thread: autouse)
+from _torch_cli_helpers import FAST, SUMMARY, summary_lines, write_images
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet
 from image_recognition_adversarial_example_attack_tpu_torch.cli.defense_experiments import main
 
@@ -26,7 +27,7 @@ def setup(tmp_path_factory):
     image_dir = root / "imgs"
     image_dir.mkdir()
     write_images(image_dir, n=N)
-    _, variables = flax_resnet("resnet_tiny", np.float32, num_classes=10, size=224, seed=4)
+    _, variables = flax_resnet("resnet_tiny", np.float32, num_classes=10, seed=4)
     weights = root / "resnet_tiny.msgpack"
     weights.write_bytes(serialization.to_bytes(variables))
     base = ["--image_dir", str(image_dir), "--eps_list", *EPS_LIST, "--weights", str(weights),

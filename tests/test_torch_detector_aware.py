@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet, uncast_fns
 from image_recognition_adversarial_example_attack_tpu.attacks import detector_aware as jax_da
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
@@ -42,7 +42,7 @@ def net():
         model = port_resnet("resnet_tiny", variables, np.float64, num_classes=10)
         fns = uncast_fns(module, variables, model)
         x = np.random.RandomState(14).uniform(0.05, 0.95, size=(6, 32, 32, 3))
-        y = np.asarray(fns["jax"][0](jnp.asarray(x))).argmax(-1)
+        y = np.asarray(jax.jit(fns["jax"][0])(jnp.asarray(x))).argmax(-1)
     return {"fns": fns, "x": x, "y": y, "variables": variables}
 
 

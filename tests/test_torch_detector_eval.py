@@ -28,8 +28,9 @@ import torch
 from flax import serialization
 from PIL import Image
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
-from _torch_port_helpers import flax_resnet, port_resnet
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
+from _torch_port_helpers import flax_resnet, port_resnet, uncast_fns
+from _torch_scaleout_helpers import seeded_tree
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu.cli import detector_eval as jax_cli
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
@@ -37,7 +38,6 @@ from image_recognition_adversarial_example_attack_tpu.core.constants import (
 from image_recognition_adversarial_example_attack_tpu.defenses import detector as jax_det
 from image_recognition_adversarial_example_attack_tpu.defenses import mahalanobis as jax_mahal
 from image_recognition_adversarial_example_attack_tpu.eval import detector_eval as jax_de
-from image_recognition_adversarial_example_attack_tpu.models import ibp as jax_ibp
 from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
     AttackParams, make_logits_fn, run_attack)
 from image_recognition_adversarial_example_attack_tpu_torch.cli import detector_eval as cli
@@ -48,6 +48,7 @@ from image_recognition_adversarial_example_attack_tpu_torch.defenses import (
 from image_recognition_adversarial_example_attack_tpu_torch.eval import detector_eval as de
 from image_recognition_adversarial_example_attack_tpu_torch.eval.streaming import (
     make_placer, stream_clean_scores, stream_detector_scores)
+from image_recognition_adversarial_example_attack_tpu_torch.models import ibp as port_ibp
 from image_recognition_adversarial_example_attack_tpu_torch.models import zoo
 
 TOL = 1e-6  # float32 scores, relative to max(1, |score|)
@@ -159,6 +160,33 @@ def test_evaluate_detector_cell_equals_jaxs(nets, detector):
     assert vars(got) == vars(want)
 
 
+def test_mahalanobis_scores_equal_jaxs_in_float64():
+    """The float32 check above holds Mahalanobis scores within TOL of the
+    largest; on other weights that rounding reaches TOL.  With float64
+    features and JAX's fitted parameters in float64, the two packages'
+    quadratic forms agree to rounding, whatever the draw."""
+    with jax.enable_x64():
+        module, variables = flax_resnet("resnet_tiny", np.float64, num_classes=10, seed=11)
+        model = port_resnet("resnet_tiny", variables, np.float64, num_classes=10)
+        fns = uncast_fns(module, variables, model)
+        (jl, jf), pf = fns["jax"], fns["port"][1]
+        rs = np.random.RandomState(4)
+        x_fit = jnp.asarray(rs.uniform(0.05, 0.95, (160, 32, 32, 3)))
+        params = jax_mahal.fit_mahalanobis(jax_mahal.pool_features(jax.jit(jf)(x_fit)),
+                                           jnp.argmax(jax.jit(jl)(x_fit), -1), 10)
+        params = type(params)(mean=jnp.asarray(params.mean, jnp.float64),
+                              precision=jnp.asarray(params.precision, jnp.float64))
+        x = rs.uniform(0.05, 0.95, (24, 32, 32, 3))
+        want = np.asarray(jax.jit(lambda xx: jax_mahal.mahalanobis_score(jf, xx, params))(
+            jnp.asarray(x)))
+    mp = MahalanobisParams(torch.from_numpy(np.array(params.mean)),
+                           torch.from_numpy(np.array(params.precision)))
+    with torch.no_grad():
+        got = mahalanobis_score(pf, torch.from_numpy(x), mp).numpy()
+    assert got.dtype == want.dtype == np.float64
+    _close(got, want, tol=1e-12, scale=np.abs(want).max())
+
+
 # ---------------------------------------------------------------------------
 # the streamed score functions against resident runs of each chunk
 
@@ -238,8 +266,7 @@ def setup(tmp_path_factory):
     images = root / "imgs"
     _pngs(images, 16, 40, seed=2)
     rs = np.random.RandomState(0)
-    module = jax_ibp.ibp_tiny()
-    v = jax.device_get(module.init(jax.random.PRNGKey(2), np.zeros((1, 32, 32, 3), np.float32)))
+    v = seeded_tree(port_ibp.ibp_tiny(), "ibp")
     v = {"params": {k: {kk: np.asarray(vv) + (0.05 * rs.randn(*vv.shape)).astype(np.float32)
                         for kk, vv in d.items()} for k, d in v["params"].items()}}
     weights = root / "ibp_tiny.msgpack"

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet, uncast_fns
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
@@ -83,7 +83,8 @@ def _batch(dtype, n=6, seed=3):
 def test_squeezing_score_matches(nets, dtype, rtol, atol):
     lf_jax, lf = nets[dtype]["jax"][0], nets[dtype]["port"][0]
     x = _batch(dtype)
-    want = np.asarray(jax_det.squeezing_score(lf_jax, jnp.asarray(x), 16))
+    want = np.asarray(jax.jit(lambda xx: jax_det.squeezing_score(lf_jax, xx, 16))(
+        jnp.asarray(x)))
     with torch.no_grad():
         got = squeezing_score(lf, torch.from_numpy(x), 16).numpy()
     assert got.dtype == want.dtype and got.shape == (6,)

@@ -44,6 +44,7 @@ from image_recognition_adversarial_example_attack_tpu.attacks import make_logits
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
     IMAGENET_MEAN, IMAGENET_STD)
 from image_recognition_adversarial_example_attack_tpu.models.tiny import make_tiny
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_scaleout_helpers import train_setup
 from image_recognition_adversarial_example_attack_tpu_torch.parallel import distributed
 from image_recognition_adversarial_example_attack_tpu_torch.parallel.distributed import (

@@ -22,6 +22,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.core import images as jax_images
 from image_recognition_adversarial_example_attack_tpu.eval import engine as jax_engine
 from image_recognition_adversarial_example_attack_tpu.parallel import mesh as jax_mesh

@@ -12,6 +12,7 @@ import json
 import pytest
 import torch
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu_torch.entry import (
     dryrun_multichip, entry, mesh_slots)
 

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
     IMAGENET_MEAN, IMAGENET_STD)
@@ -33,8 +33,7 @@ SIZE = 128  # resnet_tiny's last map is 4x4 at 128x128
 @pytest.fixture(scope="module")
 def setup():
     with jax.enable_x64():
-        module, variables = flax_resnet("resnet_tiny", np.float64, num_classes=10, size=SIZE,
-                                        seed=2)
+        module, variables = flax_resnet("resnet_tiny", np.float64, num_classes=10, seed=2)
     model = port_resnet("resnet_tiny", variables, np.float64, num_classes=10)
     x = np.random.RandomState(4).uniform(0, 1, (3, SIZE, SIZE, 3))
     # the predicted classes, as the CLI asks: their maps are not all zero

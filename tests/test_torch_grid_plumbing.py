@@ -11,6 +11,7 @@ import torch
 from PIL import Image
 
 from _torch_cli_helpers import val_tree, write_images
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.cli import common as jax_common
 from image_recognition_adversarial_example_attack_tpu.core import datasets as jax_datasets
 from image_recognition_adversarial_example_attack_tpu.utils import profiling as jax_profiling

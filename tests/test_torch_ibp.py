@@ -23,7 +23,9 @@ import pytest
 import torch
 from flax import serialization
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import init_shaped
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
+from _torch_scaleout_helpers import seeded_tree
 from image_recognition_adversarial_example_attack_tpu.defenses import crown_ibp as jax_crown
 from image_recognition_adversarial_example_attack_tpu.defenses import ibp as jax_ibp
 from image_recognition_adversarial_example_attack_tpu.models import ibp as jax_models
@@ -52,16 +54,38 @@ class _F64:
         return getattr(jnp, name)
 
 
+def jit_hoisted(fn):
+    """``jax.jit(fn)``, with the arrays ``fn`` closes over (the network's
+    weights) passed to the compiled program as arguments.  XLA folds closed-
+    over arrays in as constants, and for ibp_cnn7's dense layers that
+    folding is most of the compile (CROWN's verify function: 7.6 s closed
+    over, 1.2 s hoisted; a resnet_tiny attack compiles as fast either way).
+    One trace and one compile for each set of argument shapes and dtypes."""
+    compiled = {}
+
+    def run(*args):
+        flat, tree = jax.tree_util.tree_flatten(args)
+        key = (tree, tuple((np.shape(a), np.result_type(a)) for a in flat))
+        if key not in compiled:
+            closed, shape = jax.make_jaxpr(fn, return_shape=True)(*args)
+            call = jax.jit(lambda consts, xs: jax.core.eval_jaxpr(closed.jaxpr, consts, *xs))
+            compiled[key] = call, closed.consts, jax.tree_util.tree_structure(shape)
+        call, consts, out_tree = compiled[key]
+        return jax.tree_util.tree_unflatten(out_tree, call(consts, flat))
+
+    return run
+
+
 @pytest.fixture(scope="module", params=NAMES)
 def net(request):
     name = request.param
     module = getattr(jax_models, name)()
-    variables = jax.jit(module.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3)))
+    variables = init_shaped(seeded_tree(getattr(models, name)(), "ibp"), module)
     rs = np.random.RandomState(0)
     params = {layer: {k: np.asarray(v, np.float32) + (rs.randn(*v.shape).astype(np.float32)
                                                        * 0.05 if k == "bias" else 0)
                       for k, v in leaves.items()}
-              for layer, leaves in jax.device_get(variables)["params"].items()}
+              for layer, leaves in variables["params"].items()}
     model = getattr(models, name)()
     model.load_state_dict(from_jax_variables({"params": params}, "ibp"), strict=True)
     model.eval().requires_grad_(False)
@@ -82,7 +106,7 @@ def _jax64(fn, *args):
         saved = jax_ibp.jnp, jax_crown.jnp
         jax_ibp.jnp = jax_crown.jnp = _F64()
         try:
-            out = jax.jit(fn)(*args)
+            out = jit_hoisted(fn)(*args)
             return jax.tree_util.tree_map(np.asarray, out)
         finally:
             jax_ibp.jnp, jax_crown.jnp = saved
@@ -121,7 +145,7 @@ def test_a_flax_msgpack_file_loads_through_load_model(net, tmp_path):
 def test_interval_bounds_equal_jaxs(net, eps):
     x, spec, p = net["x"], net["module"].spec, models.ibp_params(net["model"])
     assert tuple(spec) == net["model"].spec
-    want_lo, want_hi = jax.device_get(jax.jit(
+    want_lo, want_hi = jax.device_get(jit_hoisted(
         lambda xx: jax_ibp.logit_bounds(net["params"], spec, xx, eps, MEAN, STD))(x))
     lo, hi = ibp.logit_bounds(p, spec, torch.from_numpy(x), eps, MEAN, STD)
     _scale_close(lo.numpy(), want_lo, TOL32)
@@ -149,7 +173,8 @@ def test_crown_ibp_margins_equal_jaxs(net, eps):
         crown, ib = jax_crown.margin_spec_bounds(params, spec, xx, yy, eps, mean, std)
         return crown, ib, jax_crown.crown_ibp_margin(params, spec, xx, yy, eps, mean, std)
 
-    want = jax.device_get(jax.jit(lambda xx, yy: jax_fn(xx, yy, net["params"], MEAN, STD))(x, y))
+    want = jax.device_get(jit_hoisted(lambda xx, yy: jax_fn(xx, yy, net["params"], MEAN, STD))(
+        x, y))
     got = crown_ibp.margin_spec_bounds(p, spec, torch.from_numpy(x), torch.from_numpy(y), eps,
                                        MEAN, STD)
     got += (crown_ibp.crown_ibp_margin(p, spec, torch.from_numpy(x), torch.from_numpy(y), eps,
@@ -178,7 +203,7 @@ def test_verify_fns_equal_jaxs(net):
     p = models.ibp_params(net["model"])
     for jax_make, make in ((jax_ibp.make_verify_fn, ibp.make_verify_fn),
                            (jax_crown.make_crown_verify_fn, crown_ibp.make_crown_verify_fn)):
-        jax_verify = jax.jit(jax_make(net["params"], spec, MEAN, STD))  # eps is traced
+        jax_verify = jit_hoisted(jax_make(net["params"], spec, MEAN, STD))  # eps is traced
         for eps in (0.0, 1e-4):
             want = jax.device_get(jax_verify(x, y, jnp.float32(eps)))
             got = make(p, spec, MEAN, STD)(torch.from_numpy(x), torch.from_numpy(y), eps)

@@ -30,7 +30,7 @@ import pytest
 import torch
 from flax import serialization
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu.cli import import_weights as jax_cli
 from image_recognition_adversarial_example_attack_tpu.models import zoo as jax_zoo

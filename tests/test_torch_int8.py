@@ -24,7 +24,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.ops import int8 as jax_int8
 from image_recognition_adversarial_example_attack_tpu_torch.models import zoo
 from image_recognition_adversarial_example_attack_tpu_torch.models.efficientnet import (

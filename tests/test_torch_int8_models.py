@@ -22,7 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
+from _torch_port_helpers import init_shaped
+from _torch_scaleout_helpers import seeded_variables
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
     IMAGENET_MEAN, IMAGENET_STD)
 from image_recognition_adversarial_example_attack_tpu.core.normalize import (
@@ -90,11 +92,9 @@ def _perturb(tree, rng):
 @pytest.fixture(scope="module", params=list(FAMILIES))
 def family(request):
     name = request.param
-    with jax.enable_x64():
-        module = _jax_module(name, True)
-        variables = jax.jit(module.init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)))
-        variables = _perturb(jax.tree_util.tree_map(np.asarray, variables),
-                             np.random.RandomState(3))
+    module = _jax_module(name, True)
+    variables = seeded_variables(_port_model(name, True), FAMILIES[name][0],
+                                 lambda t, rng: _perturb(init_shaped(t, module), rng), seed=3)
     model = _port_model(name, True).double()
     model.load_state_dict(from_jax_variables(variables, FAMILIES[name][0]), strict=True)
     model.requires_grad_(False).eval()

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
@@ -214,9 +215,10 @@ def cell():
         lf_jax = jax_api.make_logits_fn(module, variables, IMAGENET_MEAN, IMAGENET_STD)
         ff_jax = jax_det.make_features_fn(module, variables, IMAGENET_MEAN, IMAGENET_STD)
         x = np.random.RandomState(18).uniform(0.05, 0.95, size=(8, 32, 32, 3))
-        y = np.asarray(lf_jax(jnp.asarray(x))).argmax(-1)
+        y = np.asarray(jax.jit(lf_jax)(jnp.asarray(x))).argmax(-1)
         y[::3] = (y[::3] + 1) % 10
-        scores = np.sort(np.asarray(jax_det.score_from_features(ff_jax(jnp.asarray(x)))))
+        scores = np.sort(np.asarray(jax.jit(lambda xx: jax_det.score_from_features(ff_jax(xx)))(
+            jnp.asarray(x))))
     return {"jax": (lf_jax, ff_jax),
             "port": (make_logits_fn(model, IMAGENET_MEAN, IMAGENET_STD),
                      make_features_fn(model, IMAGENET_MEAN, IMAGENET_STD)),
@@ -229,10 +231,10 @@ def test_defense_cell_matches(cell, arm):
     x, y, thr = cell["x"], cell["y"], cell["thr"]
     kw = {"attack_name": "fgsm", "eps": EPS, "alpha": 2 / 255, "steps": 1}
     with jax.enable_x64():
-        want = jax_eval.evaluate_defenses_batch(
-            lf_jax, ff_jax, jnp.asarray(x), jnp.asarray(y), thr,
+        want = jax.jit(lambda xx, yy, key: jax_eval.evaluate_defenses_batch(
+            lf_jax, ff_jax, xx, yy, thr,
             jax_eval.DefenseEvalConfig(**kw, defense=jax_pre.DefenseConfig(**ARMS[arm])),
-            jax.random.PRNGKey(0))
+            key))(jnp.asarray(x), jnp.asarray(y), jax.random.PRNGKey(0))
         want_stats = jax_eval.aggregate_stats(want)
     got = evaluate_defenses_batch(
         lf, ff, torch.from_numpy(x), torch.from_numpy(y), thr,

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.attacks.pgd import pgd_step as jax_pgd_step
 from image_recognition_adversarial_example_attack_tpu.defenses.preprocess import (
     defense_quantization as jax_defense_quantization)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.eval import metrics as jax_metrics
 from image_recognition_adversarial_example_attack_tpu_torch.eval import metrics
 

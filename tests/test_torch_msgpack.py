@@ -12,6 +12,7 @@ import pytest
 import torch
 from flax import serialization
 
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet, uncast_fns
 from image_recognition_adversarial_example_attack_tpu.models import zoo as jax_zoo
 from image_recognition_adversarial_example_attack_tpu_torch.models import flax_msgpack as fm
@@ -48,7 +49,7 @@ def test_port_reads_flax_to_bytes_and_computes_the_same_logits(tiny64, tmp_path)
     x = np.random.RandomState(0).uniform(0, 1, (3, 32, 32, 3))
     with jax.enable_x64():
         fns = uncast_fns(module, variables, model)
-        want = np.asarray(fns["jax"][0](jnp.asarray(x)))
+        want = np.asarray(jax.jit(fns["jax"][0])(jnp.asarray(x)))
     got = fns["port"][0](torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
 

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.core import images as jax_images
 from image_recognition_adversarial_example_attack_tpu.utils import native_loader as jax_native
 from image_recognition_adversarial_example_attack_tpu_torch.core import images

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.core import labels as jax_labels
 from image_recognition_adversarial_example_attack_tpu.core import normalize as jax_normalize
 from image_recognition_adversarial_example_attack_tpu.models import tiny as jax_tiny

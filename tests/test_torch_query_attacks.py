@@ -18,7 +18,7 @@ import torch
 from _torch_blackbox_helpers import (TOL, bandits_draws, boundary_draws, constant, feed,
                                      hsja_draws, make_setup, probe_draws, run_jax, simba_draws,
                                      t)
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu.attacks import bandits as jax_bandits
 from image_recognition_adversarial_example_attack_tpu.attacks import boundary as jax_boundary

@@ -13,7 +13,7 @@ from PIL import Image
 
 from _torch_blackbox_helpers import (bandits_draws, constant, feed, make_setup, probe_draws,
                                      simba_draws, square_draws, square_l2_draws, t)
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.eval import query_curves as jax_qc
 from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
     bandits, grad_est, make_logits_fn, predict_labels, simba, square)

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from _torch_blackbox_helpers import feed, run_jax, t
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.defenses import randomization as jax_rand
 from image_recognition_adversarial_example_attack_tpu_torch.attacks import eot
 from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed

@@ -13,9 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
+from _torch_port_helpers import _perturb as port_perturb
 from _torch_port_helpers import flax_resnet, port_resnet, torchvision_resnet50_keys
+from _torch_scaleout_helpers import seeded_variables
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
     IMAGENET_MEAN, IMAGENET_STD)
+from image_recognition_adversarial_example_attack_tpu.models import resnet as jax_resnet
 from image_recognition_adversarial_example_attack_tpu_torch.models import (
     from_jax_variables, load_model, resnet50, resnet_tiny, zoo)
 from image_recognition_adversarial_example_attack_tpu_torch.models.convert import (
@@ -74,14 +78,18 @@ def test_head_from_features_splits_the_forward(tiny64):
 
 
 def test_resnet50_through_the_bridge_float32():
-    module, variables = flax_resnet("resnet50", np.float32, size=64)
+    """On the port's seeded init through the converter (a Flax ResNet-50
+    ``init`` takes 12 s to compile)."""
+    module = jax_resnet.resnet50(dtype=jnp.float32)
+    variables = jax.tree_util.tree_map(lambda a: a.astype(np.float32), seeded_variables(
+        resnet50(), "resnet", port_perturb, seed=0))
     sd = from_jax_variables(variables, "resnet")
     assert set(sd) == torchvision_resnet50_keys() and len(sd) == 320
     model = port_resnet("resnet50", variables, np.float32)
     assert set(model.state_dict()) == torchvision_resnet50_keys()
     x = np.random.RandomState(3).rand(1, 64, 64, 3).astype(np.float32)
     xn = (x - IMAGENET_MEAN) / IMAGENET_STD
-    want = np.asarray(module.apply(variables, jnp.asarray(xn)))
+    want = np.asarray(jax.jit(module.apply)(variables, jnp.asarray(xn)))  # weights as arguments
     got = model(_nchw(xn)).numpy()
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale)

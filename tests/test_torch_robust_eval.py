@@ -23,7 +23,7 @@ from PIL import Image
 
 from _torch_blackbox_helpers import (TOL, apgd_draw, constant, eot_normals, feed, make_setup,
                                      run_jax, square_draws, square_l2_draws, t)
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.attacks import eot as jax_eot
 from image_recognition_adversarial_example_attack_tpu.eval import robust_eval as jax_re
 from image_recognition_adversarial_example_attack_tpu_torch.attacks import (

@@ -24,7 +24,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
     IMAGENET_MEAN, IMAGENET_STD)
 from image_recognition_adversarial_example_attack_tpu.core.images import (

@@ -13,7 +13,7 @@ on a mesh) against the JAX package's (tests/test_sharding.py).
   ResNet's input gradients too (float64; JAX's TestTPAllFamilies holds the
   other four by their forward).
 - The data axis: PGD, UAP and the eval cell sharded over the mesh equal the
-  one-device run and JAX's sharded run (float64; JAX's draws fed through
+  one-device run and JAX's one-device run (float64; JAX's draws fed through
   the port's draw functions); the eval cell of every other grid attack and
   the random defenses sharded equal the one-device run (each shard draws
   its rows of the unsharded draws; a draw that cannot route a shard's
@@ -40,7 +40,8 @@ import torch
 from jax.sharding import NamedSharding
 from jax.sharding import PartitionSpec as JP
 
-from _torch_cli_helpers import FAST, one_thread, summary_lines, write_images  # noqa: F401
+from _torch_cli_helpers import FAST, summary_lines, write_images  # noqa: F401
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import _perturb as port_perturb
 from _torch_port_helpers import port_resnet, uncast_fns
 from _torch_scaleout_helpers import seeded_variables
@@ -319,9 +320,10 @@ def _fed_start(monkeypatch, start: np.ndarray):
     monkeypatch.setattr(pgd, "draw_start", draw)
 
 
-def test_sharded_pgd_equals_one_device_and_jaxs(tiny64, mesh8, jmesh8, monkeypatch):
+def test_sharded_pgd_equals_one_device_and_jaxs(tiny64, mesh8, monkeypatch):
+    """The port's sharded PGD against its one-device run and JAX's
+    (one-device: JAX's own tests hold its sharded run to that)."""
     fns, x, y = tiny64
-    xs = NamedSharding(jmesh8, JP("data"))
     with jax.enable_x64():
         key = jax.random.PRNGKey(7)
         start = np.asarray(jax.random.uniform(key, x.shape, jnp.float64, -EPS, EPS))
@@ -329,8 +331,7 @@ def test_sharded_pgd_equals_one_device_and_jaxs(tiny64, mesh8, jmesh8, monkeypat
         def attack(xx, yy, k):
             return jax_pgd(fns["jax"][0], xx, yy, eps=EPS, alpha=ALPHA, steps=4, key=k)
 
-        want = np.asarray(jax.jit(attack, in_shardings=(xs, xs, None), out_shardings=xs)(
-            jax.device_put(jnp.asarray(x), xs), jax.device_put(jnp.asarray(y), xs), key))
+        want = np.asarray(jax.jit(attack)(jnp.asarray(x), jnp.asarray(y), key))
     lf = fns["port"][0]
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     # the port's own draws: sharded equals one device, bit for bit
@@ -350,7 +351,7 @@ def test_sharded_pgd_equals_one_device_and_jaxs(tiny64, mesh8, jmesh8, monkeypat
 
 
 @pytest.mark.parametrize("batch_size", [None, 6])
-def test_sharded_uap_equals_one_device_and_jaxs(batch_size, tiny64, mesh8, jmesh8):
+def test_sharded_uap_equals_one_device_and_jaxs(batch_size, tiny64, mesh8):
     fns, x, y = tiny64
     lf = fns["port"][0]
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
@@ -364,21 +365,18 @@ def test_sharded_uap_equals_one_device_and_jaxs(batch_size, tiny64, mesh8, jmesh
                                atol=1e-12)
     if batch_size is not None:
         return  # JAX's shuffles are other draws
-    xs = NamedSharding(jmesh8, JP("data"))
     with jax.enable_x64():
         def train(xx, yy, k):
             res = jax_uap(fns["jax"][0], xx, yy, eps=EPS, alpha=ALPHA, epochs=3, key=k)
             return res.delta, res.loss_per_epoch
 
-        delta, loss = jax.jit(train, in_shardings=(xs, xs, None))(
-            jax.device_put(jnp.asarray(x), xs), jax.device_put(jnp.asarray(y), xs),
-            jax.random.PRNGKey(5))
+        delta, loss = jax.jit(train)(jnp.asarray(x), jnp.asarray(y), jax.random.PRNGKey(5))
     np.testing.assert_allclose(got.delta.numpy(), np.asarray(delta), rtol=0, atol=TOL)
     np.testing.assert_allclose(got.loss_per_epoch.numpy(), np.asarray(loss), rtol=0, atol=TOL)
 
 
 @pytest.mark.parametrize("attack", ["fgsm", "pgd"])
-def test_sharded_eval_cell_counters_equal_one_device_and_jaxs(attack, tiny64, mesh8, jmesh8):
+def test_sharded_eval_cell_counters_equal_one_device_and_jaxs(attack, tiny64, mesh8):
     from image_recognition_adversarial_example_attack_tpu.eval.defense_eval import (
         DefenseEvalConfig as JaxConfig, evaluate_defenses_batch as jax_cell)
 
@@ -396,16 +394,13 @@ def test_sharded_eval_cell_counters_equal_one_device_and_jaxs(attack, tiny64, me
     assert dp.sharded_counts(out, n_valid=13)["count"] == 13
     if attack != "fgsm":
         return
-    xs = NamedSharding(jmesh8, JP("data"))
     jcfg = JaxConfig(attack_name="fgsm", eps=EPS, alpha=ALPHA, steps=2, cw_steps=2)
     with jax.enable_x64():
         def cell(xx, yy, thr, k):
             o = jax_cell(fns["jax"][0], fns["jax"][1], xx, yy, thr, jcfg, k)
             return {k2: jnp.sum(v) for k2, v in o.items() if k2 != "x_adv"}
 
-        want = jax.jit(cell, in_shardings=(xs, xs, None, None))(
-            jax.device_put(jnp.asarray(x), xs), jax.device_put(jnp.asarray(y), xs), 1.0,
-            jax.random.PRNGKey(3))
+        want = jax.jit(cell)(jnp.asarray(x), jnp.asarray(y), 1.0, jax.random.PRNGKey(3))
     assert {k: got[k] for k in STAT_KEYS} == {k: int(want[k]) for k in STAT_KEYS}
 
 

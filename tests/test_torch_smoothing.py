@@ -24,7 +24,7 @@ import pytest
 import torch
 
 from _torch_blackbox_helpers import feed, make_setup, t
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.defenses import smoothing as jax_sm
 from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
 from image_recognition_adversarial_example_attack_tpu_torch.defenses import smoothing

@@ -11,6 +11,7 @@ import json
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu_torch.attacks.api import (
     AttackParams, make_logits_fn, predict_labels, run_attack)
 from image_recognition_adversarial_example_attack_tpu_torch.cli.common import maybe_profile

@@ -12,7 +12,7 @@ import torch
 
 from _torch_blackbox_helpers import (TOL, constant, make_setup, run_jax, square_draws,
                                      square_l2_draws, t)
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.attacks import square as jax_square
 from image_recognition_adversarial_example_attack_tpu_torch.attacks import square
 from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed

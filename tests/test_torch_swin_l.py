@@ -23,6 +23,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu_torch.attacks.api import make_logits_fn
 from image_recognition_adversarial_example_attack_tpu_torch.models import swin, zoo
 from image_recognition_adversarial_example_attack_tpu_torch.models.convert import (

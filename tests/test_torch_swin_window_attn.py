@@ -22,6 +22,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu_torch.kernels import build, window_attn
 from image_recognition_adversarial_example_attack_tpu_torch.models import swin
 

@@ -30,7 +30,7 @@ import pytest
 import torch
 
 import _torch_train_helpers as H
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.train import adversarial as jax_adv
 from image_recognition_adversarial_example_attack_tpu_torch.core.rng import generator_from_seed
 from image_recognition_adversarial_example_attack_tpu_torch.train import adversarial, optim

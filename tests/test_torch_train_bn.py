@@ -25,7 +25,9 @@ import pytest
 import torch
 
 import _torch_train_helpers as H
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
+from _torch_port_helpers import init_shaped
+from _torch_scaleout_helpers import seeded_tree, seeded_variables
 from image_recognition_adversarial_example_attack_tpu.core.normalize import (
     normalize_batch as jax_normalize)
 from image_recognition_adversarial_example_attack_tpu.models import preactresnet as jax_preact
@@ -61,10 +63,9 @@ def _flat_stats(tree, prefix=""):
 
 
 def _preact_pair():
-    with jax.enable_x64():
-        module = jax_preact.PreActResNet(stage_sizes=(1, 1, 1, 1), dtype=jnp.float64)
-        var = jax.jit(module.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3)))
-    var = H._perturb(jax.tree_util.tree_map(np.asarray, var), np.random.RandomState(8))
+    module = jax_preact.PreActResNet(stage_sizes=(1, 1, 1, 1), dtype=jnp.float64)
+    var = seeded_variables(preactresnet.PreActResNet(stage_sizes=(1, 1, 1, 1)), "preactresnet",
+                           lambda t, rng: H._perturb(init_shaped(t, module), rng), seed=8)
     model = preactresnet.PreActResNet(stage_sizes=(1, 1, 1, 1), train_bn=True).double()
     model.requires_grad_(False)
     model.load_state_dict(from_jax_variables(var, "preactresnet"), strict=True)
@@ -124,9 +125,8 @@ def test_train_bn_off_is_frozen_batchnorm_bit_for_bit():
 
 def test_train_bn_is_refused_for_a_family_without_it(data):
     x, _, _ = data
-    with jax.enable_x64():
-        module = jax_resnet.resnet_tiny(num_classes=10)
-        var = jax.device_get(module.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))))
+    module = jax_resnet.resnet_tiny(num_classes=10)
+    var = init_shaped(seeded_tree(resnet.resnet_tiny(num_classes=10), "resnet"), module)
     jb = JaxBundle(name="resnet_tiny", module=module, variables=var, source="random",
                    input_size=32)
     with pytest.raises(ValueError) as theirs:

@@ -40,7 +40,7 @@ from flax import serialization
 from PIL import Image
 
 import _torch_train_helpers as H
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.cli import adversarial_train as jax_cli
 from image_recognition_adversarial_example_attack_tpu.core.normalize import (
     normalize_batch as jax_normalize)
@@ -80,17 +80,20 @@ def files(tmp_path_factory):
     rows = rs.randint(0, 256, (N, 3072)).astype(np.uint8)
     with open(d / "data_batch_1", "wb") as f:
         pickle.dump({b"data": rows, b"labels": rs.randint(0, 10, N).tolist()}, f)
-    weights = {}
-    for name in ("wrn_tiny", "ibp_tiny"):
-        var = H.variables(name, seed=6, dtype=np.float32)
-        weights[name] = root / f"{name}.msgpack"
-        weights[name].write_bytes(serialization.to_bytes(var))
-    return {"root": root, "c10": root / "c10", "weights": weights}
+    return {"root": root, "c10": root / "c10"}
+
+
+def _weights(files, model):
+    """``model``'s msgpack file, written at its first use."""
+    path = files["root"] / f"{model}.msgpack"
+    if not path.exists():
+        path.write_bytes(serialization.to_bytes(H.variables(model, seed=6, dtype=np.float32)))
+    return path
 
 
 def _base(files, model, out):
     return ["--cifar10_dir", str(files["c10"]), "--model", model, "--weights",
-            str(files["weights"][model]), "--epochs", str(EPOCHS), "--batch_size", str(BATCH),
+            str(_weights(files, model)), "--epochs", str(EPOCHS), "--batch_size", str(BATCH),
             "--seed", str(SEED), "--out", str(out)]
 
 

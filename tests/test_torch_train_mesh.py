@@ -1,7 +1,8 @@
 """The port's training step over a data-sharded batch (train/adversarial.py on
 a ``[cpu] * 8`` 4x2 mesh) against its unsharded step and against the JAX
-package's step jitted over its own 4x2 mesh (tests/test_train.py:105-131 and
-:490-515).
+package's step jitted on one device (tests/test_train.py:105-131 and
+:490-515 hold JAX's 4x2 step to its one-device step; the ``_4x2`` in the
+names is the port's mesh).
 
 wrn_tiny in float64 with both packages' float32 casts lifted
 (``_torch_train_helpers.lifted_casts``).  The port's sharded step draws
@@ -14,7 +15,7 @@ statistics, summed over the shards) with ``grad_accum=2``.
 TRADES, MART and free-AT sharded equal their unsharded steps (also eight
 lockstep shards switching every microsecond).  Remat with ``train_bn`` on a
 sharded batch (grad_accum 1 and 2, and the free objective) equals the
-port's unsharded remat step, its sharded step without remat and JAX's 4x2
+port's unsharded remat step, its sharded step without remat and JAX's
 step: the recompute reads the whole batch's statistics its first forward
 summed (``parallel.collective.checkpoint_contexts``).
 """
@@ -26,12 +27,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import NamedSharding
-from jax.sharding import PartitionSpec as JP
 
 import _torch_train_helpers as H
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_scaleout_helpers import seeded_variables
-from image_recognition_adversarial_example_attack_tpu.parallel import mesh as jax_mesh
 from image_recognition_adversarial_example_attack_tpu.train import adversarial as jax_adv
 from image_recognition_adversarial_example_attack_tpu_torch.attacks import pgd
 from image_recognition_adversarial_example_attack_tpu_torch.core.rng import (
@@ -75,16 +74,12 @@ def test_sharded_step_equals_unsharded_and_jaxs_4x2(case, data, mesh8, monkeypat
     x, y, var = data
     kw = {**BASE, **CASES[case]}
     key = jax.random.PRNGKey(5)
-    jmesh = jax_mesh.make_mesh(n_data=4, n_model=2)
-    xs = NamedSharding(jmesh, JP("data"))
     with H.lifted_casts():
         cfg_j = jax_adv.AdvTrainConfig(**kw)
         with jax.enable_x64():
             state0 = jax_adv.train_state_from_bundle(H.jax_bundle("wrn_tiny", var), cfg_j)
-            step_j = jax.jit(jax_adv.make_train_step(cfg_j, *H.stats("wrn_tiny")),
-                             in_shardings=(None, xs, xs, None), out_shardings=(None, None))
-            js, jm = step_j(state0, jax.device_put(jnp.asarray(x), xs),
-                            jax.device_put(jnp.asarray(y), xs), key)
+            step_j = jax.jit(jax_adv.make_train_step(cfg_j, *H.stats("wrn_tiny")))
+            js, jm = step_j(state0, jnp.asarray(x), jnp.asarray(y), key)
         cfg = adversarial.AdvTrainConfig(**kw)
         step = adversarial.make_train_step(cfg, *H.stats("wrn_tiny"))
         # the port's own draws: sharded against unsharded
@@ -155,30 +150,25 @@ REMAT_CASES = {"grad_accum1": dict(grad_accum=1), "grad_accum2": dict(grad_accum
 
 
 def _jax_remat_step(case, kw, var, x, y, key):
-    """JAX's step of ``case`` jitted with the batch over 'data' of a 4x2
-    mesh: (state, metrics[, delta])."""
-    jmesh = jax_mesh.make_mesh(n_data=4, n_model=2)
-    xs = NamedSharding(jmesh, JP("data"))
+    """JAX's step of ``case`` jitted on one device: (state, metrics[,
+    delta])."""
     cfg = jax_adv.AdvTrainConfig(**kw)
     with jax.enable_x64():
         state0 = jax_adv.train_state_from_bundle(H.jax_bundle("wrn_tiny", var), cfg)
-        put = lambda a: jax.device_put(jnp.asarray(a), xs)  # noqa: E731
         if case == "free":
-            step = jax.jit(jax_adv.make_free_step(cfg, *H.stats("wrn_tiny")),
-                           in_shardings=(None, xs, xs, None, xs),
-                           out_shardings=(None, None, None))
-            return state0, step(state0, put(x), put(y), key, put(np.zeros(x.shape)))
-        step = jax.jit(jax_adv.make_train_step(cfg, *H.stats("wrn_tiny")),
-                       in_shardings=(None, xs, xs, None), out_shardings=(None, None))
-        return state0, step(state0, put(x), put(y), key)
+            step = jax.jit(jax_adv.make_free_step(cfg, *H.stats("wrn_tiny")))
+            return state0, step(state0, jnp.asarray(x), jnp.asarray(y), key,
+                                jnp.zeros(x.shape))
+        step = jax.jit(jax_adv.make_train_step(cfg, *H.stats("wrn_tiny")))
+        return state0, step(state0, jnp.asarray(x), jnp.asarray(y), key)
 
 
 @pytest.mark.parametrize("case", list(REMAT_CASES))
 def test_sharded_train_bn_remat_equals_unsharded_no_remat_and_jaxs_4x2(case, data, mesh8,
                                                                         monkeypatch):
     """Remat with train_bn on the 4x2 mesh against the port's unsharded
-    remat step, the port's sharded step without remat and JAX's 4x2 step,
-    at JAX's tolerances."""
+    remat step, the port's sharded step without remat and JAX's step, at
+    JAX's tolerances."""
     x, y, var = data
     kw = {**BASE, "attack_steps": 2, "train_bn": True, "remat": True, **REMAT_CASES[case]}
     key = jax.random.PRNGKey(6)

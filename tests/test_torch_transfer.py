@@ -16,7 +16,7 @@ import pytest
 import torch
 from PIL import Image
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu.core.constants import (
@@ -73,9 +73,9 @@ def _port_cell(fns, x, attack, convention, **kw):
 
 def _jax_cell(fns, x, attack, convention, **kw):
     src, tgts = fns["jax"]
-    return jax_transfer.transfer_attack_batch(
-        src, tgts, jnp.asarray(x), attack, jax_api.AttackParams(**{**PARAMS, **kw}),
-        jax.random.PRNGKey(0), convention=convention)
+    return jax.jit(lambda xx, key: jax_transfer.transfer_attack_batch(
+        src, tgts, xx, attack, jax_api.AttackParams(**{**PARAMS, **kw}), key,
+        convention=convention))(jnp.asarray(x), jax.random.PRNGKey(0))
 
 
 def _assert_same(ours: TransferCell, theirs) -> None:
@@ -122,15 +122,15 @@ def test_ensemble_matches_jax(fns, x, weights):
     members = [fns["port"][0], fns["port"][1]["t1"]]
     jax_members = [fns["jax"][0], fns["jax"][1]["t1"]]
     ours = make_ensemble_logits_fn(members, weights)(torch.from_numpy(x))
-    theirs = jax_api.make_ensemble_logits_fn(jax_members, weights)(jnp.asarray(x))
+    theirs = jax.jit(jax_api.make_ensemble_logits_fn(jax_members, weights))(jnp.asarray(x))
     np.testing.assert_allclose(ours.numpy(), np.asarray(theirs), rtol=0, atol=1e-6)
     # and a cell attacking the ensemble
     src = make_ensemble_logits_fn(members, weights)
     cell = transfer_attack_batch(src, {"t2": fns["port"][1]["t2"]}, torch.from_numpy(x), "fgsm",
                                  AttackParams(**PARAMS))
-    want = jax_transfer.transfer_attack_batch(
+    want = jax.jit(lambda xx, key: jax_transfer.transfer_attack_batch(
         jax_api.make_ensemble_logits_fn(jax_members, weights), {"t2": fns["jax"][1]["t2"]},
-        jnp.asarray(x), "fgsm", jax_api.AttackParams(**PARAMS), jax.random.PRNGKey(0))
+        xx, "fgsm", jax_api.AttackParams(**PARAMS), key))(jnp.asarray(x), jax.random.PRNGKey(0))
     _assert_same(cell, want)
 
 
@@ -193,10 +193,14 @@ def test_streamed_cell_equals_the_resident_and_jaxs(fns, pngs, tmp_path):
     assert [str(p) for _, ps in saved for p in ps] == [str(p) for p in pngs]
 
     jsrc, jtgts = fns["jax"]
+    jitted = {}
 
     def jax_cell(xx, key, eps):
-        return jax_transfer.transfer_attack_batch(
-            jsrc, jtgts, xx, "fgsm", jax_api.AttackParams(**{**PARAMS, "eps": float(eps)}), key)
+        eps = float(eps)  # the cell's eps, as the streamed loop hands it
+        if eps not in jitted:
+            jitted[eps] = jax.jit(lambda x_, k: jax_transfer.transfer_attack_batch(
+                jsrc, jtgts, x_, "fgsm", jax_api.AttackParams(**{**PARAMS, "eps": eps}), k))
+        return jitted[eps](xx, key)
 
     theirs = jax_streaming.stream_transfer_cell(jax_cell, pngs, jax.random.PRNGKey(0), EPS,
                                                 names, chunk_size=2, size=32)

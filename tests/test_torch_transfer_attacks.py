@@ -19,7 +19,7 @@ import pytest
 import torch
 from jax._src.image import scale as jax_scale
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet, uncast_fns
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu.attacks import dim as jax_dim
@@ -43,7 +43,7 @@ def setup():
         model = port_resnet("resnet_tiny", variables, np.float64, num_classes=10)
         fns = uncast_fns(module, variables, model)
         x = np.random.RandomState(11).uniform(0.1, 0.9, size=(3, 32, 32, 3))
-        y = np.asarray(fns["jax"][0](jnp.asarray(x))).argmax(-1)
+        y = np.asarray(jax.jit(fns["jax"][0])(jnp.asarray(x))).argmax(-1)
     return fns["jax"][0], fns["port"][0], x, y
 
 

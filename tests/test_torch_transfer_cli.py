@@ -16,7 +16,8 @@ import numpy as np
 import pytest
 from flax import serialization
 
-from _torch_cli_helpers import one_thread, write_images  # noqa: F401 (one_thread: autouse)
+from _torch_cli_helpers import write_images
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet
 from image_recognition_adversarial_example_attack_tpu.cli import blackbox_transfer as jax_bb
 from image_recognition_adversarial_example_attack_tpu.cli import dataset_check as jax_dc
@@ -40,10 +41,10 @@ def setup(tmp_path_factory):
     root = tmp_path_factory.mktemp("transfer_cli")
     weights = root / "weights"
     weights.mkdir()
-    _, variables = flax_resnet("resnet_tiny", np.float32, num_classes=10, size=224, seed=6)
+    _, variables = flax_resnet("resnet_tiny", np.float32, num_classes=10, seed=6)
     (weights / "resnet_tiny.msgpack").write_bytes(serialization.to_bytes(variables))
-    tiny = TinyCNN(num_classes=1000)
-    tiny_vars = jax.jit(tiny.init)(jax.random.PRNGKey(1), jnp.zeros((1, 224, 224, 3)))
+    tiny = TinyCNN(num_classes=1000)  # its parameters do not depend on the input's size
+    tiny_vars = jax.jit(tiny.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 3)))
     (weights / "tiny.msgpack").write_bytes(serialization.to_bytes(jax.device_get(tiny_vars)))
     images = root / "imgs"
     images.mkdir()

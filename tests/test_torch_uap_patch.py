@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from _torch_blackbox_helpers import feed, make_setup, run_jax, t
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.attacks import eot as jax_eot
 from image_recognition_adversarial_example_attack_tpu.attacks import patch as jax_patch
 from image_recognition_adversarial_example_attack_tpu.attacks import uap as jax_uap

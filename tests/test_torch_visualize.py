@@ -16,7 +16,7 @@ import torch
 from flax import serialization
 from PIL import Image
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import jax_zoo_init_once, module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from _torch_port_helpers import flax_resnet, port_resnet, uncast_fns
 from image_recognition_adversarial_example_attack_tpu.eval import trajectory as jax_traj
 from image_recognition_adversarial_example_attack_tpu_torch.eval import trajectory
@@ -33,7 +33,7 @@ def pair():
     fns = uncast_fns(module, variables, model)
     x = np.random.RandomState(2).uniform(0.05, 0.95, (2, 32, 32, 3))
     with jax.enable_x64():
-        y = np.asarray(fns["jax"][0](jnp.asarray(x))).argmax(-1)
+        y = np.asarray(jax.jit(fns["jax"][0])(jnp.asarray(x))).argmax(-1)
     return {"jax": fns["jax"][0], "port": fns["port"][0], "x": x, "y": y}
 
 
@@ -49,10 +49,10 @@ def test_pgd_trajectory_matches_jax(pair, track):
     (y_true[0], 805); resnet_tiny has 10 classes, so 805 reads class 9 on
     both sides, as do -1 and 12 in the explicit list."""
     with jax.enable_x64():
-        theirs = jax_traj.pgd_trajectory(pair["jax"], jnp.asarray(pair["x"]),
-                                         jnp.asarray(pair["y"]), eps=EPS, alpha=ALPHA, steps=4,
-                                         key=jax.random.PRNGKey(0), track_classes=track,
-                                         random_start=False)
+        theirs = jax.jit(lambda x, y: jax_traj.pgd_trajectory(
+            pair["jax"], x, y, eps=EPS, alpha=ALPHA, steps=4, key=jax.random.PRNGKey(0),
+            track_classes=track, random_start=False))(jnp.asarray(pair["x"]),
+                                                      jnp.asarray(pair["y"]))
     ours = trajectory.pgd_trajectory(pair["port"], torch.from_numpy(pair["x"]),
                                      torch.from_numpy(pair["y"]), eps=EPS, alpha=ALPHA, steps=4,
                                      generator=torch.Generator(), track_classes=track,
@@ -67,8 +67,8 @@ def test_pgd_trajectory_matches_jax(pair, track):
 
 def test_fgsm_trajectory_matches_jax(pair):
     with jax.enable_x64():
-        theirs = jax_traj.fgsm_trajectory(pair["jax"], jnp.asarray(pair["x"]),
-                                          jnp.asarray(pair["y"]), eps=EPS)
+        theirs = jax.jit(lambda x, y: jax_traj.fgsm_trajectory(pair["jax"], x, y, eps=EPS))(
+            jnp.asarray(pair["x"]), jnp.asarray(pair["y"]))
     ours = trajectory.fgsm_trajectory(pair["port"], torch.from_numpy(pair["x"]),
                                       torch.from_numpy(pair["y"]), eps=EPS)
     assert ours.probs.shape == (2, 2)
@@ -108,7 +108,7 @@ def cli_inputs(tmp_path_factory):
     root = tmp_path_factory.mktemp("viz")
     img = root / "cat.png"
     Image.fromarray((np.random.RandomState(3).rand(80, 96, 3) * 255).astype(np.uint8)).save(img)
-    _, variables = flax_resnet("resnet_tiny", np.float32, num_classes=10, size=224, seed=8)
+    _, variables = flax_resnet("resnet_tiny", np.float32, num_classes=10, seed=8)
     weights = root / "resnet_tiny.msgpack"
     weights.write_bytes(serialization.to_bytes(variables))
     args = ["--image", str(img), "--model", "resnet_tiny", "--weights", str(weights),

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cli_helpers import one_thread  # noqa: F401 (autouse)
+from _torch_port_helpers import module_time_limit, one_thread, time_limit  # noqa: F401 (autouse)
 from image_recognition_adversarial_example_attack_tpu.attacks import api as jax_api
 from image_recognition_adversarial_example_attack_tpu_torch.attacks import (
     ATTACK_NAMES, ATTACK_THREAT, AttackParams, make_logits_fn, predict_labels, run_attack)
